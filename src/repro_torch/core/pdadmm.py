@@ -1,7 +1,6 @@
-"""pdADMM-G: the paper's Algorithm 1, single host, on PyTorch.
+"""pdADMM-G / pdADMM-G-Q: the paper's Algorithm 1, single host, on PyTorch.
 
-Counterpart of ``repro.core.pdadmm`` for pdADMM-G (q may be projected onto
-a grid; p may not yet — pdADMM-G-Q comes with the port's next slice).
+Counterpart of ``repro.core.pdadmm``.
 
 Variable layout (0-based, node-major):
   p[l] : [V, dims[l]]     layer input,  l = 0..L-1, p[0] = X (never updated)
@@ -16,6 +15,7 @@ Each layer's residual r = z - pW - b is computed once per iteration and
 chained through the p-, W-, b- and z-updates (see the reference's module
 docstring). With an equal-width hidden block the solvers run layer-stacked
 over a leading [L_h, ...] axis, so each family is one kernel launch.
+``iterate_reference`` keeps the pre-optimization math as the oracle.
 
 State tensors are never updated in place: ``init_state`` gives p[l+1] and
 q[l] the same tensor, as the reference does.
@@ -30,7 +30,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import subproblems as sp
-from repro_torch.core.quantize import QuantGrid
+from repro_torch.core.quantize import QuantGrid, uniform_grid
 
 
 class ADMMState(NamedTuple):
@@ -76,10 +76,8 @@ def init_state(seed, X, dims: Sequence[int], config: ADMMConfig, *,
     ``torch.Generator``; the weights are drawn on the CPU and moved, so a
     seed gives the same weights on every device (not the reference's
     ``jax.random`` numbers — tests hand the reference's state over through
-    ``core.interop.state_from_numpy``)."""
-    if config.quantize_p:
-        raise NotImplementedError("quantize_p (pdADMM-G-Q) comes with the "
-                                  "port's next slice")
+    ``core.interop.state_from_numpy``). With ``quantize_p`` q and p start
+    on the grid and share one tensor, as in the reference."""
     device = resolve_device(device)
     gen = _generator(seed)
     X = X.to(device)
@@ -97,6 +95,8 @@ def init_state(seed, X, dims: Sequence[int], config: ADMMConfig, *,
         z.append(zl)
         if l < L - 1:
             ql = relu(zl)
+            if config.quantize_p and config.grid is not None:
+                ql = config.grid.project(ql)
             q.append(ql)
             p.append(ql)
             u.append(torch.zeros_like(ql))
@@ -108,6 +108,24 @@ def init_state(seed, X, dims: Sequence[int], config: ADMMConfig, *,
     return ADMMState(p, W, b, z, q, u, tau, theta)
 
 
+def _u_wire(u, u_codecs):
+    """The receiver's view of each dual u_l after its wire codec (the
+    stored dual stays exact)."""
+    if u_codecs is None:
+        return list(u)
+    from repro_torch.comm.codecs import fake_quantize
+    return [ul if c is None else fake_quantize(c, ul)
+            for c, ul in zip(u_codecs, u)]
+
+
+def _default_grids(config: ADMMConfig, L: int, p_grids, q_grids):
+    if p_grids is None:
+        p_grids = (config.grid if config.quantize_p else None,) * L
+    if q_grids is None:
+        q_grids = (config.grid if config.quantize_q else None,) * (L - 1)
+    return p_grids, q_grids
+
+
 def iterate(state: ADMMState, X, labels, label_mask,
             config: ADMMConfig, p_grids: Optional[tuple] = None,
             q_grids: Optional[tuple] = None,
@@ -116,27 +134,24 @@ def iterate(state: ADMMState, X, labels, label_mask,
 
     Within an iteration the updates are sequential across variable families
     (p, W, b, z, q, u) and parallel across layers within each family.
-    ``q_grids`` (length L-1) projects each q_l; per-layer ``p_grids``,
-    ``quantize_p`` and ``u_codecs`` wait for later slices of the port.
+    ``p_grids`` (length L, entry 0 unused) and ``q_grids`` (length L-1)
+    give each layer its own grid; by default every layer uses
+    ``config.grid`` where ``quantize_p`` / ``quantize_q`` ask for it.
+    ``u_codecs`` (length L-1) quantizes the transmitted view of each dual
+    u_l that layer l+1's p- and W-updates read; the stored dual stays exact.
     """
     L = len(state.W)
-    if config.quantize_p or (p_grids is not None
-                             and any(g is not None for g in p_grids)):
-        raise NotImplementedError("a quantized p (pdADMM-G-Q) comes with the "
-                                  "port's next slice")
-    if u_codecs is not None:
-        raise NotImplementedError("u wire codecs come with the port's comm "
-                                  "slice")
-    if q_grids is None:
-        q_grids = (config.grid if config.quantize_q else None,) * (L - 1)
-    if config.stack_hidden and _stackable(state, q_grids):
-        return _iterate_stacked(state, X, labels, label_mask, config, q_grids)
-    return _iterate_layers(state, X, labels, label_mask, config, q_grids)
+    p_grids, q_grids = _default_grids(config, L, p_grids, q_grids)
+    if config.stack_hidden and _stackable(state, p_grids, q_grids):
+        return _iterate_stacked(state, X, labels, label_mask, config,
+                                p_grids, q_grids, u_codecs)
+    return _iterate_layers(state, X, labels, label_mask, config, p_grids,
+                           q_grids, u_codecs)
 
 
-def _stackable(state: ADMMState, q_grids) -> bool:
+def _stackable(state: ADMMState, p_grids, q_grids) -> bool:
     """True when layers 1..L-2 share a square [h, h] weight (equal-width
-    hidden block) and the q grids are homogeneous."""
+    hidden block) and the grids are homogeneous over the stacked ranges."""
     L = len(state.W)
     if L < 4:                       # need >= 2 square layers to win anything
         return False
@@ -145,12 +160,13 @@ def _stackable(state: ADMMState, q_grids) -> bool:
         return False
     if state.W[0].shape[1] != h or state.W[L - 1].shape[0] != h:
         return False
-    return len(set(q_grids)) <= 1
+    return len(set(p_grids[1:L - 1])) <= 1 and len(set(q_grids)) <= 1
 
 
-def _iterate_layers(state, X, labels, label_mask, config, q_grids):
-    """Per-layer path: residual chaining + scalar backtracking,
-    heterogeneous widths allowed."""
+def _iterate_layers(state, X, labels, label_mask, config, p_grids, q_grids,
+                    u_codecs):
+    """Per-layer path: residual chaining + incremental backtracking,
+    heterogeneous widths and grids allowed."""
     nu, rho = config.nu, config.rho
     uk = config.use_kernels
     decay = config.backtrack_decay
@@ -159,6 +175,7 @@ def _iterate_layers(state, X, labels, label_mask, config, q_grids):
     p, W, b, z, q, u = (list(state.p), list(state.W), list(state.b),
                         list(state.z), list(state.q), list(state.u))
     tau, theta = list(state.tau), list(state.theta)
+    u_wire = _u_wire(u, u_codecs)
 
     # ---- entry residuals r_l = z_l - p_l W_l - b_l (one fused op each) ----
     r = [sp._residual(p[l], W[l], b[l], z[l], uk) for l in range(L)]
@@ -166,13 +183,13 @@ def _iterate_layers(state, X, labels, label_mask, config, q_grids):
     # ---- p-updates (l = 1..L-1) --------------------------------------------
     for l in range(1, L):
         p[l], tau[l], r[l] = sp.update_p(
-            p[l], W[l], b[l], z[l], q[l - 1], u[l - 1], nu, rho,
-            tau[l] * decay + 1e-6, r0=r[l], use_kernels=uk)
+            p[l], W[l], b[l], z[l], q[l - 1], u_wire[l - 1], nu, rho,
+            tau[l] * decay + 1e-6, grid=p_grids[l], r0=r[l], use_kernels=uk)
 
     # ---- W-updates -----------------------------------------------------------
     for l in range(L):
         qp = q[l - 1] if l > 0 else None
-        up = u[l - 1] if l > 0 else None
+        up = u_wire[l - 1] if l > 0 else None
         W[l], theta[l], r[l] = sp.update_W(
             p[l], W[l], b[l], z[l], qp, up, nu, rho,
             theta[l] * decay + 1e-6, first=(l == 0), r0=r[l], use_kernels=uk)
@@ -229,7 +246,8 @@ def _iterate_layers(state, X, labels, label_mask, config, q_grids):
     return new, metrics
 
 
-def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
+def _iterate_stacked(state, X, labels, label_mask, config, p_grids, q_grids,
+                     u_codecs):
     """Layer-stacked path for the equal-width hidden block (layers 1..L-2
     share [h, h] weights — the paper's large-scale configuration). Each
     variable family is ONE batched solve over the [L_h, ...] stack; the
@@ -239,6 +257,7 @@ def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
     decay = config.backtrack_decay
     L = len(state.W)
     last = L - 1
+    u_wire = _u_wire(state.u, u_codecs)
 
     # ---- stack the homogeneous block (layers 1..L-2) ------------------------
     ph = torch.stack(state.p[1:last])
@@ -246,10 +265,11 @@ def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
     bh = torch.stack(state.b[1:last])
     zh = torch.stack(state.z[1:last])
     qph = torch.stack(state.q[0:last - 1])      # q_{l-1} for l in 1..L-2
-    uph = torch.stack(state.u[0:last - 1])
+    uph = torch.stack(u_wire[0:last - 1])
     tauh = torch.stack(state.tau[1:last])
     thetah = torch.stack(state.theta[1:last])
-    q_grid = q_grids[0] if q_grids else None
+    grid_h = p_grids[1]
+    q_grid = q_grids[0]
 
     # ---- entry residuals -------------------------------------------------------
     r0 = sp._residual(state.p[0], state.W[0], state.b[0], state.z[0], uk)
@@ -259,11 +279,13 @@ def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
 
     # ---- p-updates: one batched solve for the block + the last layer ---------
     ph, tauh, rh = sp.update_p(ph, Wh, bh, zh, qph, uph, nu, rho,
-                               tauh * decay + 1e-6, r0=rh, use_kernels=uk)
+                               tauh * decay + 1e-6, grid=grid_h, r0=rh,
+                               use_kernels=uk)
     p_last, tau_last, rl = sp.update_p(
         state.p[last], state.W[last], state.b[last], state.z[last],
-        state.q[last - 1], state.u[last - 1], nu, rho,
-        state.tau[last] * decay + 1e-6, r0=rl, use_kernels=uk)
+        state.q[last - 1], u_wire[last - 1], nu, rho,
+        state.tau[last] * decay + 1e-6, grid=p_grids[last], r0=rl,
+        use_kernels=uk)
 
     # ---- W-updates ---------------------------------------------------------------
     W0, theta0, r0 = sp.update_W(
@@ -274,7 +296,7 @@ def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
                                  use_kernels=uk)
     W_last, theta_last, rl = sp.update_W(
         p_last, state.W[last], state.b[last], state.z[last],
-        state.q[last - 1], state.u[last - 1], nu, rho,
+        state.q[last - 1], u_wire[last - 1], nu, rho,
         state.theta[last] * decay + 1e-6, first=False, r0=rl, use_kernels=uk)
 
     # ---- b-updates (exact, matmul-free) ------------------------------------------
@@ -335,6 +357,70 @@ def _iterate_stacked(state, X, labels, label_mask, config, q_grids):
     return new, metrics
 
 
+def iterate_reference(state: ADMMState, X, labels, label_mask,
+                      config: ADMMConfig, p_grids: Optional[tuple] = None,
+                      q_grids: Optional[tuple] = None,
+                      u_codecs: Optional[tuple] = None) -> tuple:
+    """The pre-optimization Algorithm-1 iteration: naive per-trial φ
+    re-evaluation, per-layer matmuls for b/z, no kernel dispatch. Ground
+    truth for the fast path's equivalence tests."""
+    nu, rho = config.nu, config.rho
+    L = len(state.W)
+    p_grids, q_grids = _default_grids(config, L, p_grids, q_grids)
+
+    p, W, b, z, q, u = (list(state.p), list(state.W), list(state.b),
+                        list(state.z), list(state.q), list(state.u))
+    tau, theta = list(state.tau), list(state.theta)
+    u_wire = _u_wire(u, u_codecs)
+
+    for l in range(1, L):
+        p[l], tau[l] = sp.update_p_reference(
+            p[l], W[l], b[l], z[l], q[l - 1], u_wire[l - 1], nu, rho,
+            tau[l] * config.backtrack_decay + 1e-6, grid=p_grids[l])
+
+    for l in range(L):
+        qp = q[l - 1] if l > 0 else None
+        up = u_wire[l - 1] if l > 0 else None
+        W[l], theta[l] = sp.update_W_reference(
+            p[l], W[l], b[l], z[l], qp, up, nu, rho,
+            theta[l] * config.backtrack_decay + 1e-6, first=(l == 0))
+
+    for l in range(L):
+        b[l] = sp.update_b(p[l], W[l], z[l])
+
+    for l in range(L - 1):
+        a = sp.linear(p[l], W[l], b[l])
+        z[l] = sp.update_z_hidden(a, q[l], z[l], nu)
+    aL = sp.linear(p[L - 1], W[L - 1], b[L - 1])
+    z[L - 1] = sp.update_z_last_reference(aL, z[L - 1], labels, label_mask,
+                                          nu, config.fista_iters)
+
+    dual_res = []
+    for l in range(L - 1):
+        q[l] = sp.update_q(p[l + 1], u[l], relu(z[l]), nu, rho,
+                           grid=q_grids[l])
+        dual_res.append(rho * torch.linalg.norm(q[l] - state.q[l]))
+
+    res_sq = 0.0
+    layer_res = []
+    for l in range(L - 1):
+        u[l], rc = sp.update_u(u[l], p[l + 1], q[l], rho)
+        rsq = sp._dot(rc, rc)
+        res_sq = res_sq + rsq
+        layer_res.append(torch.sqrt(rsq))
+
+    new = ADMMState(p, W, b, z, q, u, tau, theta)
+    obj = lagrangian(new, labels, label_mask, config)
+    empty = torch.zeros((0,), dtype=torch.float32, device=obj.device)
+    metrics = {
+        "objective": obj,
+        "residual": torch.sqrt(torch.as_tensor(res_sq, device=obj.device)),
+        "layer_residuals": torch.stack(layer_res) if layer_res else empty,
+        "layer_dual_residuals": torch.stack(dual_res) if dual_res else empty,
+    }
+    return new, metrics
+
+
 def lagrangian(s: ADMMState, labels, label_mask, config: ADMMConfig):
     """L_ρ (Section III-B)."""
     nu, rho = config.nu, config.rho
@@ -361,6 +447,19 @@ def forward_accuracy(s: ADMMState, X, labels, mask) -> torch.Tensor:
     pred = torch.argmax(logits, dim=-1)
     correct = ((pred == labels.long()) * mask).sum()
     return correct / torch.clamp(mask.sum(), min=1.0)
+
+
+def calibrate_grid(seed, X, dims, bits: int, margin_frac: float = 0.05):
+    """Fit a b-bit uniform grid to this model's activation range, sampled at
+    a forward-consistent init (``seed``: an int or a CPU torch.Generator, as
+    for ``init_state``) — the analogue of the paper choosing Δ = {-1..20}
+    to cover its activations."""
+    state = init_state(seed, X, dims, ADMMConfig(), device=X.device)
+    vals = torch.cat([q.reshape(-1)[:20_000] for q in state.q] or
+                     [X.reshape(-1)[:20_000]])
+    lo, hi = float(torch.min(vals)), float(torch.max(vals))
+    margin = (hi - lo) * margin_frac
+    return uniform_grid(bits, lo - margin, hi + margin)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,15 @@
-"""The pdADMM-G subproblem solvers (Appendix A of the paper).
+"""The pdADMM-G / pdADMM-G-Q subproblem solvers (Appendix A/B of the paper).
 
-Counterpart of ``repro.core.subproblems`` for the grid-free family. Layout
-is node-major: p_l, q_l, z_l, u_l are [V, n], W_l is [n_in, n_out], b_l is
-[n_out], and the linear map is z = p @ W + b.
+Counterpart of ``repro.core.subproblems``. Layout is node-major: p_l, q_l,
+z_l, u_l are [V, n], W_l is [n_in, n_out], b_l is [n_out], and the linear
+map is z = p @ W + b.
 
-Every solver also takes an optional leading layer axis ([L, V, n],
-[L, n_in, n_out], [L, n_out]); scalars such as ``_dot`` then reduce over the
-last two dims and give one value per layer. One function serves the
+Every fast solver also takes an optional leading layer axis ([L, V, n],
+[L, n_in, n_out], [L, n_out]); scalars such as ``_dot`` then reduce over
+the last two dims and give one value per layer. One function serves the
 per-layer path and the layer-stacked path, standing in for ``jax.vmap``.
-
-The projected (quantized) p-update needs the ``backtrack_resnorm`` kernel
-and comes with pdADMM-G-Q in the port's next slice; ``update_p`` raises
-``NotImplementedError`` for a grid until then.
+The ``*_reference`` solvers (the naive engine, the ground truth of the
+tests) take one layer at a time.
 """
 from __future__ import annotations
 
@@ -64,21 +62,58 @@ def grad_W(p, W, b, z, nu):
 
 
 # ---------------------------------------------------------------------------
-# Backtracking on the exact quadratic restriction of φ along -g
+# Backtracking quadratic-approximation steps (p- and W-updates)
+#
+# The accept test at trial τ is  φ(x⁺) <= U(x⁺;τ) = φ0 + gᵀd + (τ/2)||d||²
+# (d = x⁺ - x0), with the same 1e-6 relative slack everywhere.
+#
+#   * `_backtrack` — the naive engine: φ on the full tensors every trial.
+#     The ground truth of the `update_*_reference` solvers; one layer, and
+#     it stops on the host when the test passes.
+#   * `_backtrack_scalar` — the unprojected step x⁺ = x0 - g/τ: φ is
+#     exactly quadratic along -g, so every trial is three cached scalars.
+#   * the projected step of `update_p` (pdADMM-G-Q) is only piecewise
+#     linear in 1/τ, so each trial evaluates φ(x⁺) through ||r0 - dW||²,
+#     one `backtrack_resnorm` kernel per trial.
+#
+# The fast engines run exactly `max_doublings` rounds of
+# `where(needs_doubling, 2τ, τ)` with no host sync, where the reference
+# runs a device `while_loop` that stops when every entry passes: an entry
+# that passed is never tested again, so τ is the same.
 # ---------------------------------------------------------------------------
+
+def _tau0(t0, like):
+    """τ0 as f32 (as in the reference) of ``like``'s shape and device."""
+    t = torch.as_tensor(t0, dtype=torch.float32, device=like.device)
+    return t.expand(like.shape).clone()
+
+
+def _backtrack(x0, g, phi_at, phi0, t0, *, grid: Optional[QuantGrid],
+               max_doublings: int = 12):
+    """Find τ = t0·2^j with φ(x⁺) <= U(x⁺;τ), x⁺ = proj(x0 - g/τ) (the
+    projection only with a grid). One layer; returns (x⁺, τ)."""
+    def step(t):
+        x = x0 - g / t
+        return grid.project(x) if grid is not None else x
+
+    t = _tau0(t0, phi0)
+    for _ in range(max_doublings):
+        x = step(t)
+        d = x - x0
+        u_val = phi0 + _dot(g, d) + 0.5 * t * _dot(d, d)
+        if not bool(phi_at(x) > u_val + 1e-6 * torch.abs(u_val)):
+            break
+        t = t * 2.0
+    return step(t), t
+
 
 def _backtrack_scalar(phi0, g_sq, curv, t0, *, max_doublings: int = 12):
     """Matmul-free backtracking:  φ(x0 - g/τ) = φ0 - ||g||²/τ + gᵀHg/(2τ²),
-    U(τ) = φ0 - ||g||²/(2τ); τ doubles while φ > U + 1e-6|U|.
-
-    The reference runs a device ``while_loop`` that stops when every entry
-    passes or after ``max_doublings`` rounds. Here exactly ``max_doublings``
-    rounds of ``where(needs_doubling, 2τ, τ)`` run with no host sync: an
-    entry that passes is never doubled again, so τ is the same. τ is f32,
-    as in the reference; the tests are in the inputs' dtype.
+    U(τ) = φ0 - ||g||²/(2τ); τ doubles while φ > U + 1e-6|U|. Every
+    input may hold one entry per stacked layer. τ is f32, as in the
+    reference; the tests are in the inputs' dtype.
     """
-    t = torch.as_tensor(t0, dtype=torch.float32, device=phi0.device)
-    t = t.expand(phi0.shape).clone()
+    t = _tau0(t0, phi0)
     for _ in range(max_doublings):
         s = 1.0 / t
         phi_x = phi0 - s * g_sq + 0.5 * s * s * curv
@@ -112,6 +147,16 @@ def _matmul(a, bmat, use_kernels: bool):
     return a @ bmat
 
 
+def _resnorm_sq(r0, d, W, active, use_kernels: bool):
+    """||r0 - d W||² per layer. With kernels, the layers whose ``active``
+    entry is False are skipped (their value is 0 and is not read)."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        return ops.backtrack_resnorm(r0, d, W, active)
+    r = r0 - d @ W
+    return _dot(r, r)
+
+
 def _zupdate(a, q, z_old, nu, use_kernels: bool):
     """Eq.-6 ReLU z-update dispatch (the minimizer is ν-independent, so the
     kernel takes no ν)."""
@@ -124,30 +169,53 @@ def _zupdate(a, q, z_old, nu, use_kernels: bool):
 def update_p(p, W, b, z, q_prev, u_prev, nu, rho, tau0,
              grid: Optional[QuantGrid] = None, r0=None,
              use_kernels: bool = False, max_doublings: int = 12):
-    """p-subproblem (Eq. 3), matmul-minimal.
+    """p-subproblem (Eq. 3 / Eq. 10), matmul-minimal.
 
     Returns ``(p_new, tau_used, r_new)`` with ``r_new = z - p_new W - b``.
-    With ``r0 = z - pW - b`` supplied the solve is exactly 2 matmuls
-    (r0 Wᵀ for the gradient, gW for the curvature/residual axpy).
+    With ``r0 = z - pW - b`` supplied the unprojected solve is exactly 2
+    matmuls (r0 Wᵀ for the gradient, gW for the curvature/residual axpy).
+    With a ``grid`` (pdADMM-G-Q) x⁺ = proj(p - g/τ), and each trial costs
+    one ||r0 - dW||² contraction for the layers still searching.
     """
-    if grid is not None:
-        raise NotImplementedError(
-            "update_p with a grid (pdADMM-G-Q) needs the backtrack_resnorm "
-            "kernel, which the port's next slice brings")
     if r0 is None:
         r0 = _residual(p, W, b, z, use_kernels)
     g = _pgrad(r0, W, u_prev, p, q_prev, nu, rho, use_kernels)
     d0 = p - q_prev
     phi0 = (0.5 * nu * _dot(r0, r0) + _dot(u_prev, d0)
             + 0.5 * rho * _dot(d0, d0))
-    # x⁺(τ) = p - g/τ is linear in 1/τ: the residual moves along gW and
-    # every trial is scalar arithmetic.
-    gW = _matmul(g, W, use_kernels)
-    g_sq = _dot(g, g)
-    curv = nu * _dot(gW, gW) + rho * g_sq          # gᵀ(ν WWᵀ + ρI)g
-    tau = _backtrack_scalar(phi0, g_sq, curv, tau0,
-                            max_doublings=max_doublings)
-    return p - g / _col(tau), tau, r0 + gW / _col(tau)
+
+    if grid is None:
+        # x⁺(τ) = p - g/τ is linear in 1/τ: the residual moves along gW and
+        # every trial is scalar arithmetic.
+        gW = _matmul(g, W, use_kernels)
+        g_sq = _dot(g, g)
+        curv = nu * _dot(gW, gW) + rho * g_sq          # gᵀ(ν WWᵀ + ρI)g
+        tau = _backtrack_scalar(phi0, g_sq, curv, tau0,
+                                max_doublings=max_doublings)
+        return p - g / _col(tau), tau, r0 + gW / _col(tau)
+
+    # Projected path: φ(x⁺) = (ν/2)||r0 - dW||² + uᵀ(d + d0) + (ρ/2)||d + d0||²
+    # with d = x⁺ - p, evaluated exactly at every trial.
+    def trial_d(t):
+        return grid.project(p - g / _col(t)) - p
+
+    t = _tau0(tau0, phi0)
+    active = torch.ones(phi0.shape, dtype=torch.bool, device=phi0.device)
+    for _ in range(max_doublings):
+        d = trial_d(t)
+        dq = d + d0
+        phi_x = (0.5 * nu * _resnorm_sq(r0, d, W, active, use_kernels)
+                 + _dot(u_prev, dq) + 0.5 * rho * _dot(dq, dq))
+        u_val = phi0 + _dot(g, d) + 0.5 * t * _dot(d, d)
+        active = active & (phi_x > u_val + 1e-6 * torch.abs(u_val))
+        t = torch.where(active, t * 2.0, t)
+    d = trial_d(t)
+    if use_kernels:
+        from repro_torch.kernels import ops
+        r_new = ops.fused_linear(d, W, None, r0, mode="residual")
+    else:
+        r_new = r0 - d @ W
+    return p + d, t, r_new
 
 
 def update_W(p, W, b, z, q_prev, u_prev, nu, rho, theta0, *, first: bool,
@@ -171,6 +239,32 @@ def update_W(p, W, b, z, q_prev, u_prev, nu, rho, theta0, *, first: bool,
     theta = _backtrack_scalar(phi0, g_sq, curv, theta0,
                               max_doublings=max_doublings)
     return W - g / _col(theta), theta, r0 + pg / _col(theta)
+
+
+# -- pre-optimization reference solvers (naive full-tensor backtracking) -----
+
+def update_p_reference(p, W, b, z, q_prev, u_prev, nu, rho, tau0,
+                       grid: Optional[QuantGrid] = None):
+    """The pre-fast-path p-subproblem: a fresh matmul per backtracking trial.
+    Ground truth for the fast engines; returns (p_new, tau_used)."""
+    g = grad_p(p, W, b, z, q_prev, u_prev, nu, rho)
+    phi0 = phi(p, W, b, z, q_prev, u_prev, nu, rho)
+    return _backtrack(p, g,
+                      lambda x: phi(x, W, b, z, q_prev, u_prev, nu, rho),
+                      phi0, tau0, grid=grid)
+
+
+def update_W_reference(p, W, b, z, q_prev, u_prev, nu, rho, theta0, *,
+                       first: bool):
+    """The pre-fast-path W-subproblem. Returns (W_new, theta_used)."""
+    g = grad_W(p, W, b, z, nu)
+    if first:
+        phi0 = phi_first(p, W, b, z, nu)
+        phi_at = lambda Wx: phi_first(p, Wx, b, z, nu)  # noqa: E731
+    else:
+        phi0 = phi(p, W, b, z, q_prev, u_prev, nu, rho)
+        phi_at = lambda Wx: phi(p, Wx, b, z, q_prev, u_prev, nu, rho)  # noqa: E731
+    return _backtrack(W, g, phi_at, phi0, theta0, grid=None)
 
 
 def update_b(p, W, z):
@@ -255,6 +349,19 @@ def update_z_last(a, z_old, labels, label_mask, nu, n_iters: int = 15,
         return ops.fista_zlast(a, z_old, labels, label_mask, nu=nu,
                                n_iters=n_iters, n_classes=n_classes)
     return fista_ce(a, z_old, labels, label_mask, nu, n_iters, n_classes)
+
+
+def update_z_last_reference(a, z_old, labels, label_mask, nu,
+                            n_iters: int = 15):
+    """The pre-kernel z_L solve: FISTA through ``ce_value_grad``. Ground
+    truth for the fused kernel and the ``iterate_reference`` oracle."""
+    step = 1.0 / (1.0 + nu)
+
+    def g_grad(z):
+        _, gr = ce_value_grad(z, labels, label_mask)
+        return gr + nu * (z - a)
+
+    return fista_prox(g_grad, z_old, step, n_iters)
 
 
 def update_q(p_next, u, fz, nu, rho, grid: Optional[QuantGrid] = None):

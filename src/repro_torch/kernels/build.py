@@ -38,6 +38,11 @@ SIGNATURES = {
     "relu_zupdate_f32": [_P, _P, _P, _P, _LL, _P],
     "fista_zlast_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
                         ctypes.POINTER(_F), _I, _F, _F, _P],
+    "backtrack_resnorm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _LL, _LL, _LL, _P],
+    "grid_project_f32": [_P, _P, _LL, _F, _F, _F, _I, _P],
+    "grid_encode_f32": [_P, _P, _LL, _F, _F, _I, _I, _P],
+    "grid_decode_f32": [_P, _P, _LL, _F, _F, _I, _P],
 }
 
 _lib = None

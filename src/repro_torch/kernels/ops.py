@@ -10,26 +10,40 @@ their ragged edges themselves.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (admm_pgrad as _pg, fista_zlast as _fz,
-                                 fused_linear as _fl, ref,
+import torch
+
+from repro_torch.kernels import (admm_pgrad as _pg, backtrack_phi as _bt,
+                                 fista_zlast as _fz, fused_linear as _fl,
+                                 quantize_kernel as _qk, ref,
                                  relu_zupdate as _zu)
 
+# Kernel name -> its wrapper module. A module's ``launches`` is an int, or a
+# dict keyed by kernel name where one module wraps several entry points.
 KERNEL_MODULES = {
     "fused_linear": _fl,
     "admm_pgrad": _pg,
     "relu_zupdate": _zu,
     "fista_zlast": _fz,
+    "backtrack_resnorm": _bt,
+    "grid_project": _qk,
+    "grid_encode": _qk,
+    "grid_decode": _qk,
 }
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last reset (CUDA launches only)."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: (mod.launches[name] if isinstance(mod.launches, dict)
+                   else mod.launches)
+            for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for name, mod in KERNEL_MODULES.items():
+        if isinstance(mod.launches, dict):
+            mod.launches[name] = 0
+        else:
+            mod.launches = 0
 
 
 def _on_cpu(t) -> bool:
@@ -69,3 +83,34 @@ def fista_zlast(a, z_old, labels, label_mask, *, nu, n_iters=15,
     C = a.shape[-1] if n_classes is None else int(n_classes)
     return _fz.fista_zlast(a, z_old, labels, label_mask, nu=float(nu),
                            n_iters=int(n_iters), n_classes=C)
+
+
+def backtrack_resnorm(r0, d, W, active=None):
+    """||r0 − d @ W||² per layer (f32 [L] or 0-d); ``active`` (bool or int,
+    the leading shape) zeroes and skips the layers whose search stopped."""
+    if _on_cpu(d):
+        return ref.backtrack_resnorm_ref(r0, d, W, active)
+    if active is not None:
+        active = active.to(torch.int32)
+    return _bt.backtrack_resnorm(r0, d, W, active)
+
+
+def grid_project(x, grid):
+    """Nearest point of ``grid``, elementwise over any shape."""
+    if _on_cpu(x):
+        return ref.grid_project_ref(x, grid)
+    return _qk.grid_project(x, grid)
+
+
+def grid_encode(x, grid):
+    """Wire codes of x on ``grid`` (uint8 <= 8 bits, uint16 above)."""
+    if _on_cpu(x):
+        return ref.grid_encode_ref(x, grid)
+    return _qk.grid_encode(x, grid)
+
+
+def grid_decode(codes, grid, out_dtype=torch.float32):
+    """Grid values of wire codes."""
+    if _on_cpu(codes):
+        return ref.grid_decode_ref(codes, grid, out_dtype)
+    return _qk.grid_decode(codes, grid, out_dtype)

@@ -6,6 +6,7 @@ equal. ``augment_features`` is held at rtol 1e-6: the port's ``index_add_``
 and the reference's segment-sum may add in another order (on the CPU they
 happen to agree bitwise today).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,8 +78,16 @@ GRIDS = [("int", lambda m: m.integer_grid()),
          ("u4", lambda m: m.uniform_grid(4, 0.0, 15.0))]
 
 
+# where true division and the jitted reference's reciprocal multiply part:
+# uniform_grid(8, -2, 6) gives code 255 by (x - lo) / step, 254 under jit
+WITNESS = np.float32(5.984314441680908)
+
+
 @pytest.mark.parametrize("name,make", GRIDS, ids=[g[0] for g in GRIDS])
 def test_quant_grid_bitwise(name, make):
+    """index/project/encode/decode equal the jitted reference bit for bit
+    (the reference trains under jit: a reciprocal multiply for the division
+    by step, one fused multiply-add for lo + ix·step)."""
     gj, gt = make(jq), make(tq)
     assert (gj.lo, gj.step, gj.n_levels, gj.bits, gj.hi) == \
         (gt.lo, gt.step, gt.n_levels, gt.bits, gt.hi)
@@ -88,17 +97,48 @@ def test_quant_grid_bitwise(name, make):
     ties = (gt.lo + (np.arange(-3, 40) + 0.5) * gt.step).astype(np.float32)
     x[0, :33] = ties[:33]
     x[1, :10] = ties[33:43]
+    x[2, 0] = WITNESS
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
     np.testing.assert_array_equal(gt.index(xt).numpy(),
-                                  np.asarray(gj.index(xj)))
+                                  np.asarray(jax.jit(gj.index)(xj)))
     np.testing.assert_array_equal(gt.project(xt).numpy(),
-                                  np.asarray(gj.project(xj)))
-    enc_j, enc_t = np.asarray(gj.encode(xj)), gt.encode(xt)
+                                  np.asarray(jax.jit(gj.project)(xj)))
+    enc_j, enc_t = np.asarray(jax.jit(gj.encode)(xj)), gt.encode(xt)
     assert str(enc_t.dtype).split(".")[-1] == enc_j.dtype.name
     np.testing.assert_array_equal(enc_t.to(torch.int32).numpy(),
                                   enc_j.astype(np.int32))
     np.testing.assert_array_equal(
-        gt.decode(enc_t).numpy(), np.asarray(gj.decode(jnp.asarray(enc_j))))
+        gt.decode(enc_t).numpy(),
+        np.asarray(jax.jit(gj.decode)(jnp.asarray(enc_j))))
+
+
+def test_quant_grid_witness_takes_the_jitted_code():
+    gj, gt = jq.uniform_grid(8, -2.0, 6.0), tq.uniform_grid(8, -2.0, 6.0)
+    xt = torch.tensor([WITNESS])
+    assert int(jax.jit(gj.encode)(jnp.asarray([WITNESS]))[0]) == 254
+    assert int(gt.encode(xt)[0]) == 254
+    assert float(gt.index(xt)[0]) == 254.0
+    # true division would round the other way: the fault this pins
+    assert round(float((xt[0] - gt.lo) / gt.step)) == 255
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_quant_grid_matches_jit_on_a_dense_sweep(bits):
+    """2^17 uniform draws over and past the range: every code, projection
+    and decoded value equal to the jitted reference's."""
+    gj, gt = jq.uniform_grid(bits, -2.0, 6.0), tq.uniform_grid(bits, -2.0, 6.0)
+    x = np.random.default_rng(bits).uniform(-2.5, 6.5, 1 << 17) \
+        .astype(np.float32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    np.testing.assert_array_equal(gt.project(xt).numpy(),
+                                  np.asarray(jax.jit(gj.project)(xj)))
+    codes = gt.encode(xt)
+    np.testing.assert_array_equal(codes.to(torch.int32).numpy(),
+                                  np.asarray(jax.jit(gj.encode)(xj))
+                                  .astype(np.int32))
+    np.testing.assert_array_equal(
+        gt.decode(codes).numpy(),
+        np.asarray(jax.jit(gj.decode)(jax.jit(gj.encode)(xj))))
 
 
 def test_calibrated_grid_matches():
@@ -106,3 +146,26 @@ def test_calibrated_grid_matches():
     gj = jq.calibrated_grid(8, jnp.asarray(x), margin=0.1)
     gt = tq.calibrated_grid(8, torch.from_numpy(x), margin=0.1)
     assert (gj.lo, gj.step, gj.n_levels) == (gt.lo, gt.step, gt.n_levels)
+
+
+@pytest.mark.parametrize("bits,axis", [(8, None), (4, None), (16, None),
+                                       (8, 0), (8, 1)])
+def test_affine_encode_decode_match_jit(bits, axis):
+    """Deterministic affine codes and their decode equal the jitted
+    reference's bit for bit."""
+    x = (np.random.default_rng(bits).normal(size=(40, 9)) * 3) \
+        .astype(np.float32)
+
+    def jenc(v):
+        return jq.affine_encode(v, bits=bits, axis=axis)
+
+    cj, sj, zj = jax.jit(jenc)(jnp.asarray(x))
+    ct, st, zt = tq.affine_encode(torch.from_numpy(x), bits=bits, axis=axis)
+    assert str(ct.dtype).split(".")[-1] == np.asarray(cj).dtype.name
+    np.testing.assert_array_equal(ct.to(torch.int32).numpy(),
+                                  np.asarray(cj).astype(np.int32))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    np.testing.assert_array_equal(zt.numpy(), np.asarray(zj))
+    np.testing.assert_array_equal(
+        tq.affine_decode(ct, st, zt).numpy(),
+        np.asarray(jax.jit(jq.affine_decode)(cj, sj, zj)))

@@ -1,4 +1,4 @@
-"""The port's four kernels on the pdADMM-G path.
+"""The port's kernels on the pdADMM-G and pdADMM-G-Q paths.
 
 On the CPU: each plain version (``repro_torch.kernels.ref``) against the JAX
 reference's ``ref`` oracle and its Pallas kernel in interpret mode, at
@@ -7,7 +7,8 @@ tensors to the plain versions, and the CUDA wrappers refuse CPU tensors.
 
 On a card (``cuda`` marker; skipped without one): each CUDA kernel against
 its plain version on the same CUDA inputs, at ragged and batched shapes.
-Matmul tolerances are rtol 1e-4: f32 sums in another order. The card has
+Matmul tolerances are rtol 1e-4: f32 sums in another order. The grid
+kernels repeat their plain version's arithmetic and are held bitwise. The card has
 no JAX, so the reference is imported only by the tests that use it:
 
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -18,9 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quantize as tq
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import quantize_kernel as cuda_grid
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.admm_pgrad import admm_pgrad as cuda_admm_pgrad
+from repro_torch.kernels.backtrack_phi import \
+    backtrack_resnorm as cuda_backtrack_resnorm
 from repro_torch.kernels.fista_zlast import fista_zlast as cuda_fista_zlast
 from repro_torch.kernels.fista_zlast import momentum_schedule
 from repro_torch.kernels.fused_linear import fused_linear as cuda_fused_linear
@@ -45,10 +50,13 @@ def _j(*arrays):
 def jx():
     """The JAX reference's oracles and Pallas kernels."""
     pytest.importorskip("jax")
+    from repro.core import quantize
     from repro.kernels import admm_pgrad, fista_zlast, fused_linear, ref
-    from repro.kernels import relu_zupdate
+    from repro.kernels import backtrack_phi, quantize_kernel, relu_zupdate
     return types.SimpleNamespace(
-        ref=ref, fused_linear=fused_linear.fused_linear,
+        ref=ref, fused_linear=fused_linear.fused_linear, quantize=quantize,
+        backtrack_resnorm=backtrack_phi.backtrack_resnorm,
+        grid=quantize_kernel,
         admm_pgrad=admm_pgrad.admm_pgrad, relu_zupdate=relu_zupdate.relu_zupdate,
         fista_zlast=fista_zlast.fista_zlast,
         momentum_schedule=fista_zlast.momentum_schedule)
@@ -159,6 +167,66 @@ def test_fista_zlast_plain_matches_jax(jx, n_iters, width, n_classes):
     np.testing.assert_allclose(got, want_pl, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 64, 128),
+                                   (128, 128, 8)])
+def test_backtrack_resnorm_plain_matches_jax(jx, M, K, N):
+    r0, d, W = _np(14, (M, N), (M, K), (K, N))
+    W /= np.sqrt(K)
+    want_ref = float(jx.ref.backtrack_resnorm_ref(*_j(r0, d, W)))
+    want_pl = float(jx.backtrack_resnorm(*_j(r0, d, W), interpret=True))
+    got = tref.backtrack_resnorm_ref(*_t(r0, d, W))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), want_ref, rtol=1e-5)
+    np.testing.assert_allclose(float(got), want_pl, rtol=1e-5)
+
+
+def test_backtrack_resnorm_plain_batched_and_active():
+    """The leading axis gives the per-layer values; an inactive layer is 0."""
+    r0, d, W = _t(*_np(15, (4, 50, 9), (4, 50, 12), (4, 12, 9)))
+    batched = tref.backtrack_resnorm_ref(r0, d, W)
+    assert batched.shape == (4,)
+    per = [tref.backtrack_resnorm_ref(r0[i], d[i], W[i]) for i in range(4)]
+    np.testing.assert_array_equal(batched.numpy(), torch.stack(per).numpy())
+    for active in (torch.tensor([True, False, True, False]),
+                   torch.tensor([1, 0, 1, 0], dtype=torch.int32)):
+        masked = tref.backtrack_resnorm_ref(r0, d, W, active)
+        np.testing.assert_array_equal(
+            masked.numpy(), (batched * torch.tensor([1., 0., 1., 0.])).numpy())
+    assert float(tref.backtrack_resnorm_ref(r0[0], d[0], W[0],
+                                            torch.tensor(False))) == 0.0
+
+
+GRIDS = [("u8", lambda m: m.uniform_grid(8, -2.0, 6.0)),
+         ("u16", lambda m: m.uniform_grid(16, -4.0, 4.0)),
+         ("int", lambda m: m.integer_grid()),
+         ("u4", lambda m: m.uniform_grid(4, 0.0, 15.0))]
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (3, 40, 128), (37,)])
+@pytest.mark.parametrize("name,make", GRIDS, ids=[g[0] for g in GRIDS])
+def test_grid_kernels_plain_match_jax_bitwise(jx, name, make, shape):
+    """grid_project/encode/decode plain versions equal the Pallas kernels
+    in interpret mode and the jitted reference oracles, bit for bit."""
+    import jax
+    gj, gt = make(jx.quantize), make(tq)
+    (x,) = _np(16, shape, scale=5.0)
+    x.reshape(-1)[0] = np.float32(5.984314441680908)
+    (xj,), (xt,) = _j(x), _t(x)
+    proj = tref.grid_project_ref(xt, gt).numpy()
+    codes = tref.grid_encode_ref(xt, gt)
+    assert codes.dtype == gt.code_dtype and codes.shape == xt.shape
+    dec = tref.grid_decode_ref(codes, gt).numpy()
+    codes_j = np.asarray(jx.grid.grid_encode(xj, gj, interpret=True))
+    for want, got in (
+            (jx.grid.grid_project(xj, gj, interpret=True), proj),
+            (jax.jit(jx.ref.grid_project_ref, static_argnums=1)(xj, gj), proj),
+            (codes_j, codes.to(torch.int32).numpy()),
+            (jax.jit(jx.ref.grid_encode_ref, static_argnums=1)(xj, gj),
+             codes.to(torch.int32).numpy()),
+            (jx.grid.grid_decode(_j(codes_j)[0], gj, interpret=True), dec)):
+        np.testing.assert_array_equal(got, np.asarray(want).astype(got.dtype))
+
+
 # --- dispatch and wrapper checks (CPU) ---------------------------------------
 
 def test_ops_routes_cpu_tensors_to_plain_versions():
@@ -178,7 +246,22 @@ def test_ops_routes_cpu_tensors_to_plain_versions():
     np.testing.assert_array_equal(
         ops.fista_zlast(z, z, labels, mask, nu=0.01).numpy(),
         tref.fista_zlast_ref(z, z, labels, mask, nu=0.01).numpy())
+    active = torch.tensor(True)
+    np.testing.assert_array_equal(
+        ops.backtrack_resnorm(z, p, W, active).numpy(),
+        tref.backtrack_resnorm_ref(z, p, W, active).numpy())
+    g = tq.uniform_grid(8, -2.0, 6.0)
+    np.testing.assert_array_equal(ops.grid_project(u, g).numpy(),
+                                  tref.grid_project_ref(u, g).numpy())
+    codes = ops.grid_encode(u, g)
+    np.testing.assert_array_equal(codes.numpy(),
+                                  tref.grid_encode_ref(u, g).numpy())
+    np.testing.assert_array_equal(ops.grid_decode(codes, g).numpy(),
+                                  tref.grid_decode_ref(codes, g).numpy())
     assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_MODULES, 0)
+    assert set(ops.KERNEL_MODULES) == {
+        "fused_linear", "admm_pgrad", "relu_zupdate", "fista_zlast",
+        "backtrack_resnorm", "grid_project", "grid_encode", "grid_decode"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -188,11 +271,29 @@ def test_cuda_wrappers_refuse_cpu_tensors():
              lambda: cuda_admm_pgrad(z, W, p, p, p, nu=0.1, rho=1.0),
              lambda: cuda_relu_zupdate(p, p, p),
              lambda: cuda_fista_zlast(z, z, labels, mask, nu=0.1, n_iters=3,
-                                      n_classes=4)]
+                                      n_classes=4),
+             lambda: cuda_backtrack_resnorm(z, p, W),
+             lambda: cuda_grid.grid_project(p, tq.integer_grid()),
+             lambda: cuda_grid.grid_encode(p, tq.integer_grid()),
+             lambda: cuda_grid.grid_decode(p.to(torch.uint8),
+                                           tq.integer_grid())]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_MODULES, 0)
+
+
+def test_grid_kernel_scalars_are_the_plain_versions():
+    """The f32 (lo, step, 1/step) the grid kernels receive are the ones the
+    plain versions compute with."""
+    f32 = torch.float32
+    rng = np.random.default_rng(19)
+    grids = [tq.integer_grid(), tq.uniform_grid(8, -2.0, 6.0)] + [
+        tq.uniform_grid(int(rng.integers(1, 17)), lo, lo + w)
+        for lo, w in zip(rng.normal(size=200) * 10, rng.exponential(20, 200))]
+    for g in grids:
+        assert cuda_grid._scalars(g) == (g.lo_in(f32), g.step_in(f32),
+                                         g.inv_step_in(f32))
 
 
 def test_fista_zlast_wrapper_refuses_width_above_cap():
@@ -206,7 +307,8 @@ def test_build_plan_compiles_every_source_for_sm90a(tmp_path, monkeypatch):
     cmds = build.compile_commands("nvcc", tmp_path)
     names = {c[c.index("-c") + 1].rsplit("/", 1)[-1] for c in cmds}
     assert names == {"fused_linear.cu", "admm_pgrad.cu", "relu_zupdate.cu",
-                     "fista_zlast.cu"}
+                     "fista_zlast.cu", "backtrack_resnorm.cu",
+                     "quantize_grid.cu"}
     for c in cmds:
         assert "arch=compute_90a,code=sm_90a" in c
         assert "--use_fast_math" not in c
@@ -252,7 +354,7 @@ def test_build_runs_one_compile_per_source_then_links(tmp_path, monkeypatch,
     assert lib == tmp_path / "build" / build.source_hash() / build.LIB_NAME
     assert "-shared" in lib.read_text()
     log = (lib.parent / "build.log").read_text()
-    assert log.count("Used 8 registers") == len(build.sources()) == 4
+    assert log.count("Used 8 registers") == len(build.sources()) == 6
     assert build.build() == lib          # cached: no second build
 
 
@@ -312,3 +414,52 @@ def test_cuda_fista_zlast_matches_plain(cuda, width, n_classes, n_iters):
     # expf and torch's exp differ by ulps; over 16 steps that is ~1e-6 of
     # the value, so an absolute 1e-5 plus 1e-5 of the value
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,M,K,N", [((), 97, 130, 40), ((), 2485, 1000, 7),
+                                        ((3,), 200, 64, 64), ((8,), 130, 96, 70)])
+def test_cuda_backtrack_resnorm_matches_plain(cuda, lead, M, K, N):
+    r0, d, W = _t(*_np(17, lead + (M, N), lead + (M, K), lead + (K, N)),
+                  device=cuda)
+    W /= np.sqrt(K)
+    masks = [None]
+    if lead:
+        masks.append((torch.arange(lead[0], device=cuda) % 2)
+                     .to(torch.int32))
+        masks.append(torch.zeros(lead, dtype=torch.int32, device=cuda))
+    else:
+        masks.append(torch.tensor(1, dtype=torch.int32, device=cuda))
+    for active in masks:
+        got = cuda_backtrack_resnorm(r0, d, W, active)
+        want = tref.backtrack_resnorm_ref(r0, d, W, active)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == lead
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        # the fixed-order reduction gives the same bits on a second run
+        assert torch.equal(got, cuda_backtrack_resnorm(r0, d, W, active))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(2485 * 1000, 0), (1001, 0), (1001, 1),
+                                      (3, 0)])
+@pytest.mark.parametrize("name,make", GRIDS, ids=[g[0] for g in GRIDS])
+def test_cuda_grid_kernels_equal_plain_bitwise(cuda, name, make, n, offset):
+    """Vector and scalar paths (an offset of one element breaks the 16-byte
+    alignment), every code width, the clip and exact ties."""
+    grid = make(tq)
+    (x,) = _np(18, (n + offset,), scale=6.0)
+    x[offset:offset + 40] = (grid.lo + (np.arange(-3, 37) + 0.5)
+                             * grid.step).astype(np.float32)[:min(40, n)]
+    xt = torch.from_numpy(x).to(cuda)[offset:]
+    proj = cuda_grid.grid_project(xt, grid)
+    codes = cuda_grid.grid_encode(xt, grid)
+    dec = cuda_grid.grid_decode(codes, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(proj, tref.grid_project_ref(xt, grid))
+    assert codes.dtype == grid.code_dtype
+    assert torch.equal(codes.to(torch.int32),
+                       tref.grid_encode_ref(xt, grid).to(torch.int32))
+    assert torch.equal(dec, tref.grid_decode_ref(codes, grid))
+    assert torch.equal(cuda_grid.grid_decode(codes, grid, torch.float64),
+                       tref.grid_decode_ref(codes, grid, torch.float64))

@@ -1,11 +1,13 @@
 """The port's subproblem solvers against the JAX reference, in f64.
 
-Shapes and hyper-parameters are those of tests/test_fastpath.py (grid-free).
+Shapes, grids and hyper-parameters are those of tests/test_fastpath.py.
 In f64 the scalar backtracking engines of both packages take the same
 decisions, so τ and θ are asserted bit for bit; iterates at rtol 1e-10 (the
 reductions run in another order). Inputs are made with numpy from a seed
 and handed to both sides.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,10 +109,98 @@ def test_batched_solves_equal_per_layer_solves():
                                        rtol=1e-12, atol=1e-14)
 
 
-def test_update_p_with_grid_waits_for_next_slice():
-    prob = _t(_problem(0, 8, 4, 4))
-    with pytest.raises(NotImplementedError, match="backtrack_resnorm"):
-        tsp.update_p(*prob, 0.01, 1.0, 1.0, grid=tq.integer_grid())
+GRIDS = [("u8", lambda m: m.uniform_grid(8, -2.0, 2.0)),
+         ("int", lambda m: m.integer_grid())]
+
+
+@pytest.mark.parametrize("name,make", GRIDS, ids=[g[0] for g in GRIDS])
+@pytest.mark.parametrize("V,ni,no", SHAPES)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_projected_update_p_matches_jitted_jax(x64, V, ni, no, seed, name,
+                                               make):
+    """pdADMM-G-Q's p-update: the port's 12 sync-free trials against the
+    reference's jitted while_loop, τ bit for bit."""
+    prob = _problem(seed, V, ni, no)
+    gj, gt = make(jq), make(tq)
+    for nu, rho, t0 in HYPERS:
+        step = jax.jit(functools.partial(jsp.update_p, nu=nu, rho=rho,
+                                         tau0=t0, grid=gj))
+        pj, tj, rj = step(*_j(prob))
+        pt, tt, rt = tsp.update_p(*_t(prob), nu, rho, t0, grid=gt)
+        assert tt.dtype == torch.float32
+        _same_f32(float(tj), float(tt))
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj), **TOL)
+        np.testing.assert_allclose(rt.numpy(), np.asarray(rj), **TOL)
+        # the chained residual is z - p⁺W - b
+        p_, W, b, z = _t(prob)[:4]
+        np.testing.assert_allclose(rt.numpy(), (z - pt @ W - b).numpy(),
+                                   rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("name,make", GRIDS, ids=[g[0] for g in GRIDS])
+@pytest.mark.parametrize("V,ni,no", SHAPES)
+def test_projected_update_p_matches_its_naive_engine(V, ni, no, name, make):
+    """Inside the port: the delta-residual trials against update_p_reference
+    (fresh φ per trial), and both against the reference's naive engine."""
+    grid = make(tq)
+    for seed in (0, 3):
+        prob = _problem(seed, V, ni, no)
+        for nu, rho, t0 in HYPERS:
+            pf, tf, _ = tsp.update_p(*_t(prob), nu, rho, t0, grid=grid)
+            pr, tr = tsp.update_p_reference(*_t(prob), nu, rho, t0,
+                                            grid=grid)
+            assert float(tf) == float(tr), (seed, nu, rho, t0)
+            np.testing.assert_allclose(pf.numpy(), pr.numpy(), atol=1e-9)
+
+
+def test_reference_solvers_match_jax(x64):
+    prob = _problem(4, 16, 8, 9)
+    for nu, rho, t0 in HYPERS:
+        for name, make in GRIDS + [("none", lambda m: None)]:
+            pj, tj = jsp.update_p_reference(*_j(prob), nu, rho, t0,
+                                            grid=make(jq))
+            pt, tt = tsp.update_p_reference(*_t(prob), nu, rho, t0,
+                                            grid=make(tq))
+            _same_f32(float(tj), float(tt))
+            np.testing.assert_allclose(pt.numpy(), np.asarray(pj), **TOL)
+        for first in (True, False):
+            Wj, thj = jsp.update_W_reference(*_j(prob), nu, rho, t0,
+                                             first=first)
+            Wt, tht = tsp.update_W_reference(*_t(prob), nu, rho, t0,
+                                             first=first)
+            _same_f32(float(thj), float(tht))
+            np.testing.assert_allclose(Wt.numpy(), np.asarray(Wj), **TOL)
+
+
+def test_projected_batched_solve_equals_per_layer_solves():
+    probs = [_problem(s, 16, 8, 8) for s in (0, 1, 2)]
+    stacked = [torch.stack(x) for x in zip(*(_t(p) for p in probs))]
+    t0 = torch.tensor([1e-3, 1.0, 1e-2], dtype=torch.float64)
+    grid = tq.uniform_grid(8, -2.0, 2.0)
+    pb, tb, rb = tsp.update_p(*stacked, 0.5, 2.0, t0, grid=grid)
+    for i, prob in enumerate(probs):
+        pi, ti, ri = tsp.update_p(*_t(prob), 0.5, 2.0, t0[i], grid=grid)
+        assert float(tb[i]) == float(ti)
+        np.testing.assert_allclose(pb[i].numpy(), pi.numpy(), rtol=1e-12,
+                                   atol=1e-14)
+        np.testing.assert_allclose(rb[i].numpy(), ri.numpy(), rtol=1e-12,
+                                   atol=1e-14)
+
+
+def test_projected_update_p_through_the_kernel_dispatch():
+    """use_kernels=True on the CPU goes through ops (plain versions, f32)
+    and takes the same steps as the plain tensor code."""
+    prob = [a.astype(np.float32) for a in _problem(5, 32, 16, 16)]
+    grid = tq.uniform_grid(8, -2.0, 2.0)
+    for nu, rho, t0 in HYPERS:
+        pk, tk, rk = tsp.update_p(*_t(prob), nu, rho, t0, grid=grid,
+                                  use_kernels=True)
+        pp, tp, rp = tsp.update_p(*_t(prob), nu, rho, t0, grid=grid)
+        assert float(tk) == float(tp)
+        np.testing.assert_allclose(pk.numpy(), pp.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(rk.numpy(), rp.numpy(), rtol=1e-4,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("n_classes", [None, 4])
@@ -127,6 +217,20 @@ def test_update_z_last_matches_jax(x64, n_classes, n_iters):
     zt = tsp.update_z_last(*_t([a, z0]), torch.from_numpy(labels),
                            torch.from_numpy(mask), 0.01, n_iters, n_classes,
                            use_kernels=False)
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), **TOL)
+
+
+@pytest.mark.parametrize("n_iters", [0, 15])
+def test_update_z_last_reference_matches_jax(x64, n_iters):
+    rng = np.random.default_rng(3)
+    V, C = 40, 6
+    a, z0 = rng.normal(size=(V, C)) * 2, rng.normal(size=(V, C))
+    labels = rng.integers(0, C, V).astype(np.int32)
+    mask = (rng.random(V) < 0.5).astype(np.float32)
+    zj = jsp.update_z_last_reference(*_j([a, z0]), jnp.asarray(labels),
+                                     jnp.asarray(mask), 0.01, n_iters)
+    zt = tsp.update_z_last_reference(*_t([a, z0]), torch.from_numpy(labels),
+                                     torch.from_numpy(mask), 0.01, n_iters)
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), **TOL)
 
 
