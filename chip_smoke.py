@@ -29,7 +29,24 @@ and the script exits non-zero without printing a result:
    instead, and each flip is printed with its accept-test margin.
 5. Two G-Q iterations with 8-bit grid codecs on the dual's wire
    (``u_codecs``): ``grid_encode`` and ``grid_decode`` must launch.
-6. Print the wire bytes per iteration from the port's ledger (G, G-Q,
+6. The stage-parallel runtime (``repro_torch.parallel.stage_parallel``)
+   on a ``LocalRing`` of mesh (1, 10): the same 10×1000 GA-MLP as a ring
+   of 10 layer-stages on ``Xp = relu(X @ P0)`` (P0 a seeded [5732, 1000]
+   projection), 5 iterations of G and of G-Q through
+   ``distributed_train``: its kernels must launch, the objectives track
+   ``use_kernels=False`` at rtol 1e-3, ``overlap=True`` gives the same
+   bits as ``overlap=False``, the ledger's bytes per iteration equal
+   ``wire_bytes_per_iteration`` and the bytes the ring's shifts moved
+   (counted from the payload tensors); ms per iteration of the step, and
+   the memory one step allocates without and with ``donate=True``. Then 5
+   iterations of the mixed-width padded wire (a ``BitWidthController`` over
+   ``stage_ring_edges``, widths {4, 8, 16}): one step built, the schedules
+   printed, ``pack_codes`` and ``unpack_codes`` launched, the shifts' bytes
+   equal to the ledger's physical bytes, the objectives tracking the same
+   run with ``use_kernels=False`` at rtol 1e-3. Last,
+   ``quantized_psum`` on a ``LocalRing`` of data 4 over [2485, 1000]
+   shards: gather and code_psum give the same bits (4-bit affine and grid).
+7. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the card (``nvidia-smi``), one JSON line with
    every kernel's numbers, and last the device line.
 
@@ -39,7 +56,10 @@ of the plain value per layer; fista_zlast atol 1e-5 + rtol 1e-5 (expf
 against torch's exp, ulps over 16 steps); relu_zupdate within 1e-6
 relative (IEEE /3 in the kernel, a reciprocal multiply in PyTorch's CUDA
 division by a scalar), and where the two branch objectives tie to 1e-5,
-equal objective values; the grid kernels bitwise (the same arithmetic).
+equal objective values; the grid kernels bitwise (the same arithmetic);
+fista_zlast on rows wider than the classes: the class columns as above, the
+proximal columns bitwise; pack_codes / unpack_codes bitwise (the wire
+layout).
 """
 from __future__ import annotations
 
@@ -72,6 +92,11 @@ MAX_DOUBLINGS = 12  # the p-update's backtracking trials (subproblems.update_p)
 BASE_KERNELS = ("fused_linear", "admm_pgrad", "relu_zupdate", "fista_zlast")
 GQ_KERNELS = BASE_KERNELS + ("backtrack_resnorm", "grid_project")
 WIRE_KERNELS = ("grid_encode", "grid_decode")
+PACK_KERNELS = ("pack_codes", "unpack_codes")
+STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
+MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
+                        min_dwell=1, hysteresis=0.0, signal="per_edge",
+                        thresholds=((0.5, 4), (0.1, 8)))
 SOURCES = {
     "fused_linear": ("src/repro_torch/kernels/csrc/fused_linear.cu",
                      "src/repro/kernels/fused_linear.py:40"),
@@ -89,6 +114,10 @@ SOURCES = {
                     "src/repro/kernels/quantize_kernel.py:57"),
     "grid_decode": ("src/repro_torch/kernels/csrc/quantize_grid.cu",
                     "src/repro/kernels/quantize_kernel.py:64"),
+    "pack_codes": ("src/repro_torch/kernels/csrc/pack_codes.cu",
+                   "src/repro/kernels/pack_codes.py:77"),
+    "unpack_codes": ("src/repro_torch/kernels/csrc/pack_codes.cu",
+                     "src/repro/kernels/pack_codes.py:97"),
 }
 
 
@@ -157,6 +186,18 @@ def fista_check(got, want, err):
                              f"atol {FISTA_ATOL} + rtol {FISTA_RTOL}")
 
 
+def fista_wide_check(C):
+    """Class columns at the FISTA tolerance, the proximal columns bitwise
+    (the kernel keeps the plain version's roundings there)."""
+    def check(got, want, err):
+        fista_check(got[:, :C], want[:, :C], err)
+        if not torch.equal(got[:, C:], want[:, C:]):
+            d = float((got[:, C:] - want[:, C:]).abs().max())
+            raise AssertionError(f"fista_zlast: proximal columns differ "
+                                 f"(max {d:.3e})")
+    return check
+
+
 def zupdate_check_for(a, q, z0):
     def obj(z):
         return (z - a) ** 2 + (q - z.clamp(min=0)) ** 2 + (z - z0) ** 2
@@ -180,7 +221,9 @@ def zupdate_check_for(a, q, z0):
 
 
 def kernel_phase(X, ds, dims, nu, rho, grid):
+    from repro_torch.comm.codecs import _body_bytes
     from repro_torch.kernels import ref
+    from repro_torch.kernels import pack_codes as pc
     from repro_torch.kernels import quantize_kernel as qk
     from repro_torch.kernels.admm_pgrad import admm_pgrad
     from repro_torch.kernels.backtrack_phi import backtrack_resnorm
@@ -205,6 +248,9 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
              rand(h), rand(V, h)),
             (f"residual x{B} [{V},{h}]@[{h},{h}]", rand(B, V, h).relu(),
              rand(B, h, h, scale=h ** -0.5), rand(B, h), rand(B, V, h)),
+            (f"residual x{STAGES} [{V},{h}]@[{h},{h}] (ring)",
+             rand(STAGES, V, h).relu(), rand(STAGES, h, h, scale=h ** -0.5),
+             rand(STAGES, h), rand(STAGES, V, h)),
             (f"residual [{V},{h}]@[{h},{C}]", rand(V, h).relu(),
              rand(h, C, scale=h ** -0.5), rand(C), rand(V, C))):
         zb = z - b.unsqueeze(-2)
@@ -233,6 +279,8 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     for name, r, W, shape_in in (
             (f"x{B} [{V},{h}]@[{h},{h}]ᵀ", rand(B, V, h),
              rand(B, h, h, scale=h ** -0.5), (B, V, h)),
+            (f"x{STAGES} [{V},{h}]@[{h},{h}]ᵀ (ring)", rand(STAGES, V, h),
+             rand(STAGES, h, h, scale=h ** -0.5), (STAGES, V, h)),
             (f"[{V},{C}]@[{h},{C}]ᵀ", rand(V, C), rand(h, C, scale=C ** -0.5),
              (V, h))):
         u, p, q = rand(*shape_in), rand(*shape_in).relu(), rand(*shape_in).relu()
@@ -251,13 +299,15 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     rows["admm_pgrad"] = pg
 
     print("relu_zupdate:", flush=True)
-    L1 = len(dims) - 2
-    a, q, z0 = rand(L1, V, h), rand(L1, V, h).relu(), rand(L1, V, h)
-    n = a.numel()
-    rows["relu_zupdate"] = [case(
-        f"[{L1},{V},{h}]", lambda: relu_zupdate(a, q, z0),
-        lambda: ref.relu_zupdate_ref(a, q, z0), None, 16 * n, 27 * n,
-        zupdate_check_for(a, q, z0))]
+    rows["relu_zupdate"] = []
+    for L1, tail in ((len(dims) - 2, ""), (STAGES, " (ring)")):
+        a, q, z0 = rand(L1, V, h), rand(L1, V, h).relu(), rand(L1, V, h)
+        n = a.numel()
+        rows["relu_zupdate"].append(case(
+            f"[{L1},{V},{h}]{tail}",
+            lambda a=a, q=q, z0=z0: relu_zupdate(a, q, z0),
+            lambda a=a, q=q, z0=z0: ref.relu_zupdate_ref(a, q, z0), None,
+            16 * n, 27 * n, zupdate_check_for(a, q, z0)))
 
     print("fista_zlast:", flush=True)
     a, z0 = rand(V, C, scale=3.0), rand(V, C, scale=3.0)
@@ -272,6 +322,18 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
                                     n_iters=n_iters),
         None, 4 * (3 * V * C + 2 * V), steps * V * (12 * C + 4 * C),
         fista_check)]
+    # the ring's head-folded last layer: rows of width h, C classes
+    for nr in (V, STAGES * V):
+        a, z0 = rand(nr, h, scale=3.0), rand(nr, h, scale=3.0)
+        lab, msk = ds.labels.repeat(nr // V), mask.repeat(nr // V)
+        rows["fista_zlast"].append(case(
+            f"[{nr},{h}] {C} classes x{steps} steps",
+            lambda a=a, z0=z0, lab=lab, msk=msk: fista_zlast(
+                a, z0, lab, msk, nu=nu, n_iters=n_iters, n_classes=C),
+            lambda a=a, z0=z0, lab=lab, msk=msk: ref.fista_zlast_ref(
+                a, z0, lab, msk, nu=nu, n_iters=n_iters, n_classes=C),
+            None, 4 * (3 * nr * h + 2 * nr),
+            steps * nr * (16 * C + 6 * (h - C)), fista_wide_check(C)))
 
     print("backtrack_resnorm:", flush=True)
     bt = []
@@ -282,6 +344,9 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             (f"x{B} [{V},{h}]@[{h},{h}], {int(half.sum())} active",
              rand(B, V, h), rand(B, V, h, scale=0.05),
              rand(B, h, h, scale=h ** -0.5), half),
+            (f"x{STAGES} [{V},{h}]@[{h},{h}], all active (ring)",
+             rand(STAGES, V, h), rand(STAGES, V, h, scale=0.05),
+             rand(STAGES, h, h, scale=h ** -0.5), None),
             (f"[{V},{h}]@[{h},{C}]", rand(V, C), rand(V, h, scale=0.05),
              rand(h, C, scale=h ** -0.5), None)):
         lib = ((lambda r0=r0, d=d, W=W: torch.addmm(r0, d, W, alpha=-1))
@@ -305,7 +370,7 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
 
     print("grid_project:", flush=True)
     gp = []
-    for shape in ((B, V, h), (V, h)):
+    for shape in ((B, V, h), (V, h), (STAGES, V, h)):
         x = grid_input(*shape)
         n = x.numel()
         gp.append(case(
@@ -318,21 +383,68 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     print("grid_encode / grid_decode:", flush=True)
     from repro_torch.core.quantize import uniform_grid
     enc, dec = [], []
-    for bits in (8, 16):
+    # the G-Q ring encodes every stage's boundary slab at once
+    for bits, shape in ((8, (V, h)), (16, (V, h)), (8, (1, STAGES, 1, V, h))):
         g = uniform_grid(bits, grid.lo, grid.hi)
-        x = grid_input(V, h)
+        x = grid_input(*shape)
         n = x.numel()
         codes = ref.grid_encode_ref(x, g)
         cb = codes.element_size()
+        label = "[" + ",".join(map(str, shape)) + f"] {bits}-bit"
         enc.append(case(
-            f"[{V},{h}] {bits}-bit", lambda x=x, g=g: qk.grid_encode(x, g),
+            label, lambda x=x, g=g: qk.grid_encode(x, g),
             lambda x=x, g=g: ref.grid_encode_ref(x, g), None, (4 + cb) * n,
             4 * n, bitwise_check))
         dec.append(case(
-            f"[{V},{h}] {bits}-bit", lambda c=codes, g=g: qk.grid_decode(c, g),
+            label, lambda c=codes, g=g: qk.grid_decode(c, g),
             lambda c=codes, g=g: ref.grid_decode_ref(c, g), None,
             (4 + cb) * n, 2 * n, bitwise_check))
     rows["grid_encode"], rows["grid_decode"] = enc, dec
+
+    print("pack_codes / unpack_codes:", flush=True)
+    pk, upk = [], []
+    for bits in (4, 16):
+        dt = torch.uint8 if bits <= 8 else torch.uint16
+        for n in (V * h, V * h + 1):         # one boundary slab; an odd n
+            codes = torch.randint(0, 2 ** bits, (n,), generator=gen,
+                                  device=dev, dtype=torch.int32).to(dt)
+            nb = _body_bytes(bits, n)
+            cb = codes.element_size()
+            pk.append(case(
+                f"[{n}] {bits}-bit", lambda c=codes, b=bits: pc.pack_codes(c, b),
+                lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
+                cb * n + nb, 2 * n, bitwise_check))
+            packed = ref.pack_codes_ref(codes, bits)
+            upk.append(case(
+                f"[{n}] {bits}-bit",
+                lambda p=packed, b=bits, n=n: pc.unpack_codes(p, b, n),
+                lambda p=packed, b=bits, n=n: ref.unpack_codes_ref(p, b, n),
+                None, nb + cb * n, 2 * n, bitwise_check))
+    # the mixed-width ring's own shapes: one row per stage's slab (row
+    # strides of 2,485,000 codes leave every other row 8 bytes off a
+    # 16-byte boundary), unpacked from the head of each 16-bit-wide
+    # container row (4,970,000 bytes)
+    n = V * h
+    cap = _body_bytes(16, n)
+    for bits, nr in ((4, STAGES), (16, STAGES - 2)):
+        dt = torch.uint8 if bits <= 8 else torch.uint16
+        codes = torch.randint(0, 2 ** bits, (nr, n), generator=gen,
+                              device=dev, dtype=torch.int32).to(dt)
+        nb = _body_bytes(bits, n)
+        cb = codes.element_size()
+        pk.append(case(
+            f"[{nr},{n}] {bits}-bit (mixed-width ring)",
+            lambda c=codes, b=bits: pc.pack_codes(c, b),
+            lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
+            nr * (cb * n + nb), 2 * nr * n, bitwise_check))
+        container = torch.zeros((nr, cap), dtype=torch.uint8, device=dev)
+        container[:, :nb] = ref.pack_codes_ref(codes, bits)
+        upk.append(case(
+            f"[{nr},{cap}] container, {bits}-bit (mixed-width ring)",
+            lambda p=container, b=bits: pc.unpack_codes(p, b, n),
+            lambda p=container, b=bits: ref.unpack_codes_ref(p, b, n),
+            None, nr * (nb + cb * n), 2 * nr * n, bitwise_check))
+    rows["pack_codes"], rows["unpack_codes"] = pk, upk
     return rows
 
 
@@ -520,21 +632,18 @@ def wire_phase(X, ds, cfg, state, n_iters: int = 2):
                                        u_codecs=codecs)}
 
 
-def profile_phase(X, ds, cfg, state, ms_per_iter: float, top: int = 12):
-    """Device time by kernel over one kernel-path iteration (torch.profiler),
-    and the device's idle share of an unprofiled iteration
-    (1 − busy / ``ms_per_iter``)."""
+def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
+    """Device time by kernel over one iteration, ``run_once()``
+    (torch.profiler), and the device's idle share of an unprofiled
+    iteration (1 − busy / ``ms_per_iter``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import pdadmm
-
-    args = (X, ds.labels, ds.masks["train"])
-    state, _ = pdadmm.iterate(state, *args, cfg)
+    run_once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, m = pdadmm.iterate(state, *args, cfg)
+        run_once()
         torch.cuda.synchronize()
     # device-side events only: a CPU op's entry repeats its kernels' time
     rows = [{"name": ev.key[:90], "calls": ev.count,
@@ -545,8 +654,8 @@ def profile_phase(X, ds, cfg, state, ms_per_iter: float, top: int = 12):
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
     launches = sum(r["calls"] for r in rows)
-    print(f"profile (one kernel-path iteration): device busy {busy:.3f} ms "
-          f"in {launches} launches; idle share of a {ms_per_iter:.3f} ms "
+    print(f"profile ({label}, one iteration): device busy {busy:.3f} ms in "
+          f"{launches} launches; idle share of a {ms_per_iter:.3f} ms "
           f"iteration {1.0 - busy / ms_per_iter:.3f}", flush=True)
     for r in rows[:top]:
         print(f"  {r['device_ms']:8.3f} ms  x{r['calls']:<4d} {r['name']}")
@@ -554,6 +663,253 @@ def profile_phase(X, ds, cfg, state, ms_per_iter: float, top: int = 12):
         raise AssertionError("the profiler recorded no device time")
     return {"device_busy_ms": busy, "device_launches": launches,
             "idle_share": 1.0 - busy / ms_per_iter, "kernels": rows[:top]}
+
+
+def iterate_once(X, ds, cfg, state):
+    """One ``pdadmm.iterate`` from ``state`` (a closure for profile_phase),
+    which advances the state it holds."""
+    from repro_torch.core import pdadmm
+    held = [state]
+    args = (X, ds.labels, ds.masks["train"])
+
+    def run():
+        held[0], _ = pdadmm.iterate(held[0], *args, cfg)
+    return run
+
+
+def ring_problem(X, ds, dev):
+    """The ring's input: Xp = relu(X @ P0), P0 a seeded [K·d, 1000]
+    projection (the reference's homogenisation)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    P0 = torch.randn((X.shape[1], 1000), generator=g, device=dev) \
+        * float(np.sqrt(2.0 / X.shape[1]))
+    return torch.relu(X @ P0)
+
+
+def ring_ms_per_iter(mesh, L, C, cfg, init, data, n=5, overlap=False):
+    """Steady-state ms per ring iteration (host clock around ``n`` steps
+    ending in a device sync), from the shard layout of ``init``; returns
+    (ms, step, carry after the run)."""
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing
+    ring = LocalRing(mesh, init.p.device)
+    step, _ = SP.make_distributed_step(mesh, L, C, cfg, overlap=overlap,
+                                       ring=ring)
+    carry = SP.shard_stack(init, ring)
+    if overlap:
+        carry = (carry, SP.make_overlap_primer(
+            mesh, SP.codec_for_grid(cfg.grid if cfg.quantize_q else None),
+            ring=ring)(carry.q, carry.u))
+    carry, _ = step(carry, *data)                              # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        carry, m = step(carry, *data)
+    float(m["objective"])
+    return (time.perf_counter() - t) / n * 1e3, step, carry
+
+
+def ring_peak_mib(mesh, L, C, cfg, init, data) -> dict:
+    """Device memory one ring step allocates above the state it is given
+    (MiB, ``max_memory_allocated``), without and with ``donate=True``; the
+    donating step must not need more."""
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing
+    ring = LocalRing(mesh, init.p.device)
+    peak = {}
+    for donate in (False, True):
+        step, _ = SP.make_distributed_step(mesh, L, C, cfg, donate=donate,
+                                           ring=ring)
+        # a copy: at data 1 the shard layout may share init's storage
+        st = SP.StackState(*(x.clone() for x in SP.shard_stack(init, ring)))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st, m = step(st, *data)
+        float(m["objective"])
+        peak["donate" if donate else "plain"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del st, m
+    if peak["donate"] > peak["plain"]:
+        raise AssertionError(f"donate=True needs more memory: {peak}")
+    return peak
+
+
+def dist_phase(X, ds, cfg, cfg_q, epochs):
+    """The stage-parallel runtime on a LocalRing of mesh (1, 10): G and
+    G-Q through ``distributed_train``, the mixed-width wire, and the
+    quantized psum (see the module docstring, phase 6)."""
+    from repro_torch.comm.codecs import FP32, AffineCodec, GridCodec
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig,
+                                             stage_ring_edges)
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.comm.transport import quantized_psum
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    dev = X.device
+    Xp = ring_problem(X, ds, dev)
+    V, h = Xp.shape
+    L, C = STAGES, ds.n_classes
+    mesh = StageMesh(1, STAGES)
+    args = (Xp, ds.labels, ds.masks)
+    out = {}
+    print(f"ring: mesh (data 1, model {STAGES}), Xp {tuple(Xp.shape)}, "
+          f"L={L}, C={C}", flush=True)
+    for name, c, required in (("G_ring", cfg, BASE_KERNELS),
+                              ("GQ_ring", cfg_q, GQ_KERNELS)):
+        init = SP.init_stack(0, Xp, L, c)
+        led = CommLedger()
+        ring = LocalRing(mesh, dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, hist = SP.distributed_train(mesh, None, *args, L, C, c, epochs,
+                                        ledger=led, init=init, ring=ring)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"{name}: {epochs} iterations in {t_train:.3f} s, launches "
+              f"{counts}", flush=True)
+        missing = [k for k in required if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        obj = np.asarray(hist["objective"])
+        if obj.shape != (epochs,) or not np.all(np.isfinite(obj)):
+            raise AssertionError(f"{name}: objective not finite: {obj}")
+        c_plain = dataclasses.replace(c, use_kernels=False)
+        _, h_plain = SP.distributed_train(mesh, None, *args, L, C, c_plain,
+                                          epochs, init=init)
+        st_ov, h_ov = SP.distributed_train(mesh, None, *args, L, C, c,
+                                           epochs, init=init, overlap=True)
+        print(f"  objective kernels {obj.tolist()}", flush=True)
+        print(f"  objective plain   {h_plain['objective']}", flush=True)
+        np.testing.assert_allclose(obj, h_plain["objective"], rtol=TRAJ_RTOL)
+        if h_ov["objective"] != hist["objective"] or not all(
+                torch.equal(a, b) for a, b in zip(st, st_ov)):
+            raise AssertionError(f"{name}: overlap=True differs from "
+                                 "overlap=False")
+        pc = GridCodec(c.grid) if c.quantize_p else FP32
+        wb = SP.wire_bytes_per_iteration(mesh, L, V, h, pc, pc)
+        per_iter = wb["q_fwd"] + wb["u_fwd"] + wb["p_bwd"]
+        ledger_iters = led.per_iteration()
+        if sorted(ledger_iters) != list(range(epochs)) or set(
+                ledger_iters.values()) != {per_iter}:
+            raise AssertionError(f"{name}: ledger {ledger_iters} != "
+                                 f"{per_iter} bytes per iteration")
+        # what the shifts moved, counted from the payload tensors
+        if ring.shifted_bytes != led.total_wire_bytes():
+            raise AssertionError(f"{name}: the ring's shifts moved "
+                                 f"{ring.shifted_bytes} B, the ledger says "
+                                 f"{led.total_wire_bytes()} B")
+        data = [LocalRing(mesh, dev).to_local(x, "rows")
+                for x in (Xp, ds.labels, ds.masks["train"])]
+        peak = ring_peak_mib(mesh, L, C, c, init, data)
+        ms, step, st_s = ring_ms_per_iter(mesh, L, C, c, init, data)
+        ms_plain = ring_ms_per_iter(mesh, L, C, c_plain, init, data)[0]
+        ms_overlap = ring_ms_per_iter(mesh, L, C, c, init, data,
+                                      overlap=True)[0]
+        held = [st_s]
+
+        def run_once(step=step, held=held, data=data):
+            held[0], _ = step(held[0], *data)
+        prof = profile_phase(name, run_once, ms)
+        print(f"  ms per iteration: kernels {ms:.3f}  plain {ms_plain:.3f}  "
+              f"kernels with overlap {ms_overlap:.3f}; ledger bytes per "
+              f"iteration {per_iter} = bytes the shifts moved "
+              f"{ring.shifted_bytes // epochs}; peak MiB above the state "
+              f"in one step: {peak}", flush=True)
+        out[name] = {"launches": counts, "iterations": epochs,
+                     "objective": obj.tolist(),
+                     "objective_plain": h_plain["objective"],
+                     "overlap_bitwise": True, "train_s": t_train,
+                     "ms_per_iter": ms, "ms_per_iter_plain": ms_plain,
+                     "ms_per_iter_overlap": ms_overlap,
+                     "wire_bytes_per_iter": per_iter,
+                     "shifted_bytes": ring.shifted_bytes,
+                     "step_peak_mib": peak, "profile": prof}
+
+    # the mixed-width padded wire: one step, a width per boundary
+    grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
+    ctl = BitWidthController(stage_ring_edges(STAGES, V, h),
+                             ControllerConfig(**MIXED_CONTROLLER))
+    led = CommLedger()
+    init = SP.init_stack(0, Xp, L, cfg)
+    ring = LocalRing(mesh, dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                   controller=ctl, grids_by_bits=grids,
+                                   ledger=led, mixed_width=True, init=init,
+                                   ring=ring)
+    torch.cuda.synchronize()
+    t_mixed = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"mixed width: {epochs} iterations in {t_mixed:.3f} s, steps "
+          f"built {hist['n_compiled_steps']}, launches {counts}", flush=True)
+    for e, sched in enumerate(hist["schedules"]):
+        print(f"  iteration {e}: widths per boundary {list(sched)}")
+    if hist["n_compiled_steps"] != 1:
+        raise AssertionError("mixed width built more than one step")
+    missing = [k for k in PACK_KERNELS + BASE_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"mixed width: kernels never launched: "
+                             f"{missing}")
+    if not all(math.isfinite(o) for o in hist["objective"]):
+        raise AssertionError(f"mixed width: objective not finite: "
+                             f"{hist['objective']}")
+    s = led.summary()
+    print(f"  objective {hist['objective']}; ledger {s['total_bytes']} "
+          f"logical B vs {s['wire_bytes']} physical B; the shifts moved "
+          f"{ring.shifted_bytes} B", flush=True)
+    if ring.shifted_bytes != s["wire_bytes"]:
+        raise AssertionError(f"mixed width: the ring's shifts moved "
+                             f"{ring.shifted_bytes} B, the ledger says "
+                             f"{s['wire_bytes']} physical B")
+    ctl_plain = BitWidthController(stage_ring_edges(STAGES, V, h),
+                                   ControllerConfig(**MIXED_CONTROLLER))
+    _, h_plain = SP.distributed_train(
+        mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
+        epochs, controller=ctl_plain, grids_by_bits=grids, mixed_width=True,
+        init=init)
+    print(f"  objective plain   {h_plain['objective']}; schedules "
+          f"{'equal' if h_plain['schedules'] == hist['schedules'] else 'differ'}",
+          flush=True)
+    np.testing.assert_allclose(hist["objective"], h_plain["objective"],
+                               rtol=TRAJ_RTOL)
+    out["mixed"] = {"launches": counts, "iterations": epochs,
+                    "schedules": [list(x) for x in hist["schedules"]],
+                    "objective": hist["objective"],
+                    "objective_plain": h_plain["objective"],
+                    "train_s": t_mixed,
+                    "logical_bytes": s["total_bytes"],
+                    "physical_bytes": s["wire_bytes"],
+                    "shifted_bytes": ring.shifted_bytes}
+
+    # quantized psum over data 4: gather and code_psum, the same bits
+    ring = LocalRing(StageMesh(4, 1), dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((4, 1, V, h), generator=g, device=dev)
+    psum = {}
+    for label, codec in (("affine4", AffineCodec(4)),
+                         ("grid4", GridCodec(uniform_grid(4, -3.0, 3.0)))):
+        a = quantized_psum(x, ring, "data", codec, mode="gather")
+        b = quantized_psum(x, ring, "data", codec, mode="code_psum")
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"quantized_psum {label}: gather != "
+                                 "code_psum")
+        err = float((a[0] - x.sum(0)).abs().max())
+        psum[label] = {"bitwise": True, "max_abs_err_vs_exact": err}
+        print(f"quantized_psum {label} over data 4, [{V},{h}] shards: "
+              f"gather == code_psum bitwise; max |sum − exact| {err:.4f}",
+              flush=True)
+    out["psum"] = psum
+    return out
 
 
 def wire_bytes(dims, V: int, grid) -> dict:
@@ -618,12 +974,13 @@ def main() -> int:
     runs = {}
     state, runs["G"] = train_phase(X, ds, dims, cfg, EPOCHS, BASE_KERNELS,
                                    "pdADMM-G")
-    runs["G"]["profile"] = profile_phase(X, ds, cfg, state,
-                                         runs["G"]["ms_per_iter"])
+    runs["G"]["profile"] = profile_phase(
+        "pdADMM-G", iterate_once(X, ds, cfg, state), runs["G"]["ms_per_iter"])
     state_q, runs["GQ"] = train_phase(X, ds, dims, cfg_q, EPOCHS, GQ_KERNELS,
                                       "pdADMM-G-Q")
-    runs["GQ"]["profile"] = profile_phase(X, ds, cfg_q, state_q,
-                                          runs["GQ"]["ms_per_iter"])
+    runs["GQ"]["profile"] = profile_phase(
+        "pdADMM-G-Q", iterate_once(X, ds, cfg_q, state_q),
+        runs["GQ"]["ms_per_iter"])
     runs["GQ_u_wire"] = wire_phase(X, ds, cfg_q, state_q)
     runs["wire_bytes_per_iter"] = wire_bytes(dims, X.shape[0], cfg_q.grid)
     for key in ("G", "GQ"):
@@ -632,11 +989,13 @@ def main() -> int:
               f"plain {r['ms_per_iter_plain']:.3f}; test accuracy "
               f"{r['test_acc']:.4f} (plain {r['test_acc_plain']:.4f})",
               flush=True)
+    runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
 
     # each kernel's launches come from the run whose path needs it
     run_of = dict.fromkeys(BASE_KERNELS, "G")
     run_of.update(backtrack_resnorm="GQ", grid_project="GQ",
-                  grid_encode="GQ_u_wire", grid_decode="GQ_u_wire")
+                  grid_encode="GQ_u_wire", grid_decode="GQ_u_wire",
+                  pack_codes="mixed", unpack_codes="mixed")
     kernels = []
     for name, cases in rows.items():
         head = cases[0]

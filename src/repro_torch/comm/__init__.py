@@ -1,25 +1,39 @@
-"""The quantized wire of pdADMM-G-Q: codecs and byte accounting.
+"""The quantized wire of pdADMM-G-Q: everything that crosses a link.
 
-Counterpart of ``repro.comm`` for what single-host training needs:
+Counterpart of ``repro.comm``:
 
   * :mod:`repro_torch.comm.codecs` — the ``WireCodec`` protocol with fp32,
     grid and affine codecs, exact per-payload byte accounting, the packed
     code layout and error-feedback encoding.
+  * :mod:`repro_torch.comm.controller` — the residual-driven bit-width
+    controller (hysteresis-bounded switches, global byte budget).
   * :mod:`repro_torch.comm.ledger` — ``CommLedger``, the single source of
     truth for bytes on the wire, and the Fig-5 per-iteration model.
+  * :mod:`repro_torch.comm.transport` — the ring's neighbour exchange, the
+    padded mixed-width wire and the quantized all-reduce, used by
+    ``parallel/stage_parallel.py`` and ``parallel/collectives.py``.
 
-The bit-width controller, fault injection and the transport come with the
-port's distributed runtime.
+Fault injection and the integrity sentinels come with the port's
+fault-tolerance slice.
 """
 from repro_torch.comm.codecs import (AffineCodec, Fp32Codec, GridCodec,
                                      WireCodec, WirePayload, codec_for_bits,
                                      codec_for_grid,
                                      encode_with_error_feedback,
                                      fake_quantize)
+from repro_torch.comm.controller import BitWidthController, ControllerConfig
 from repro_torch.comm.ledger import CommLedger, FaultRecord, WireRecord
+from repro_torch.comm.transport import (ContainerExchange, NeighborExchange,
+                                        PaddedWire, PsumWireCost, psum_mode,
+                                        psum_wire_bytes,
+                                        psum_with_error_feedback,
+                                        quantized_psum, record_psum)
 
 __all__ = [
     "AffineCodec", "Fp32Codec", "GridCodec", "WireCodec", "WirePayload",
     "codec_for_bits", "codec_for_grid", "encode_with_error_feedback",
-    "fake_quantize", "CommLedger", "FaultRecord", "WireRecord",
+    "fake_quantize", "BitWidthController", "ControllerConfig", "CommLedger",
+    "FaultRecord", "WireRecord", "ContainerExchange", "NeighborExchange",
+    "PaddedWire", "PsumWireCost", "psum_mode", "psum_wire_bytes",
+    "psum_with_error_feedback", "quantized_psum", "record_psum",
 ]

@@ -110,6 +110,19 @@ def unpack_codes_jnp(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     return ((hi << 8) | lo).to(torch.uint16)
 
 
+def _pack4(codes: torch.Tensor) -> torch.Tensor:
+    """The int4 wire body of a codec payload: the ``pack_codes`` kernel on
+    the card, :func:`pack_codes_jnp` on the CPU (``kernels.ops``)."""
+    from repro_torch.kernels import ops
+    return ops.pack_codes(codes.reshape(-1), 4)
+
+
+def _unpack4(packed: torch.Tensor, shape) -> torch.Tensor:
+    from repro_torch.kernels import ops
+    return ops.unpack_codes(packed, 4, _n_elements(shape)) \
+        .reshape(tuple(shape))
+
+
 def _body_bytes(bits: int, n: int) -> int:
     """Physical payload bytes for ``n`` codes at ``bits`` (container-rounded)."""
     if bits >= 32:
@@ -178,7 +191,7 @@ class GridCodec:
         else:
             codes = g.encode(x)
         if self.bits <= 4:
-            codes = pack_codes_jnp(codes, 4)
+            codes = _pack4(codes)
         return WirePayload(codes, None, None)
 
     def decode(self, payload: WirePayload, shape=None, dtype=torch.float32):
@@ -186,8 +199,7 @@ class GridCodec:
         if self.bits <= 4:
             if shape is None:
                 raise ValueError("int4 decode needs the original shape")
-            codes = unpack_codes_jnp(codes, 4, _n_elements(shape)) \
-                .reshape(tuple(shape))
+            codes = _unpack4(codes, shape)
         return self.grid.decode(codes, dtype=dtype)
 
     def payload_bytes(self, shape) -> int:
@@ -243,7 +255,7 @@ class AffineCodec:
         codes = self.quantize(x, lo, scale, generator=generator)
         codes = codes.to(torch.int32).to(_container_dtype(self.bits))
         if self.bits <= 4:
-            codes = pack_codes_jnp(codes, 4)
+            codes = _pack4(codes)
         return WirePayload(codes, scale, lo)
 
     def decode(self, payload: WirePayload, shape=None, dtype=torch.float32):
@@ -251,8 +263,7 @@ class AffineCodec:
         if self.bits <= 4:
             if shape is None:
                 raise ValueError("int4 decode needs the original shape")
-            codes = unpack_codes_jnp(codes, 4, _n_elements(shape)) \
-                .reshape(tuple(shape))
+            codes = _unpack4(codes, shape)
         return self.dequantize(codes, payload.zero, payload.scale, dtype)
 
     def payload_bytes(self, shape) -> int:

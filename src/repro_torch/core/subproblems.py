@@ -83,7 +83,12 @@ def grad_W(p, W, b, z, nu):
 # ---------------------------------------------------------------------------
 
 def _tau0(t0, like):
-    """τ0 as f32 (as in the reference) of ``like``'s shape and device."""
+    """τ0 as f32 (as in the reference) of ``like``'s shape and device. A
+    Python number is filled in on the device: a host-to-device copy would
+    wait for every queued kernel."""
+    if not isinstance(t0, torch.Tensor):
+        return torch.full(like.shape, t0, dtype=torch.float32,
+                          device=like.device)
     t = torch.as_tensor(t0, dtype=torch.float32, device=like.device)
     return t.expand(like.shape).clone()
 

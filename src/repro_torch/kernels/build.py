@@ -43,6 +43,10 @@ SIGNATURES = {
     "grid_project_f32": [_P, _P, _LL, _F, _F, _F, _I, _P],
     "grid_encode_f32": [_P, _P, _LL, _F, _F, _I, _I, _P],
     "grid_decode_f32": [_P, _P, _LL, _F, _F, _I, _P],
+    "pack_codes4": [_P, _P, _LL, _LL, _LL, _LL, _P],
+    "unpack_codes4": [_P, _P, _LL, _LL, _LL, _LL, _P],
+    "pack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
+    "unpack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
 }
 
 _lib = None

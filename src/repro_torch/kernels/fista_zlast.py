@@ -6,14 +6,20 @@ n_iters + 1 times. Source: ``csrc/fista_zlast.cu``.
 
 What bounds it on the H100: launch latency. At cora's [2485, 7] the solve
 reads about 0.2 MB and does about 6 Mflop over 16 steps — well under a
-microsecond of bytes or operations — so the cost is the launch itself.
+microsecond of bytes or operations — so the cost is the launch itself. The
+distributed runtime's head-folded last layer [2485, 1000] (7 classes)
+reads and writes 30 MB: about 9 µs of bytes.
 
-Design: one thread per row, all n_iters + 1 steps inside one launch, with
-z_prev, z_cur and a held in registers (the width is a template cap of 8,
-16, 32 or 64; every Table II dataset has C ≤ 40). Rows are independent, so
-this computes the same iteration map as the TPU's per-step dispatches with
-one launch instead of 16. The momentum weights are data-independent and
-come from ``momentum_schedule`` on the host, passed by value.
+Design: all n_iters + 1 steps inside one launch. The C class columns of a
+row belong to one thread, with z_prev, z_cur and a held in registers (C
+takes a template cap of 8, 16, 32 or 64; every Table II dataset has
+C ≤ 40). Columns at and beyond C only follow the proximal flow, which is
+elementwise: in the same launch one thread per element runs all steps in
+registers, with the plain version's roundings (bitwise equal to it). Rows
+are independent, so this computes the same iteration map as the TPU's
+per-step dispatches with one launch instead of 16. The momentum weights are
+data-independent and come from ``momentum_schedule`` on the host, passed by
+value.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_WIDTH = 64
+MAX_CLASSES = 64
 launches = 0
 
 
@@ -42,18 +48,19 @@ def momentum_schedule(n_iters: int) -> list:
 
 def fista_zlast(a, z_old, labels, label_mask, *, nu: float, n_iters: int,
                 n_classes: int):
-    """a, z_old: [V, N] float32; labels: [V] int; label_mask: [V] float32.
-    Softmax-CE over the first `n_classes` columns; the rest follow only the
-    proximal flow. Returns z_L: [V, N] float32."""
+    """a, z_old: [V, N] float32 (any N); labels: [V] int; label_mask: [V]
+    float32. Softmax-CE over the first `n_classes` columns (at most
+    ``MAX_CLASSES``); the rest follow only the proximal flow. Returns z_L:
+    [V, N] float32."""
     global launches
     if a.dim() != 2:
         raise ValueError(f"a: expected [V, N], got {tuple(a.shape)}")
     V, N = a.shape
-    if N > MAX_WIDTH:
-        raise ValueError(f"fista_zlast: width {N} exceeds the kernel's cap "
-                         f"of {MAX_WIDTH}")
     if not 1 <= n_classes <= N:
         raise ValueError(f"n_classes must be in [1, {N}], got {n_classes}")
+    if n_classes > MAX_CLASSES:
+        raise ValueError(f"fista_zlast: {n_classes} classes exceed the "
+                         f"kernel's cap of {MAX_CLASSES}")
     build.require(a, "a")
     build.require(z_old, "z_old", (V, N))
     build.require(label_mask, "label_mask", (V,))

@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.kernels import (admm_pgrad as _pg, backtrack_phi as _bt,
                                  fista_zlast as _fz, fused_linear as _fl,
-                                 quantize_kernel as _qk, ref,
-                                 relu_zupdate as _zu)
+                                 pack_codes as _pc, quantize_kernel as _qk,
+                                 ref, relu_zupdate as _zu)
 
 # Kernel name -> its wrapper module. A module's ``launches`` is an int, or a
 # dict keyed by kernel name where one module wraps several entry points.
@@ -28,6 +28,8 @@ KERNEL_MODULES = {
     "grid_project": _qk,
     "grid_encode": _qk,
     "grid_decode": _qk,
+    "pack_codes": _pc,
+    "unpack_codes": _pc,
 }
 
 
@@ -114,3 +116,20 @@ def grid_decode(codes, grid, out_dtype=torch.float32):
     if _on_cpu(codes):
         return ref.grid_decode_ref(codes, grid, out_dtype)
     return _qk.grid_decode(codes, grid, out_dtype)
+
+
+def pack_codes(codes, bits: int):
+    """Integer codes [n] or [rows, n] -> their uint8 wire container, each
+    row on its own (4-bit half-split nibbles, 8-bit identity, 16-bit
+    big-endian planes)."""
+    if _on_cpu(codes):
+        return ref.pack_codes_ref(codes, bits)
+    return _pc.pack_codes(codes, bits)
+
+
+def unpack_codes(packed, bits: int, n: int):
+    """The first ``n`` codes of each packed row (uint8 <= 8 bits, uint16
+    above)."""
+    if _on_cpu(packed):
+        return ref.unpack_codes_ref(packed, bits, n)
+    return _pc.unpack_codes(packed, bits, n)

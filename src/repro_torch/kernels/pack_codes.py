@@ -1,0 +1,100 @@
+"""CUDA kernel wrappers: integer wire codes into their uint8 container, and
+back — the packed payload of the gather all-reduce and of the padded
+mixed-width boundary wire.
+
+Replaces ``repro/kernels/pack_codes.py:pack_codes`` / ``unpack_codes``
+(Pallas bodies ``_pack4_kernel``, ``_unpack4_kernel``, ``_pack16_kernel``,
+``_unpack16_kernel``). Source: ``csrc/pack_codes.cu``.
+
+What bounds it on the H100: bytes, and at the ring's slab sizes the launch.
+Packing one [2485, 1000] boundary slab reads 2.5 MB of 4-bit codes and
+writes 1.2 MB (about 1.1 µs at 3.35 TB/s); 16-bit codes read 5 MB and write
+5 MB (about 3 µs).
+
+Design: one launch formats every row of a [rows, n] batch (one row per
+shard's slab), each thread 16 packed bytes per step, each stream of a row
+with the widest access (128, 64 or 32 bits) its row's address allows, so
+the ring's unaligned row strides keep wide accesses. The 4-bit pack reads
+the code past an odd end as 0 instead of padding a copy, and unpacking
+reads each row at its own stride, so the head of a wider wire container
+needs no copy. The layout is the wire contract, so kernel and plain
+version are held equal byte for byte. 8-bit codes are their own
+container: no launch, as on the TPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.comm.codecs import _body_bytes
+from repro_torch.kernels import build
+
+# one launch count per entry point (kernels.ops reads them by name)
+launches = {"pack_codes": 0, "unpack_codes": 0}
+
+
+def _rows(t, name, dtype):
+    """View a 1-D or 2-D operand as [rows, cols] with its row stride."""
+    if t.dim() not in (1, 2):
+        raise ValueError(f"{name}: expected [n] or [rows, n], got "
+                         f"{tuple(t.shape)}")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    t2 = t if t.dim() == 2 else t.unsqueeze(0)
+    if t2.shape[-1] > 1 and t2.stride(-1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    return t2, (t2.stride(0) if t2.shape[0] > 1 else t2.shape[-1])
+
+
+def pack_codes(codes, bits: int):
+    """codes: [n] or [rows, n] (uint8 for <= 8 bits, uint16 above; rows
+    contiguous, any row stride), each row packed on its own -> uint8 [body]
+    or [rows, body] with body = ``codecs._body_bytes(bits, n)``."""
+    if bits > 16:
+        raise ValueError(f"no integer wire container for {bits}-bit codes")
+    code_dtype = torch.uint8 if bits <= 8 else torch.uint16
+    c2, ld_in = _rows(codes, "codes", code_dtype)
+    rows, n = c2.shape
+    nb = _body_bytes(bits, n)
+    if 4 < bits <= 8:            # the codes are their own container
+        return codes.clone()
+    out = torch.empty(codes.shape[:-1] + (nb,), dtype=torch.uint8,
+                      device=codes.device)
+    if n == 0 or rows == 0:
+        return out
+    entry = (build.library().pack_codes4 if bits <= 4
+             else build.library().pack_codes16)
+    err = entry(c2.data_ptr(), out.data_ptr(), rows, n, ld_in, nb,
+                build.stream_handle(codes))
+    build.check(err, "pack_codes")
+    launches["pack_codes"] += 1
+    return out
+
+
+def unpack_codes(packed, bits: int, n: int):
+    """packed: uint8 [≥ body] or [rows, ≥ body] (row stride free, rows
+    contiguous) -> the first ``n`` codes of each row, [n] or [rows, n],
+    uint8 for <= 8 bits and uint16 above."""
+    if bits > 16:
+        raise ValueError(f"no integer wire container for {bits}-bit codes")
+    p2, ld_in = _rows(packed, "packed", torch.uint8)
+    rows = p2.shape[0]
+    nb = _body_bytes(bits, n)
+    if p2.shape[1] < nb:
+        raise ValueError(f"packed: {p2.shape[1]} bytes per row, {n} codes "
+                         f"at {bits} bits need {nb}")
+    code_dtype = torch.uint8 if bits <= 8 else torch.uint16
+    if 4 < bits <= 8:
+        return packed[..., :n].clone()
+    out = torch.empty(packed.shape[:-1] + (n,), dtype=code_dtype,
+                      device=packed.device)
+    if n == 0 or rows == 0:
+        return out
+    entry = (build.library().unpack_codes4 if bits <= 4
+             else build.library().unpack_codes16)
+    err = entry(p2.data_ptr(), out.data_ptr(), rows, n, ld_in, n,
+                build.stream_handle(packed))
+    build.check(err, "unpack_codes")
+    launches["unpack_codes"] += 1
+    return out

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels (pdADMM-G and -G-Q paths).
 
-Same signatures and layouts as ``repro.kernels.ref``. A CPU tensor takes
+Same signatures and layouts as ``repro.kernels.ref``; the pack
+layout is ``comm.codecs.pack_codes_jnp`` / ``unpack_codes_jnp``, here with
+a leading row axis (one row per shard) as the kernel takes it. A CPU tensor takes
 these (``kernels/ops.py``); on the card only the tests and ``chip_smoke.py``
 call them, to hold each CUDA kernel against its plain version.
 """
@@ -71,3 +73,25 @@ def fista_zlast_ref(a, z_old, labels, label_mask, *, nu: float,
     ``n_classes`` columns + proximal term, Nesterov momentum)."""
     from repro_torch.core.subproblems import fista_ce
     return fista_ce(a, z_old, labels, label_mask, nu, n_iters, n_classes)
+
+
+def pack_codes_ref(codes, bits: int):
+    """``pack_codes_jnp`` of each row of [n] or [rows, n] codes."""
+    from repro_torch.comm.codecs import _body_bytes, pack_codes_jnp
+    if codes.dim() == 1:
+        return pack_codes_jnp(codes, bits)
+    if codes.shape[0] == 0:
+        return torch.empty((0, _body_bytes(bits, codes.shape[-1])),
+                           dtype=torch.uint8, device=codes.device)
+    return torch.stack([pack_codes_jnp(row, bits) for row in codes])
+
+
+def unpack_codes_ref(packed, bits: int, n: int):
+    """``unpack_codes_jnp`` of each row of [≥ body] or [rows, ≥ body]."""
+    from repro_torch.comm.codecs import _container_dtype, unpack_codes_jnp
+    if packed.dim() == 1:
+        return unpack_codes_jnp(packed, bits, n)
+    if packed.shape[0] == 0:
+        return torch.empty((0, n), dtype=_container_dtype(bits),
+                           device=packed.device)
+    return torch.stack([unpack_codes_jnp(row, bits, n) for row in packed])

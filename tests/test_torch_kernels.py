@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import quantize as tq
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import pack_codes as cuda_pack
 from repro_torch.kernels import quantize_kernel as cuda_grid
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.admm_pgrad import admm_pgrad as cuda_admm_pgrad
@@ -258,10 +259,17 @@ def test_ops_routes_cpu_tensors_to_plain_versions():
                                   tref.grid_encode_ref(u, g).numpy())
     np.testing.assert_array_equal(ops.grid_decode(codes, g).numpy(),
                                   tref.grid_decode_ref(codes, g).numpy())
+    c4 = codes.reshape(2, -1) >> 4
+    np.testing.assert_array_equal(ops.pack_codes(c4, 4).numpy(),
+                                  tref.pack_codes_ref(c4, 4).numpy())
+    np.testing.assert_array_equal(
+        ops.unpack_codes(ops.pack_codes(c4, 4), 4, c4.shape[1]).numpy(),
+        c4.numpy())
     assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_MODULES, 0)
     assert set(ops.KERNEL_MODULES) == {
         "fused_linear", "admm_pgrad", "relu_zupdate", "fista_zlast",
-        "backtrack_resnorm", "grid_project", "grid_encode", "grid_decode"}
+        "backtrack_resnorm", "grid_project", "grid_encode", "grid_decode",
+        "pack_codes", "unpack_codes"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -276,7 +284,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
              lambda: cuda_grid.grid_project(p, tq.integer_grid()),
              lambda: cuda_grid.grid_encode(p, tq.integer_grid()),
              lambda: cuda_grid.grid_decode(p.to(torch.uint8),
-                                           tq.integer_grid())]
+                                           tq.integer_grid()),
+             lambda: cuda_pack.pack_codes(p.to(torch.uint8), 4),
+             lambda: cuda_pack.unpack_codes(p.to(torch.uint8), 16, 4)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -297,8 +307,13 @@ def test_grid_kernel_scalars_are_the_plain_versions():
 
 
 def test_fista_zlast_wrapper_refuses_width_above_cap():
-    a = torch.zeros(4, 65)
+    """The cap is on the classes (the softmax width); the row may be any
+    width — the distributed runtime's head-folded [V, h] layer."""
+    a = torch.zeros(4, 1000)
     with pytest.raises(ValueError, match="cap"):
+        cuda_fista_zlast(a, a, torch.zeros(4, dtype=torch.int32),
+                         torch.ones(4), nu=0.1, n_iters=1, n_classes=65)
+    with pytest.raises(ValueError, match="CUDA"):      # width 1000 accepted
         cuda_fista_zlast(a, a, torch.zeros(4, dtype=torch.int32),
                          torch.ones(4), nu=0.1, n_iters=1, n_classes=7)
 
@@ -308,7 +323,7 @@ def test_build_plan_compiles_every_source_for_sm90a(tmp_path, monkeypatch):
     names = {c[c.index("-c") + 1].rsplit("/", 1)[-1] for c in cmds}
     assert names == {"fused_linear.cu", "admm_pgrad.cu", "relu_zupdate.cu",
                      "fista_zlast.cu", "backtrack_resnorm.cu",
-                     "quantize_grid.cu"}
+                     "quantize_grid.cu", "pack_codes.cu"}
     for c in cmds:
         assert "arch=compute_90a,code=sm_90a" in c
         assert "--use_fast_math" not in c
@@ -354,7 +369,7 @@ def test_build_runs_one_compile_per_source_then_links(tmp_path, monkeypatch,
     assert lib == tmp_path / "build" / build.source_hash() / build.LIB_NAME
     assert "-shared" in lib.read_text()
     log = (lib.parent / "build.log").read_text()
-    assert log.count("Used 8 registers") == len(build.sources()) == 6
+    assert log.count("Used 8 registers") == len(build.sources()) == 7
     assert build.build() == lib          # cached: no second build
 
 
@@ -463,3 +478,57 @@ def test_cuda_grid_kernels_equal_plain_bitwise(cuda, name, make, n, offset):
     assert torch.equal(dec, tref.grid_decode_ref(codes, grid))
     assert torch.equal(cuda_grid.grid_decode(codes, grid, torch.float64),
                        tref.grid_decode_ref(codes, grid, torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,width,n_classes", [(300, 1000, 7), (2485, 1000, 7),
+                                               (97, 130, 40), (64, 65, 64)])
+def test_cuda_fista_zlast_wide_rows(cuda, V, width, n_classes):
+    """Rows wider than the classes: the class columns at the FISTA
+    tolerance, the proximal columns bit for bit."""
+    a, z0 = _t(*_np(21, (V, width), (V, width), scale=2.0), device=cuda)
+    rng = np.random.default_rng(22)
+    labels = torch.from_numpy(rng.integers(0, n_classes, V)
+                              .astype(np.int32)).to(cuda)
+    mask = torch.from_numpy((rng.random(V) < 0.6).astype(np.float32)).to(cuda)
+    kw = dict(nu=0.01, n_iters=15, n_classes=n_classes)
+    got = cuda_fista_zlast(a, z0, labels, mask, **kw)
+    want = tref.fista_zlast_ref(a, z0, labels, mask, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, :n_classes], want[:, :n_classes],
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[:, n_classes:], want[:, n_classes:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 16])
+@pytest.mark.parametrize("rows,n,pad", [(1, 2485 * 1000, 0), (1, 1001, 0),
+                                        (3, 1001, 7), (4, 4096, 16),
+                                        (2, 1, 0), (5, 33, 3),
+                                        (10, 2485 * 1000, 0), (6, 4104, 0),
+                                        (4, 4100, 0), (3, 1002, 2)])
+def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad):
+    """Every access width (row strides that leave rows 8, 4 or 1 bytes off
+    a 16-byte boundary, as the ring's [10, 2,485,000] batch does), odd n,
+    batched rows, and unpacking from the head of wider rows."""
+    rng = np.random.default_rng(n + rows)
+    dt = torch.uint8 if bits <= 8 else torch.uint16
+    wide = torch.from_numpy(rng.integers(0, 2 ** bits, (rows, n + pad))
+                            .astype(np.int32)).to(dt).to(cuda)
+    codes = wide[:, :n]
+    if rows == 1:
+        codes = codes[0]
+    got = cuda_pack.pack_codes(codes, bits)
+    want = tref.pack_codes_ref(codes.cpu(), bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    nb = got.shape[-1]
+    room = torch.zeros(got.shape[:-1] + (nb + pad,), dtype=torch.uint8,
+                       device=cuda)
+    room[..., :nb] = got
+    back = cuda_pack.unpack_codes(room, bits, n)
+    torch.cuda.synchronize()
+    assert back.dtype == dt
+    assert torch.equal(back.cpu().to(torch.int32),
+                       codes.cpu().to(torch.int32))
+
