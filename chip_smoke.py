@@ -46,9 +46,26 @@ and the script exits non-zero without printing a result:
    run with ``use_kernels=False`` at rtol 1e-3. Last,
    ``quantized_psum`` on a ``LocalRing`` of data 4 over [2485, 1000]
    shards: gather and code_psum give the same bits (4-bit affine and grid).
-7. Print the wire bytes per iteration from the port's ledger (G, G-Q,
-   G-Q with the u wire), the card (``nvidia-smi``), one JSON line with
-   every kernel's numbers, and last the device line.
+7. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
+   layers, d 2048, 32 query / 4 KV heads, bf16, seeded random weights):
+   ``ModelBundle.prefill`` of 4 prompts of 2048 tokens with every launch
+   count set to 0 just before (``flash_attention`` must launch exactly 22
+   times, once per layer), ms per prefill and tokens/s; the same prefill
+   with the plain attention on the card (``use_kernels=False``): max
+   |Δlogit| and the relative L2 error of the last-position logits, at most
+   2e-2; each bf16 path's relative L2 to the same prefill in f32 through
+   the plain attention, of the logits and of the last layer's K/V at every
+   position, the kernel path's at most 1.05 times the plain path's on
+   both, and two controls (the kernel without its causal mask; without the
+   last 64-key tile) that must break that limit. Then 32 greedy tokens with
+   ``serve_step`` from that cache (ms per token at B 4; the tokens the two
+   paths agree on are counted, not asserted: bf16 logits tie often under
+   the 0.02 init), a profile of one prefill and one decode step, and
+   ``ServingEngine`` answering 7 requests on 4 slots
+   (``examples/serve_lm.py``'s), each with 12 tokens in the vocab.
+8. Print the wire bytes per iteration from the port's ledger (G, G-Q,
+   G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
+   one JSON line with every kernel's numbers, and last the device line.
 
 Tolerances (f32 on both sides, sums in another order): matmul kernels
 max|kernel − plain| ≤ 1e-5·max|plain|; backtrack_resnorm within rtol 1e-5
@@ -59,7 +76,16 @@ division by a scalar), and where the two branch objectives tie to 1e-5,
 equal objective values; the grid kernels bitwise (the same arithmetic);
 fista_zlast on rows wider than the classes: the class columns as above, the
 proximal columns bitwise; pack_codes / unpack_codes bitwise (the wire
-layout).
+layout); flash_attention against its plain version at the prefill's
+shape (B 4, S = T = 2048, Hq 32, Hkv 4, D 64, bf16) causal and not, one
+16384-token row, and f32 at S 512: f32 at the JAX test's rtol = atol =
+1e-4; bf16 at a relative L2 error of at most 1e-3 and |Δ| ≤ 2^-7·|want| +
+1e-3 (one bf16 ulp: the JAX test's 3e-2 is as large as a typical output
+at these lengths, so its ratio is only printed). Each case also runs
+controls that the check must refuse: the output 10% off, the last 64-key
+tile dropped, and in causal cases the mask off. Its library yardstick is
+``F.scaled_dot_product_attention(..., enable_gqa=True)``, never on the
+port's path.
 """
 from __future__ import annotations
 
@@ -82,6 +108,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # cores (the port's matmuls are full f32, no TF32).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense tensor-core rate, the bound for bf16 inputs
 MATMUL_REL_TOL = 1e-5
 RESNORM_RTOL = 1e-5
 FISTA_ATOL = 1e-5
@@ -93,6 +120,17 @@ BASE_KERNELS = ("fused_linear", "admm_pgrad", "relu_zupdate", "fista_zlast")
 GQ_KERNELS = BASE_KERNELS + ("backtrack_resnorm", "grid_project")
 WIRE_KERNELS = ("grid_encode", "grid_decode")
 PACK_KERNELS = ("pack_codes", "unpack_codes")
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # tests/test_kernels.py
+# bf16 flash_attention: both sides round one f32 result to bf16, so they
+# differ by at most one bf16 ulp (<= 2^-7·|want|) plus f32 noise; the
+# relative L2 error reads 3.6e-5 to 7.0e-5 on an H100 80GB HBM3 (700 W)
+FLASH_BF16_REL_L2 = 1e-3
+FLASH_BF16_ATOL = 1e-3
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LONG_ROW = 16384          # prefill_32k's sequence, halved for the plain check
+LM_REL_L2 = 2e-2          # last-position logits, kernel vs plain attention
+LM_VS_F32 = 1.05          # kernel path's distance to f32, x the plain path's
 STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
@@ -118,6 +156,8 @@ SOURCES = {
                    "src/repro/kernels/pack_codes.py:77"),
     "unpack_codes": ("src/repro_torch/kernels/csrc/pack_codes.cu",
                      "src/repro/kernels/pack_codes.py:97"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:52"),
 }
 
 
@@ -136,24 +176,26 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
     """(least ms, what bounds it) on the card for this much work."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def case(name, kernel, plain, library, n_bytes, n_ops, check):
+def case(name, kernel, plain, library, n_bytes, n_ops, check,
+         peak=PEAK_F32_FLOPS, iters=20):
     """Run, check and time one kernel at one shape."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = float((got.double() - want.double()).abs().max())
-    check(got, want, err)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    row = {"shape": name, "max_abs_err": err, "ms": time_ms(kernel),
-           "plain_ms": time_ms(plain),
-           "library_ms": None if library is None else time_ms(library),
-           "bound_ms": b_ms, "bound_by": b_by}
+    readings = check(got, want, err) or {}
+    del got, want
+    b_ms, b_by = bound(n_bytes, n_ops, peak)
+    row = {"shape": name, "max_abs_err": err, "ms": time_ms(kernel, iters),
+           "plain_ms": time_ms(plain, iters),
+           "library_ms": None if library is None else time_ms(library, iters),
+           "bound_ms": b_ms, "bound_by": b_by, **readings}
     print(f"  {name}: err {err:.3e}  kernel {row['ms']:.4f} ms  plain "
           f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
@@ -445,7 +487,116 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             lambda p=container, b=bits: ref.unpack_codes_ref(p, b, n),
             None, nr * (nb + cb * n), 2 * nr * n, bitwise_check))
     rows["pack_codes"], rows["unpack_codes"] = pk, upk
+    rows["flash_attention"] = flash_cases(dev)
     return rows
+
+
+def flash_readings(got, want) -> dict:
+    """How far ``got`` lies from ``want``: the relative L2 error, the largest
+    ratio of |got − want| to the bf16 bound 2^-7·|want| + FLASH_BF16_ATOL
+    (above 1 breaks it), and the same ratio for the JAX test's
+    ``assert_allclose`` (|got − want| ≤ tol + tol·|want|)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    tol = FLASH_TOL[want.dtype]
+    return {"rel_l2": float((g - w).norm() / w.norm()),
+            "bf16_bound_ratio": float(
+                (d / (2 ** -7 * w.abs() + FLASH_BF16_ATOL)).max()),
+            "jax_tol_ratio": float((d / (tol + tol * w.abs())).max())}
+
+
+def flash_breaks(r: dict, dtype) -> list:
+    """The bounds ``r`` breaks. bf16: the relative L2 error and the bound
+    scaled to the output, which implies the JAX test's rtol = atol = 3e-2
+    (as large as a typical output at these lengths, so only printed); f32:
+    the JAX test's rtol = atol = 1e-4."""
+    if dtype == torch.bfloat16:
+        return ([f"relative L2 {r['rel_l2']:.3e} > {FLASH_BF16_REL_L2}"]
+                if not r["rel_l2"] <= FLASH_BF16_REL_L2 else []) + (
+            [f"|Δ| at {r['bf16_bound_ratio']:.3g}× 2^-7·|want| + "
+             f"{FLASH_BF16_ATOL}"] if not r["bf16_bound_ratio"] <= 1 else [])
+    return ([f"|Δ| at {r['jax_tol_ratio']:.3g}× rtol = atol = "
+             f"{FLASH_TOL[dtype]}"] if not r["jax_tol_ratio"] <= 1 else [])
+
+
+def flash_check(got, want, err):
+    r = flash_readings(got, want)
+    print(f"    relative L2 {r['rel_l2']:.3e}, |Δ| / bf16 bound "
+          f"{r['bf16_bound_ratio']:.3f}, |Δ| / JAX tolerance "
+          f"{r['jax_tol_ratio']:.4f}", flush=True)
+    broken = flash_breaks(r, want.dtype)
+    if broken:
+        raise AssertionError(f"flash_attention (max abs err {err:.3e}): "
+                             + "; ".join(broken))
+    return r
+
+
+def flash_controls(q, k, v, causal, want) -> dict:
+    """Wrong attentions that the check must refuse: the kernel's output 10%
+    off, the kernel without the last 64-key tile, and (causal cases) the
+    kernel without its mask."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    good = flash_attention(q, k, v, causal=causal)
+    wrong = {"output x1.1": (good.float() * 1.1).to(good.dtype),
+             "last key tile dropped": flash_attention(
+                 q, k[:, :-64], v[:, :-64], causal=causal)}
+    del good
+    if causal:
+        wrong["mask off"] = flash_attention(q, k, v, causal=False)
+    out = {}
+    for name, got in wrong.items():
+        r = flash_readings(got, want)
+        out[name] = r
+        print(f"    control '{name}': relative L2 {r['rel_l2']:.3e}, |Δ| / "
+              f"bf16 bound {r['bf16_bound_ratio']:.3f}, |Δ| / JAX tolerance "
+              f"{r['jax_tol_ratio']:.4f}", flush=True)
+        if not flash_breaks(r, want.dtype):
+            raise AssertionError(f"flash_attention: the check passes the "
+                                 f"control '{name}'")
+    return out
+
+
+def flash_cases(dev):
+    """flash_attention against its plain version at the prefill's per-layer
+    shape (tinyllama: Hq 32, Hkv 4, D 64), causal and not, one long row,
+    and f32, each with controls the check must refuse. The bound counts
+    the (query, key) pairs the mask keeps."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Hq, Hkv, D = 32, 4, 64
+    print("flash_attention:", flush=True)
+    out = []
+    for B, S, dtype, causal, iters in (
+            (LM_BATCH, LM_PROMPT, torch.bfloat16, True, 20),
+            (LM_BATCH, LM_PROMPT, torch.bfloat16, False, 20),
+            (1, LONG_ROW, torch.bfloat16, True, 5),
+            (1, 512, torch.float32, True, 20)):
+        q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        name = (f"B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} "
+                f"{str(dtype).split('.')[-1]} "
+                f"{'causal' if causal else 'full'}")
+        row = case(
+            name,
+            lambda q=q, k=k, v=v, c=causal: flash_attention(q, k, v, causal=c),
+            lambda q=q, k=k, v=v, c=causal: ref.flash_attention_ref(
+                q, k, v, causal=c),
+            lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=c, enable_gqa=True),
+            n_bytes, 4 * B * Hq * D * pairs, flash_check, peak, iters)
+        row["controls"] = flash_controls(
+            q, k, v, causal, ref.flash_attention_ref(q, k, v, causal=causal))
+        out.append(row)
+        del q, k, v
+    return out
 
 
 def p_trials(tau_prev, tau_new):
@@ -912,6 +1063,196 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
     return out
 
 
+def timed_ms(fn, n: int) -> float:
+    """Mean host-clock ms of ``n`` calls after one warm-up, each run ending
+    in a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def greedy(bundle, params, cache, logits, n: int, start: int):
+    """``n`` greedy tokens with ``serve_step`` from a prefill's cache and
+    logits (the cache is written in place at start, start + 1, ...)."""
+    vocab = bundle.cfg.vocab
+    tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    out = []
+    for t in range(n):
+        logits, cache = bundle.serve_step(params, cache, {"token": tok},
+                                          length=start + t)
+        tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len) -> dict:
+    """Each bf16 prefill's relative L2 distance to the same prefill in f32
+    through the plain attention: of the last-position logits, and of the
+    last layer's K and V at every prompt position (which every earlier
+    layer's attention at every position feeds). The kernel path may lie no
+    farther than LM_VS_F32 times the plain path on either; two wrong
+    attentions on the kernel path (without its causal mask; without the
+    last 64-key tile) must break the limit on one."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build
+    from repro_torch.models.common import tree_map
+
+    S = batch["tokens"].shape[1]
+
+    def readout(logits, cache):
+        return logits, torch.cat([cache.k[-1, :, :S].float().flatten(),
+                                  cache.v[-1, :, :S].float().flatten()])
+
+    params32 = tree_map(lambda t: t.float(), params)
+    ref = readout(*build(cfg, device=dev, dtype=torch.float32,
+                         use_kernels=False).prefill(params32, batch, S))
+    del params32
+    real = ops.flash_attention
+    wrong = {"mask off": lambda q, k, v, **kw: real(
+                 q, k, v, **{**kw, "causal": False}),
+             "last key tile dropped": lambda q, k, v, **kw: real(
+                 q, k[:, :-64], v[:, :-64], **kw)}
+    runs = {"kernels": lambda: bundle.prefill(params, batch, max_len),
+            "plain": lambda: plain.prefill(params, batch, max_len)}
+    for name, fn in wrong.items():
+        def control(fn=fn):
+            ops.flash_attention = fn
+            try:
+                return bundle.prefill(params, batch, max_len)
+            finally:
+                ops.flash_attention = real
+        runs[f"control: {name}"] = control
+    out = {}
+    for name, run in runs.items():
+        got = readout(*run())
+        out[name] = {part: float((g - w).norm() / w.norm())
+                     for part, g, w in zip(("logits", "last_layer_kv"),
+                                           got, ref)}
+        print(f"  relative L2 to the f32 prefill (plain attention), {name}: "
+              f"logits {out[name]['logits']:.4e}, last layer's K/V "
+              f"{out[name]['last_layer_kv']:.4e}", flush=True)
+    limit = {part: LM_VS_F32 * out["plain"][part] for part in out["plain"]}
+    for name, r in out.items():
+        broken = [part for part in limit if not r[part] <= limit[part]]
+        if name == "kernels" and broken:
+            raise AssertionError(f"prefill: the kernel path is farther from "
+                                 f"f32 than {LM_VS_F32} x the plain path's "
+                                 f"({', '.join(broken)}): {r}")
+        if name.startswith("control") and not broken:
+            raise AssertionError(f"prefill: the check passes the {name}")
+    return out
+
+
+def lm_phase(dev, cfg):
+    """The dense LM ``cfg`` (tinyllama-1.1b at full width) served on
+    ``dev`` (see the module docstring, phase 7)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    bundle = build(cfg, device=dev)
+    plain = build(cfg, device=dev, use_kernels=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    max_len = LM_PROMPT + LM_DECODE
+    n_tok = LM_BATCH * LM_PROMPT
+    print(f"LM: {cfg.name}, {bundle.n_params():,} parameters "
+          f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card), "
+          f"{LM_BATCH} prompts of {LM_PROMPT} tokens, max_len {max_len}",
+          flush=True)
+    out = {}
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits, cache = bundle.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"  prefill launches {counts}", flush=True)
+        if counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"prefill: flash_attention launched "
+                                 f"{counts['flash_attention']} times, not "
+                                 f"once per layer ({cfg.n_layers})")
+        if logits.shape != (LM_BATCH, 1, bundle.vocab_padded) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits: shape "
+                                 f"{tuple(logits.shape)} or not finite")
+        logits_p, cache_p = plain.prefill(params, batch, max_len)
+        d = logits - logits_p
+        rel_l2 = float(d.norm() / logits_p.norm())
+        max_d = float(d.abs().max())
+        print(f"  vs the plain attention on the card: max |Δlogit| "
+              f"{max_d:.4e} (logits up to {float(logits_p.abs().max()):.4f}),"
+              f" relative L2 {rel_l2:.4e}", flush=True)
+        if not rel_l2 <= LM_REL_L2:
+            raise AssertionError(f"prefill: relative L2 {rel_l2:.3e} of the "
+                                 f"logits > {LM_REL_L2}")
+        vs32 = lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len)
+        ms = timed_ms(lambda: bundle.prefill(params, batch, max_len), 3)
+        ms_plain = timed_ms(lambda: plain.prefill(params, batch, max_len), 2)
+        print(f"  ms per prefill: kernels {ms:.3f} ({n_tok / ms * 1e3:.0f} "
+              f"tokens/s)  plain {ms_plain:.3f}", flush=True)
+        prof = profile_phase("prefill", lambda: bundle.prefill(
+            params, batch, max_len), ms)
+        out["LM_prefill"] = {
+            "launches": counts, "iterations": 1, "ms": ms,
+            "ms_plain": ms_plain, "tokens_per_s": n_tok / ms * 1e3,
+            "max_abs_dlogit": max_d, "rel_l2": rel_l2,
+            "rel_l2_to_f32": vs32, "profile": prof}
+
+        greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT)  # warm
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT)
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t) / LM_DECODE * 1e3
+        dcounts = ops.launch_counts()
+        toks_p = greedy(plain, params, cache_p, logits_p, LM_DECODE,
+                        LM_PROMPT)
+        agree = int((toks == toks_p).sum())
+        print(f"  decode: {LM_DECODE} greedy tokens at B {LM_BATCH}, "
+              f"{ms_tok:.3f} ms per token; launches {dcounts}; kernel and "
+              f"plain paths agree on {agree} of {toks.numel()} tokens",
+              flush=True)
+        if bool((toks < 0).any()) or bool((toks >= cfg.vocab).any()):
+            raise AssertionError("decode: a token outside the vocab")
+        if dcounts["flash_attention"] != 0:
+            raise AssertionError("decode launched flash_attention")
+        step_len = [LM_PROMPT]
+
+        def decode_once():
+            bundle.serve_step(params, cache, {"token": toks[:, :1]},
+                              length=step_len[0])
+        dprof = profile_phase("decode step", decode_once, ms_tok)
+        out["LM_decode"] = {"launches": dcounts, "iterations": LM_DECODE,
+                            "ms_per_token": ms_tok, "tokens_agree": agree,
+                            "tokens": toks.numel(), "profile": dprof}
+        del cache, cache_p, logits_p
+
+    engine = ServingEngine(bundle, params, slots=4, max_len=128)
+    reqs = [Request(rid=i, prompt=[10 + i, 20 + i, 30 + i], max_new=12)
+            for i in range(7)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"  engine: 7 requests on 4 slots in {wall:.3f} s: {done}",
+          flush=True)
+    for rid, toks in done.items():
+        if len(toks) != 12 or not all(0 <= x < cfg.vocab for x in toks):
+            raise AssertionError(f"engine: request {rid} got {toks}")
+    out["LM_engine"] = {"wall_s": wall, "requests": 7, "slots": 4,
+                        "tokens": {str(k): v for k, v in done.items()}}
+    return out
+
+
 def wire_bytes(dims, V: int, grid) -> dict:
     """Bytes per iteration on the layer links (the Fig-5 model, from the
     port's ledger) for G, G-Q, and G-Q with 8-bit u codecs."""
@@ -990,12 +1331,17 @@ def main() -> int:
               f"{r['test_acc']:.4f} (plain {r['test_acc_plain']:.4f})",
               flush=True)
     runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
+    del X, ds
+    torch.cuda.empty_cache()
+    from repro_torch.configs.base import get_arch
+    runs.update(lm_phase(device, get_arch(LM_ARCH)))
 
     # each kernel's launches come from the run whose path needs it
     run_of = dict.fromkeys(BASE_KERNELS, "G")
     run_of.update(backtrack_resnorm="GQ", grid_project="GQ",
                   grid_encode="GQ_u_wire", grid_decode="GQ_u_wire",
-                  pack_codes="mixed", unpack_codes="mixed")
+                  pack_codes="mixed", unpack_codes="mixed",
+                  flash_attention="LM_prefill")
     kernels = []
     for name, cases in rows.items():
         head = cases[0]
@@ -1012,8 +1358,9 @@ def main() -> int:
             "library_ms": head["library_ms"], "shape": head["shape"],
             "cases": cases})
     card = card_line()
-    record = {"card": card, "build_s": t_build, "kernels": kernels,
-              "train": runs}
+    wall = time.perf_counter() - t0
+    record = {"card": card, "build_s": t_build, "wall_s": wall,
+              "kernels": kernels, "train": runs}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1022,6 +1369,7 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is not finite")
+    print(f"chip_smoke: wall time {wall:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

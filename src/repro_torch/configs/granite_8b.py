@@ -1,0 +1,9 @@
+"""granite-8b: llama-arch, code model, GQA kv=8 [arXiv:2405.04324; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+    vocab=49152, head_dim=128, rope_theta=10_000.0,
+    use_fsdp=True, microbatches=4, source="arXiv:2405.04324",
+)

@@ -47,6 +47,8 @@ SIGNATURES = {
     "unpack_codes4": [_P, _P, _LL, _LL, _LL, _LL, _P],
     "pack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
     "unpack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _F, ctypes.POINTER(_LL), _P],
 }
 
 _lib = None

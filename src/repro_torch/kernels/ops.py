@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (admm_pgrad as _pg, backtrack_phi as _bt,
-                                 fista_zlast as _fz, fused_linear as _fl,
-                                 pack_codes as _pc, quantize_kernel as _qk,
-                                 ref, relu_zupdate as _zu)
+                                 fista_zlast as _fz, flash_attention as _fa,
+                                 fused_linear as _fl, pack_codes as _pc,
+                                 quantize_kernel as _qk, ref,
+                                 relu_zupdate as _zu)
 
 # Kernel name -> its wrapper module. A module's ``launches`` is an int, or a
 # dict keyed by kernel name where one module wraps several entry points.
@@ -30,6 +31,7 @@ KERNEL_MODULES = {
     "grid_decode": _qk,
     "pack_codes": _pc,
     "unpack_codes": _pc,
+    "flash_attention": _fa,
 }
 
 
@@ -133,3 +135,12 @@ def unpack_codes(packed, bits: int, n: int):
     if _on_cpu(packed):
         return ref.unpack_codes_ref(packed, bits, n)
     return _pc.unpack_codes(packed, bits, n)
+
+
+def flash_attention(q, k, v, *, causal=True, q_offset=0):
+    """Exact softmax attention, q [B, S, Hq, D] against k, v [B, T, Hkv, D]
+    (GQA by head index), keys j <= i + q_offset when causal."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
+    return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)

@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the port's kernels (pdADMM-G and -G-Q paths).
+"""Plain PyTorch versions of the port's kernels (pdADMM-G and -G-Q paths,
+and the LM prefill's attention).
 
-Same signatures and layouts as ``repro.kernels.ref``; the pack
+Same signatures and layouts as ``repro.kernels.ref`` (but attention in the
+kernel's [B, S, H, D] layout, ungrouped K/V); the pack
 layout is ``comm.codecs.pack_codes_jnp`` / ``unpack_codes_jnp``, here with
 a leading row axis (one row per shard) as the kernel takes it. A CPU tensor takes
 these (``kernels/ops.py``); on the card only the tests and ``chip_smoke.py``
@@ -95,3 +97,30 @@ def unpack_codes_ref(packed, bits: int, n: int):
         return torch.empty((0, n), dtype=_container_dtype(bits),
                            device=packed.device)
     return torch.stack([unpack_codes_jnp(row, bits, n) for row in packed])
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Exact softmax attention: the reference's ``flash_attention_ref``
+    (``repro/kernels/ref.py:69``) in the layout the kernel takes, q
+    [B, S, Hq, D] and k, v [B, T, Hkv, D], query head h reading KV head
+    h // (Hq / Hkv) (the reference takes [B, H, S, D] with K/V already
+    expanded). f32 logits scaled by D^-0.5, keys j > i + q_offset masked at
+    -1e30 when causal, softmax, an f32 PV product cast to q's dtype. One KV
+    head at a time, so one group's [B, G, S, T] scores are the largest
+    temporary."""
+    S, Hq, D = q.shape[1:]
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    keep = None
+    if causal:
+        keep = (torch.arange(S, device=q.device)[:, None] + q_offset
+                >= torch.arange(T, device=q.device)[None, :])
+    out = []
+    for h in range(Hkv):
+        s = torch.einsum("bqgd,btd->bgqt", q[:, :, h * G:(h + 1) * G].float(),
+                         k[:, :, h].float()) * (D ** -0.5)
+        if keep is not None:
+            s.masked_fill_(~keep, -1e30)
+        p = torch.softmax(s, dim=-1)
+        out.append(torch.einsum("bgqt,btd->bqgd", p, v[:, :, h].float()))
+    return torch.cat(out, dim=2).to(q.dtype)

@@ -1,0 +1,198 @@
+"""Core neural layers of the dense LM: RMSNorm, RoPE, GQA attention (the
+prefill's, and decode against a KV cache, bf16 or int8), SwiGLU.
+
+The port of the dense subset of ``repro/models/layers.py``, with its
+layouts: activations [B, S, d], heads [B, S, H, D]. ``attention`` on a
+CUDA tensor is one launch of the hand-written flash kernel
+(``kernels.ops.flash_attention``); on a CPU tensor, or with
+``use_kernel=False``, it is the reference's chunked exact softmax
+(``_attend_block``). The two compute the same function, except that the
+reference casts the probabilities to v's dtype before the PV product and
+the kernel keeps them in f32 (ROADMAP Queue 3).
+
+The KV caches are updated in place (the reference returns new arrays): a
+decode step writes one row of the cache it is given.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    d2 = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, d2, dtype=torch.float32,
+                                         device=device) / d2))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]. The rotation
+    is f32 (x · cos promotes, as in the reference) and cast back."""
+    d2 = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [d2]
+    ang = positions[..., None].float() * freqs                    # [..., S, d2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :d2], x[..., d2:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA)
+# ---------------------------------------------------------------------------
+
+def _attend_block(q, k, v, q_pos, causal: bool):
+    """q: [B,Sq,Hkv,G,D]; k,v: [B,T,Hkv,D]; q_pos: [Sq] absolute positions."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float() * scale, k.float())
+    if causal:
+        t_pos = torch.arange(k.shape[1], device=k.device)
+        mask = q_pos[:, None] >= t_pos[None, :]                    # [Sq, T]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), v)
+
+
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+              chunk: int = 1024, use_kernel: bool = True):
+    """Exact attention. q: [B, Sq, Hq, D]; k, v: [B, T, Hkv, D], Hq % Hkv
+    == 0 (GQA). q_offset: absolute position of q[0] (prefill: 0).
+
+    On a CUDA tensor with ``use_kernel``: one flash-kernel launch. Else the
+    reference's path: query chunks of ``chunk`` rows (when Sq is a multiple
+    of it above it), each an exact softmax over all keys."""
+    if use_kernel and not ops._on_cpu(q):
+        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    if Sq % chunk != 0 or Sq <= chunk:
+        pos = q_offset + torch.arange(Sq, device=q.device)
+        return _attend_block(qg, k, v, pos, causal).reshape(B, Sq, Hq, D)
+    out = [_attend_block(qg[:, i:i + chunk], k, v,
+                         q_offset + i + torch.arange(chunk, device=q.device),
+                         causal)
+           for i in range(0, Sq, chunk)]
+    return torch.cat(out, dim=1).reshape(B, Sq, Hq, D)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [..., B, T, Hkv, D]
+    v: torch.Tensor
+    length: int      # tokens filled
+
+    @staticmethod
+    def zeros(batch, max_len, n_kv, head_dim, dtype=torch.bfloat16,
+              layers=None, device=None):
+        shp = (batch, max_len, n_kv, head_dim)
+        if layers is not None:
+            shp = (layers,) + shp
+        return KVCache(torch.zeros(shp, dtype=dtype, device=device),
+                       torch.zeros(shp, dtype=dtype, device=device), 0)
+
+
+def _write_at(buf, new, idx: int):
+    """buf[:, idx:idx+n] = new, in place, with the start clamped into range
+    as ``lax.dynamic_update_slice`` clamps it."""
+    n = new.shape[1]
+    start = min(max(int(idx), 0), buf.shape[1] - n)
+    buf[:, start:start + n] = new.to(buf.dtype)
+
+
+def cache_update(cache: KVCache, k_new, v_new) -> KVCache:
+    """Insert [B,n,Hkv,D] at cache.length (in place)."""
+    _write_at(cache.k, k_new, cache.length)
+    _write_at(cache.v, v_new, cache.length)
+    return KVCache(cache.k, cache.v, int(cache.length) + k_new.shape[1])
+
+
+class KVCacheQ(NamedTuple):
+    """int8-quantized KV cache: codes int8 + per-(token, head) f32 scales
+    (phi3-mini's MHA cache needs it to fit)."""
+    k: torch.Tensor        # int8 [..., B, T, Hkv, D]
+    v: torch.Tensor
+    k_scale: torch.Tensor  # f32 [..., B, T, Hkv]
+    v_scale: torch.Tensor
+    length: int
+
+    @staticmethod
+    def zeros(batch, max_len, n_kv, head_dim, dtype=torch.bfloat16,
+              layers=None, device=None):
+        shp = (batch, max_len, n_kv, head_dim)
+        sshp = (batch, max_len, n_kv)
+        if layers is not None:
+            shp = (layers,) + shp
+            sshp = (layers,) + sshp
+        return KVCacheQ(torch.zeros(shp, dtype=torch.int8, device=device),
+                        torch.zeros(shp, dtype=torch.int8, device=device),
+                        torch.zeros(sshp, dtype=torch.float32, device=device),
+                        torch.zeros(sshp, dtype=torch.float32, device=device),
+                        0)
+
+
+# 1/127 in f32: the jitted reference multiplies by it (XLA turns the
+# division by the constant into a multiply by its reciprocal)
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def _kv_quant(x):
+    """[B,S,H,D] -> (int8 codes, f32 scale [B,S,H])."""
+    x32 = x.float()
+    s = (x32.abs().amax(dim=-1) * _INV_127).clamp_min(1e-8)
+    c = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
+    return c.to(torch.int8), s
+
+
+def cache_update_q(cache: KVCacheQ, k_new, v_new) -> KVCacheQ:
+    """Quantize [B,n,Hkv,D] and insert it at cache.length (in place)."""
+    idx = cache.length
+    kc, ks = _kv_quant(k_new)
+    vc, vs = _kv_quant(v_new)
+    for buf, new in ((cache.k, kc), (cache.v, vc), (cache.k_scale, ks),
+                     (cache.v_scale, vs)):
+        _write_at(buf, new, idx)
+    return KVCacheQ(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                    int(idx) + k_new.shape[1])
+
+
+def decode_attention_q(q, cache: KVCacheQ, dtype=torch.bfloat16):
+    k = (cache.k.float() * cache.k_scale[..., None]).to(dtype)
+    v = (cache.v.float() * cache.v_scale[..., None]).to(dtype)
+    return decode_attention(q, KVCache(k, v, cache.length))
+
+
+def decode_attention(q, cache: KVCache):
+    """q: [B,1,Hq,D] against a cache of T entries (masked beyond length)."""
+    B, _, Hq, D = q.shape
+    Hkv = cache.k.shape[2]
+    qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg.float() * D ** -0.5,
+                     cache.k.float())
+    t_pos = torch.arange(cache.k.shape[1], device=q.device)
+    s = torch.where(t_pos < cache.length, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", p.to(cache.v.dtype), cache.v)
+    return o.reshape(B, 1, Hq, D)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -57,6 +57,18 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pdadmm.train(0, X, ds.labels, ds.masks, dims, pdadmm.ADMMConfig(), 1)
 
+    from repro_torch.configs.base import get_arch
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.build(cfg).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(api.build(cfg), None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main([])
+
 
 def test_tf32_is_off_in_the_port():
     import repro_torch  # noqa: F401

@@ -1,4 +1,5 @@
-"""The port's kernels on the pdADMM-G and pdADMM-G-Q paths.
+"""The port's kernels on the pdADMM-G and pdADMM-G-Q paths, and the LM
+prefill's attention.
 
 On the CPU: each plain version (``repro_torch.kernels.ref``) against the JAX
 reference's ``ref`` oracle and its Pallas kernel in interpret mode, at
@@ -29,6 +30,7 @@ from repro_torch.kernels.backtrack_phi import \
     backtrack_resnorm as cuda_backtrack_resnorm
 from repro_torch.kernels.fista_zlast import fista_zlast as cuda_fista_zlast
 from repro_torch.kernels.fista_zlast import momentum_schedule
+from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.fused_linear import fused_linear as cuda_fused_linear
 from repro_torch.kernels.relu_zupdate import relu_zupdate as cuda_relu_zupdate
 
@@ -228,6 +230,65 @@ def test_grid_kernels_plain_match_jax_bitwise(jx, name, make, shape):
         np.testing.assert_array_equal(got, np.asarray(want).astype(got.dtype))
 
 
+def _flash_inputs(seed, B, Hq, Hkv, S, T, D, dtype):
+    """numpy q [B,Hq,S,D], k, v [B,Hkv,T,D] rounded to ``dtype`` (a jnp
+    dtype name), as f32 arrays."""
+    import jax.numpy as jnp
+    arrs = _np(seed, (B, Hq, S, D), (B, Hkv, T, D), (B, Hkv, T, D))
+    return [np.array(jnp.asarray(a).astype(dtype).astype(jnp.float32))
+            for a in arrs]
+
+
+def _bshd(a, dtype, device="cpu"):
+    """[B,H,S,D] numpy -> the port's [B,S,H,D] layout, contiguous."""
+    return torch.from_numpy(a).to(dtype).transpose(1, 2).contiguous().to(
+        device)
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # the JAX test's
+
+
+@pytest.mark.parametrize("B,H,S,T,D", [(1, 2, 128, 128, 64),
+                                       (2, 1, 256, 256, 32),
+                                       (1, 2, 64, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_jax(jx, B, H, S, T, D, dtype, causal):
+    """The plain version against ``repro.kernels.ref.flash_attention_ref``
+    at ``tests/test_kernels.py``'s shapes (the Pallas kernel itself is
+    broken on the installed jax, so it is no oracle)."""
+    import jax.numpy as jnp
+    jdt = str(dtype).split(".")[-1]
+    q, k, v = _flash_inputs(4, B, H, H, S, T, D, jdt)
+    want = jx.ref.flash_attention_ref(*(jnp.asarray(a).astype(jdt)
+                                        for a in (q, k, v)), causal=causal)
+    got = tref.flash_attention_ref(*(_bshd(a, dtype) for a in (q, k, v)),
+                                   causal=causal)
+    assert got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().transpose(1, 2).numpy(),
+                               np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_gqa_matches_jax_on_expanded_kv(jx, dtype,
+                                                              causal):
+    """Ungrouped K/V (Hq 8 over Hkv 2) against the reference on K/V
+    expanded with ``jnp.repeat``."""
+    import jax.numpy as jnp
+    jdt = str(dtype).split(".")[-1]
+    q, k, v = _flash_inputs(5, 2, 8, 2, 96, 96, 32, jdt)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    want = jx.ref.flash_attention_ref(jq, jnp.repeat(jk, 4, axis=1),
+                                      jnp.repeat(jv, 4, axis=1), causal=causal)
+    got = tref.flash_attention_ref(*(_bshd(a, dtype) for a in (q, k, v)),
+                                   causal=causal)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().transpose(1, 2).numpy(),
+                               np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
 # --- dispatch and wrapper checks (CPU) ---------------------------------------
 
 def test_ops_routes_cpu_tensors_to_plain_versions():
@@ -265,11 +326,15 @@ def test_ops_routes_cpu_tensors_to_plain_versions():
     np.testing.assert_array_equal(
         ops.unpack_codes(ops.pack_codes(c4, 4), 4, c4.shape[1]).numpy(),
         c4.numpy())
+    q, k, v = _t(*_np(8, (2, 16, 4, 16), (2, 16, 2, 16), (2, 16, 2, 16)))
+    np.testing.assert_array_equal(
+        ops.flash_attention(q, k, v, causal=True, q_offset=3).numpy(),
+        tref.flash_attention_ref(q, k, v, causal=True, q_offset=3).numpy())
     assert ops.launch_counts() == dict.fromkeys(ops.KERNEL_MODULES, 0)
     assert set(ops.KERNEL_MODULES) == {
         "fused_linear", "admm_pgrad", "relu_zupdate", "fista_zlast",
         "backtrack_resnorm", "grid_project", "grid_encode", "grid_decode",
-        "pack_codes", "unpack_codes"}
+        "pack_codes", "unpack_codes", "flash_attention"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -286,7 +351,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
              lambda: cuda_grid.grid_decode(p.to(torch.uint8),
                                            tq.integer_grid()),
              lambda: cuda_pack.pack_codes(p.to(torch.uint8), 4),
-             lambda: cuda_pack.unpack_codes(p.to(torch.uint8), 16, 4)]
+             lambda: cuda_pack.unpack_codes(p.to(torch.uint8), 16, 4),
+             lambda: cuda_flash(p[None, :, None], p[None, :, None],
+                                p[None, :, None])]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -323,7 +390,8 @@ def test_build_plan_compiles_every_source_for_sm90a(tmp_path, monkeypatch):
     names = {c[c.index("-c") + 1].rsplit("/", 1)[-1] for c in cmds}
     assert names == {"fused_linear.cu", "admm_pgrad.cu", "relu_zupdate.cu",
                      "fista_zlast.cu", "backtrack_resnorm.cu",
-                     "quantize_grid.cu", "pack_codes.cu"}
+                     "quantize_grid.cu", "pack_codes.cu",
+                     "flash_attention.cu"}
     for c in cmds:
         assert "arch=compute_90a,code=sm_90a" in c
         assert "--use_fast_math" not in c
@@ -369,7 +437,7 @@ def test_build_runs_one_compile_per_source_then_links(tmp_path, monkeypatch,
     assert lib == tmp_path / "build" / build.source_hash() / build.LIB_NAME
     assert "-shared" in lib.read_text()
     log = (lib.parent / "build.log").read_text()
-    assert log.count("Used 8 registers") == len(build.sources()) == 7
+    assert log.count("Used 8 registers") == len(build.sources()) == 8
     assert build.build() == lib          # cached: no second build
 
 
@@ -532,3 +600,45 @@ def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad):
     assert torch.equal(back.cpu().to(torch.int32),
                        codes.cpu().to(torch.int32))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,q_offset", [
+    (1, 2, 2, 128, 128, 64, 0), (2, 1, 1, 256, 256, 32, 0),
+    (1, 2, 2, 64, 64, 128, 0),                   # tests/test_kernels.py's
+    (2, 32, 4, 256, 256, 64, 0),                 # GQA, tinyllama's heads
+    (1, 4, 2, 1000, 1000, 64, 0),                # ragged S and T
+    (2, 4, 1, 100, 300, 64, 200),                # q_offset > 0
+    (1, 4, 2, 200, 200, 96, 0), (1, 4, 2, 200, 200, 128, 0),
+    (1, 2, 1, 77, 77, 16, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(cuda, B, Hq, Hkv, S, T, D,
+                                            q_offset, dtype, causal):
+    jdt = "float32" if dtype == torch.float32 else "bfloat16"
+    q, k, v = (_bshd(a, dtype, cuda)
+               for a in _flash_inputs(12, B, Hq, Hkv, S, T, D, jdt))
+    got = cuda_flash(q, k, v, causal=causal, q_offset=q_offset)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_takes_strided_heads(cuda):
+    """q, k, v as [B,S,H,D] views of [B,H,S,D] tensors (strides passed to
+    the kernel, no copy), and the count of launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.from_numpy(a).to(cuda).transpose(1, 2)
+               for a in _flash_inputs(13, 2, 8, 2, 130, 130, 64, "float32"))
+    assert not q.is_contiguous()
+    before = fa.launches
+    got = cuda_flash(q, k, v)
+    want = tref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="head_dim"):
+        cuda_flash(q[..., :48], k[..., :48], v[..., :48])
