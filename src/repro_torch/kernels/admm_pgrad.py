@@ -9,9 +9,10 @@ Replaces ``repro/kernels/admm_pgrad.py:admm_pgrad`` (its nested Pallas body
 What bounds it on the H100: f32 operations for the hidden layers
 (2·V·n_out·n_in flops; [2485, 1000] @ [1000, 1000] is 4.97 GFLOP per layer
 against 5·10 MB of operands), bytes for the last layer (n_out = 7: three
-[V, 1000] reads and one write dominate). No TF32, as for fused_linear.
+[V, 1000] reads and one write dominate). SIMT f32 FMAs (fused_linear's
+3xTF32 tile core is the next step for it).
 
-Design: the same 64×64×16 register-tiled core as fused_linear, with the B
+Design: the 64×64×16 register-tiled SIMT core (matmul_tile.cuh), with the B
 tile loaded from rows of W, so Wᵀ is never materialised; u, p and q are
 read once in the epilogue and the product never goes to device memory.
 ``blockIdx.z`` walks the stacked layers.

@@ -32,7 +32,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry point -> argument types; every entry point returns a cudaError_t.
 SIGNATURES = {
     "fused_linear_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _I, _P],
+                         _LL, _LL, _LL, _LL, _LL, _I, _P, _I, _P],
     "admm_pgrad_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _LL, _LL, _LL, _F, _F, _P],
     "relu_zupdate_f32": [_P, _P, _P, _P, _LL, _P],
@@ -151,5 +151,8 @@ def require(t, name: str, shape=None, dtype=None) -> None:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a C pointer value. The
+    raw handle (as Triton's launcher reads it): building a
+    ``torch.cuda.Stream`` to read ``.cuda_stream`` costs as much host time
+    a launch as the smallest kernels take on the card."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,11 +1,11 @@
-// Shared f32 SIMT matmul tile core for fused_linear.cu and admm_pgrad.cu.
+// Shared f32 SIMT matmul tile core for admm_pgrad.cu and backtrack_resnorm.cu.
 //
 // One block of 256 threads computes a BM x BN = 64 x 64 output tile; each
 // thread owns a TM x TN = 4 x 4 patch held in registers. The K loop stages
 // a BM x BK slab of A and a BK x BN slab of B through shared memory, BK = 16.
 // Every load is masked, so ragged M, N and K (V = 2485, K = 5732, N = 7)
-// need no padding. Products are plain f32 FMAs: no TF32, no tensor cores,
-// because the reference runs in full f32.
+// need no padding. Products are plain f32 FMAs, as in the reference (the
+// 3xTF32 core matmul_tf32x3.cuh keeps f32 accuracy on the tensor cores).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -99,15 +99,18 @@ def unpack_codes_ref(packed, bits: int, n: int):
     return torch.stack([unpack_codes_jnp(row, bits, n) for row in packed])
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        p_dtype=None):
     """Exact softmax attention: the reference's ``flash_attention_ref``
     (``repro/kernels/ref.py:69``) in the layout the kernel takes, q
     [B, S, Hq, D] and k, v [B, T, Hkv, D], query head h reading KV head
     h // (Hq / Hkv) (the reference takes [B, H, S, D] with K/V already
     expanded). f32 logits scaled by D^-0.5, keys j > i + q_offset masked at
-    -1e30 when causal, softmax, an f32 PV product cast to q's dtype. One KV
-    head at a time, so one group's [B, G, S, T] scores are the largest
-    temporary."""
+    -1e30 when causal, softmax, an f32 PV product cast to q's dtype. With
+    ``p_dtype`` (the bf16 kernel's counterpart: ``torch.bfloat16``), p and v
+    are cast to it and the PV product runs in it, as the model's
+    ``layers._attend_block`` does with ``p.to(v.dtype)``. One KV head at a
+    time, so one group's [B, G, S, T] scores are the largest temporary."""
     S, Hq, D = q.shape[1:]
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -122,5 +125,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
         if keep is not None:
             s.masked_fill_(~keep, -1e30)
         p = torch.softmax(s, dim=-1)
-        out.append(torch.einsum("bgqt,btd->bqgd", p, v[:, :, h].float()))
+        vh = v[:, :, h].float()
+        if p_dtype is not None:
+            p, vh = p.to(p_dtype), v[:, :, h].to(p_dtype)
+        out.append(torch.einsum("bgqt,btd->bqgd", p, vh))
     return torch.cat(out, dim=2).to(q.dtype)

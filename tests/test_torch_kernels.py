@@ -289,6 +289,39 @@ def test_flash_attention_plain_gqa_matches_jax_on_expanded_kv(jx, dtype,
                                np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("S,T,q_offset", [(64, 64, 0), (40, 100, 60)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_bf16_p_matches_jax_attend_block(S, T, q_offset,
+                                                               causal):
+    """``p_dtype=bf16`` (the bf16 kernel's plain counterpart) against the
+    JAX model's own attention, ``repro.models.layers._attend_block``
+    (jitted), which rounds p to v's dtype before its PV product: the same
+    bf16 roundings, so the outputs agree to 1 bf16 ulp of the largest
+    output (2^-8 of it; the two einsums sum in another order before their
+    one rounding), where the f32-P version lies about 10x farther."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.models import layers as jlayers
+    B, Hq, Hkv, D = 2, 8, 2, 32
+    q, k, v = _np(14, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    pos = q_offset + jnp.arange(S)
+    want = jax.jit(jlayers._attend_block, static_argnums=4)(
+        jq.reshape(B, S, Hkv, Hq // Hkv, D), jk, jv, pos, causal)
+    want = np.asarray(want.astype(jnp.float32)).reshape(B, S, Hq, D)
+    tq_, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = tref.flash_attention_ref(tq_, tk, tv, causal=causal,
+                                   q_offset=q_offset, p_dtype=torch.bfloat16)
+    f32p = tref.flash_attention_ref(tq_, tk, tv, causal=causal,
+                                    q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    ulp = 2 ** -8 * float(np.abs(want).max())
+    d = np.abs(got.float().numpy() - want)
+    assert d.max() <= ulp
+    assert np.abs(f32p.float().numpy() - want).mean() > 5 * d.mean()
+
+
 # --- dispatch and wrapper checks (CPU) ---------------------------------------
 
 def test_ops_routes_cpu_tensors_to_plain_versions():
@@ -441,11 +474,27 @@ def test_build_runs_one_compile_per_source_then_links(tmp_path, monkeypatch,
     assert build.build() == lib          # cached: no second build
 
 
+def test_fused_linear_k_splits():
+    """K is split only where the tensor-core grid leaves the card's SMs
+    unevenly loaded, and never for the row-parallel narrow outputs."""
+    from repro_torch.kernels.fused_linear import k_splits
+    assert k_splits(1, 2485, 1000, 5732, 132) == 4    # 160 tiles, 2 waves
+    assert k_splits(1, 2485, 1000, 1000, 132) == 2
+    assert k_splits(8, 2485, 1000, 1000, 132) == 1    # 1280 tiles
+    assert k_splits(10, 2485, 1000, 1000, 132) == 1   # 12.5 vs 13 waves
+    assert k_splits(1, 2485, 7, 1000, 132) == 1       # narrow
+    assert k_splits(1, 300, 200, 1030, 132) == 2      # 33 slabs: not 4
+    assert k_splits(1, 97, 40, 130, 132) == 1         # 5 slabs
+
+
 # --- CUDA kernels vs their plain versions (card only) ------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,M,K,N", [((), 97, 130, 40), ((), 2485, 300, 7),
-                                        ((3,), 200, 64, 64)])
+@pytest.mark.parametrize("lead,M,K,N", [
+    ((), 97, 130, 40), ((), 2485, 300, 7), ((3,), 200, 64, 64),
+    ((), 2485, 5732, 1000),          # layer 0: K split in 4 parts
+    ((8,), 2485, 1000, 1000),        # the stacked hidden layers
+    ((), 300, 1030, 200)])           # K split in 2, rows not 16-byte aligned
 @pytest.mark.parametrize("mode", ["linear", "residual"])
 def test_cuda_fused_linear_matches_plain(cuda, lead, M, K, N, mode):
     p, W, b, z = _t(*_np(9, lead + (M, K), lead + (K, N), lead + (N,),
@@ -642,3 +691,99 @@ def test_cuda_flash_attention_takes_strided_heads(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="head_dim"):
         cuda_flash(q[..., :48], k[..., :48], v[..., :48])
+
+
+FLASH_BF16_FACTOR = 1.1   # chip_smoke.py's rule for the bf16 route
+
+
+def _assert_flash_bf16(got, q, k, v, causal=True, q_offset=0):
+    """The bf16 route (P rounded to bf16) against the plain version with f32
+    P: its relative L2 distance, over the whole output and over every block
+    of 64 query positions (a ragged tail joins the block before it, so
+    that no block holds a handful of rows), at most 1.1 x that of the plain
+    version with bf16 P (``p_dtype``); the JAX test's rtol = atol = 3e-2 as
+    a ceiling."""
+    kw = dict(causal=causal, q_offset=q_offset)
+    want = tref.flash_attention_ref(q, k, v, **kw).float()
+    plain = tref.flash_attention_ref(q, k, v, p_dtype=torch.bfloat16,
+                                     **kw).float()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got = got.float()
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+    def dist(x):   # whole, then per block of 64 query positions (a ragged
+        d = (x - want).square().sum(dim=(0, 2, 3))   # tail joins the last)
+        w = want.square().sum(dim=(0, 2, 3))
+        n = max(d.numel() // 64, 1)
+        blk = (torch.arange(d.numel(), device=d.device) // 64).clamp(max=n - 1)
+        zero = torch.zeros(n, device=d.device)
+        return ((d.sum() / w.sum()).sqrt(),
+                (zero.index_add(0, blk, d) / zero.index_add(0, blk, w)).sqrt())
+    (gk, bk), (gp, bp) = dist(got), dist(plain)
+    assert float(gk / gp) <= FLASH_BF16_FACTOR
+    assert float((bk / bp).max()) <= FLASH_BF16_FACTOR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,D,q_offset", [
+    (1, 4, 2, 200, 200, 16, 0), (2, 4, 1, 77, 300, 16, 223),
+    (1, 4, 2, 1000, 1000, 32, 0), (2, 4, 1, 100, 300, 32, 200),
+    (2, 32, 4, 256, 256, 64, 0), (1, 4, 2, 130, 450, 64, 320),
+    (1, 4, 4, 200, 200, 96, 0), (1, 4, 2, 100, 300, 96, 200),
+    (1, 4, 2, 200, 200, 128, 0), (2, 4, 1, 100, 300, 128, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bf16_tensor_cores(cuda, B, Hq, Hkv, S, T, D,
+                                                q_offset, causal):
+    """The wgmma route at every head dimension, ragged S and T, q_offset >
+    0, causal and full, held by the bf16 rule."""
+    q, k, v = (_bshd(a, torch.bfloat16, cuda)
+               for a in _flash_inputs(15, B, Hq, Hkv, S, T, D, "bfloat16"))
+    got = cuda_flash(q, k, v, causal=causal, q_offset=q_offset)
+    _assert_flash_bf16(got, q, k, v, causal, q_offset)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_takes_strided_heads(cuda):
+    """bf16 q, k, v as [B,S,H,D] views of [B,H,S,D] tensors (strides
+    passed to the kernel, no copy), and the count of launches."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).to(cuda).transpose(1, 2)
+               for a in _flash_inputs(16, 2, 8, 2, 130, 130, 64, "bfloat16"))
+    assert not q.is_contiguous()
+    before = fa.launches
+    got = cuda_flash(q, k, v)
+    assert fa.launches == before + 1
+    _assert_flash_bf16(got, q, k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_refuses_unaligned_layouts(cuda):
+    """The bf16 route copies 16-byte chunks: a row stride that is not a
+    multiple of 8 elements, or data off a 16-byte boundary, raises (no copy,
+    no other route); the f32 route takes both."""
+    B, S, H, D = 1, 64, 2, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        pitch = torch.randn(B, S, H, D + 4, device=cuda).to(dtype)[..., :D]
+        offset = torch.randn(B, S, H, D + 8, device=cuda).to(dtype)[..., 4:-4]
+        for x in (pitch, offset):
+            assert x.stride(-1) == 1 and x.shape[-1] == D
+            if dtype == torch.bfloat16:
+                with pytest.raises(ValueError, match="16-byte"):
+                    cuda_flash(x, x, x)
+                continue
+            got = cuda_flash(x, x, x)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got, tref.flash_attention_ref(x, x, x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_handle_is_the_current_stream(cuda):
+    """Kernels launch on PyTorch's current stream, a side stream included."""
+    x = torch.zeros(4, device=cuda)
+    assert build.stream_handle(x) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert build.stream_handle(x) == side.cuda_stream
