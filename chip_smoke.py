@@ -12,7 +12,10 @@ and the script exits non-zero without printing a result:
    shapes of pdADMM-G / pdADMM-G-Q on cora with the paper's 10×1000
    GA-MLP, and time the kernel, the plain version and, where one PyTorch
    call computes the same function, that call (``library_ms``; the port
-   never calls it).
+   never calls it), each by CUDA events over back-to-back calls; the
+   kernel also by the device time its launches take (``device_ms``,
+   torch.profiler), which leaves out the host's gaps that set the event
+   time of the smallest kernels.
 3. Train pdADMM-G on cora at 10×1000 for a few iterations through
    ``repro_torch.core.pdadmm.train`` with every launch counter set to 0
    just before; its four kernels must have launched, the objective must be
@@ -88,9 +91,11 @@ and over every 64-query-position block, with the JAX test's 3e-2 as a
 ceiling. Each case also runs controls that the check must refuse: the
 output 10% off, the last 64-key tile dropped, and in causal cases the mask
 off. Its library yardstick is ``F.scaled_dot_product_attention(...,
-enable_gqa=True)``, never on the port's path. fused_linear's bound is its
-3xTF32 route's (``bound_f32_simt_ms`` beside it); the script prints the
-tensor-core instructions (HGMMA, HMMA) in each kernel's SASS.
+enable_gqa=True)``, never on the port's path. The three matmul kernels
+are bounded by the route they take (3xTF32 or SIMT f32,
+``bound_f32_simt_ms`` beside it) and must give the same bits on a second
+call; the script prints the tensor-core instructions (HGMMA, HMMA) in each
+redesigned kernel's SASS.
 """
 from __future__ import annotations
 
@@ -112,9 +117,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor
-# cores, and the dense tensor-core rates. fused_linear's f32-accurate
-# product runs as three TF32 passes (3xTF32), so its bound is 3·2MNK flops
-# at the TF32 rate; the other matmul kernels are SIMT f32.
+# cores, and the dense tensor-core rates. The f32-accurate products of
+# fused_linear, admm_pgrad and backtrack_resnorm run as three TF32 passes
+# (3xTF32) where the output (admm_pgrad: r) is wider than 16 columns, so
+# their bound there is 3·2MNK flops at the TF32 rate; their narrow routes
+# are SIMT f32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -148,6 +155,14 @@ STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
                         thresholds=((0.5, 4), (0.1, 8)))
+SASS_KERNELS = ("flash", "fused_linear", "admm_pgrad", "resnorm_partials")
+# what the port's kernels' names hold (the grid kernels are
+# elementwise_kernel<..., Project | Encode<...> | Decode>), for the profiles
+PORT_KERNEL_NAMES = (
+    "fused_linear_", "admm_pgrad_", "relu_zupdate_kernel", "fista_zlast_kernel",
+    "resnorm_", "namespace)::Project>", "namespace)::Encode<",
+    "namespace)::Decode>", "pack4_kernel", "pack16_kernel", "flash_bf16_kernel",
+    "flash_f32_kernel")
 SOURCES = {
     "fused_linear": ("src/repro_torch/kernels/csrc/fused_linear.cu",
                      "src/repro/kernels/fused_linear.py:40"),
@@ -189,6 +204,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: the self time of every kernel it launches,
+    summed by torch.profiler over ``iters`` calls. Unlike ``time_ms`` it
+    leaves out the gaps where the device waits for the host, which set
+    the event time of the smallest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
     """(least ms, what bounds it) on the card for this much work."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -206,30 +239,40 @@ def case(name, kernel, plain, library, n_bytes, n_ops, check,
     del got, want
     b_ms, b_by = bound(n_bytes, n_ops, peak)
     row = {"shape": name, "max_abs_err": err, "ms": time_ms(kernel, iters),
+           "device_ms": device_ms(kernel, iters),
            "plain_ms": time_ms(plain, iters),
            "library_ms": None if library is None else time_ms(library, iters),
            "bound_ms": b_ms, "bound_by": b_by, **readings}
-    print(f"  {name}: err {err:.3e}  kernel {row['ms']:.4f} ms  plain "
-          f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"  {name}: err {err:.3e}  kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f})  plain {row['plain_ms']:.4f} ms  library "
+          f"{row['library_ms']}  bound {b_ms:.4f} ms ({b_by})", flush=True)
     return row
 
 
-def fused_linear_case(name, kernel, plain, library, n_bytes, nb, M, K, N):
-    """``case`` for fused_linear, bounded by the route its kernel takes:
-    3xTF32 on the tensor cores (three TF32 products per f32 product) for
-    N > 16, the row-parallel f32 shape for N <= 16; the SIMT f32 bound is
-    kept beside it."""
-    tc = N > 16
-    n_ops = nb * 2 * M * K * N
-    row = case(name, kernel, plain, library, n_bytes,
-               3 * n_ops if tc else n_ops + nb * 2 * M * N, matmul_check,
-               PEAK_TF32_FLOPS if tc else PEAK_F32_FLOPS)
-    row["bound_route"] = ("3xTF32 tensor cores" if tc
-                          else "f32 SIMT, row-parallel")
-    row["bound_f32_simt_ms"] = bound(n_bytes, n_ops + nb * 2 * M * N)[0]
+def matmul_case(name, kernel, plain, library, n_bytes, n_ops, n_epi, check,
+                route):
+    """``case`` for a matmul kernel of ``n_ops`` product flops and ``n_epi``
+    f32 epilogue operations, bounded by the route it takes (its wrapper's
+    name for it). "tensor_cores": three TF32 products per f32 product at
+    495 TFLOP/s plus the epilogue at the f32 rate; any other route: all at
+    the SIMT f32 rate, whose bound is kept beside it in either case. A
+    second call on the same inputs must give the same bits."""
+    tensor_cores = route == "tensor_cores"
+    if tensor_cores:   # the epilogue's f32 time, in TF32-rate operations
+        ops = 3 * n_ops + n_epi * PEAK_TF32_FLOPS / PEAK_F32_FLOPS
+        peak = PEAK_TF32_FLOPS
+    else:
+        ops, peak = n_ops + n_epi, PEAK_F32_FLOPS
+    row = case(name, kernel, plain, library, n_bytes, ops, check, peak)
+    row["kernel_route"] = route
+    row["bound_route"] = ("3xTF32 tensor cores" if tensor_cores
+                          else f"f32 SIMT ({route})")
+    row["bound_f32_simt_ms"] = bound(n_bytes, n_ops + n_epi)[0]
+    if not torch.equal(kernel(), kernel()):
+        raise AssertionError(f"{name}: a second call gave other bits")
     print(f"    bound by route: {row['bound_route']} {row['bound_ms']:.4f} "
-          f"ms; SIMT f32 {row['bound_f32_simt_ms']:.4f} ms", flush=True)
+          f"ms; SIMT f32 {row['bound_f32_simt_ms']:.4f} ms; repeat bitwise",
+          flush=True)
     return row
 
 
@@ -299,8 +342,11 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     from repro_torch.kernels import pack_codes as pc
     from repro_torch.kernels import quantize_kernel as qk
     from repro_torch.kernels.admm_pgrad import admm_pgrad
+    from repro_torch.kernels.admm_pgrad import route as pgrad_route
     from repro_torch.kernels.backtrack_phi import backtrack_resnorm
+    from repro_torch.kernels.backtrack_phi import route as resnorm_route
     from repro_torch.kernels.fista_zlast import fista_zlast, momentum_schedule
+    from repro_torch.kernels.fused_linear import NARROW_N as NARROW
     from repro_torch.kernels.fused_linear import fused_linear
     from repro_torch.kernels.relu_zupdate import relu_zupdate
 
@@ -333,16 +379,19 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
         nb = p.shape[0] if p.dim() == 3 else 1
         M, K = p.shape[-2:]
         N = W.shape[-1]
-        fl.append(fused_linear_case(
+        fl.append(matmul_case(
             name, lambda: fused_linear(p, W, b, z, mode="residual"),
             lambda: ref.fused_linear_ref(p, W, b, z, mode="residual"), lib,
-            4 * nb * (M * K + K * N + N + 2 * M * N), nb, M, K, N))
+            4 * nb * (M * K + K * N + N + 2 * M * N), nb * 2 * M * K * N,
+            nb * 2 * M * N, matmul_check,
+            "tensor_cores" if N > NARROW else "rows"))
     g = rand(K0, h, scale=1e-3)
-    fl.append(fused_linear_case(
+    fl.append(matmul_case(
         f"linear [{V},{K0}]@[{K0},{h}] (W-update pg)",
         lambda: fused_linear(X, g, None, mode="linear"),
         lambda: ref.fused_linear_ref(X, g, None, mode="linear"),
-        lambda: torch.mm(X, g), 4 * (V * K0 + K0 * h + V * h), 1, V, K0, h))
+        lambda: torch.mm(X, g), 4 * (V * K0 + K0 * h + V * h),
+        2 * V * K0 * h, 0, matmul_check, "tensor_cores"))
     rows["fused_linear"] = fl
 
     print("admm_pgrad:", flush=True)
@@ -362,11 +411,12 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
         nb = r.shape[0] if r.dim() == 3 else 1
         Vr, n_out = r.shape[-2:]
         n_in = W.shape[-2]
-        pg.append(case(
+        pg.append(matmul_case(
             name, lambda: admm_pgrad(r, W, u, p, q, nu=nu, rho=rho),
             lambda: ref.admm_pgrad_ref(r, W, u, p, q, nu=nu, rho=rho), lib,
             4 * nb * (Vr * n_out + n_in * n_out + 4 * Vr * n_in),
-            nb * (2 * Vr * n_out * n_in + 5 * Vr * n_in), matmul_check))
+            nb * 2 * Vr * n_out * n_in, nb * 5 * Vr * n_in, matmul_check,
+            pgrad_route(n_out)))
     rows["admm_pgrad"] = pg
 
     print("relu_zupdate:", flush=True)
@@ -427,11 +477,12 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
         n_act = nb if active is None else int(active.sum())
         M, K = d.shape[-2:]
         N = W.shape[-1]
-        bt.append(case(
+        bt.append(matmul_case(
             name, lambda r0=r0, d=d, W=W, a=active: backtrack_resnorm(r0, d, W, a),
             lambda r0=r0, d=d, W=W, a=active: ref.backtrack_resnorm_ref(r0, d, W, a),
             lib, 4 * (n_act * (M * N + M * K + K * N) + nb),
-            n_act * (2 * M * K * N + 3 * M * N), resnorm_check))
+            n_act * 2 * M * K * N, n_act * 3 * M * N, resnorm_check,
+            resnorm_route(N)))
     rows["backtrack_resnorm"] = bt
 
     def grid_input(*shape):
@@ -860,8 +911,9 @@ def wire_phase(X, ds, cfg, state, n_iters: int = 2):
 
 def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
     """Device time by kernel over one iteration, ``run_once()``
-    (torch.profiler), and the device's idle share of an unprofiled
-    iteration (1 − busy / ``ms_per_iter``)."""
+    (torch.profiler): the ``top`` largest and every kernel of the port
+    beyond them; and the device's idle share of an unprofiled iteration
+    (1 − busy / ``ms_per_iter``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -872,23 +924,26 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
         run_once()
         torch.cuda.synchronize()
     # device-side events only: a CPU op's entry repeats its kernels' time
+    events = sorted((ev for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and ev.self_device_time_total > 0),
+                    key=lambda ev: -ev.self_device_time_total)
     rows = [{"name": ev.key[:90], "calls": ev.count,
-             "device_ms": ev.self_device_time_total / 1e3}
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r["device_ms"])
+             "device_ms": ev.self_device_time_total / 1e3} for ev in events]
     busy = sum(r["device_ms"] for r in rows)
     launches = sum(r["calls"] for r in rows)
     print(f"profile ({label}, one iteration): device busy {busy:.3f} ms in "
           f"{launches} launches; idle share of a {ms_per_iter:.3f} ms "
           f"iteration {1.0 - busy / ms_per_iter:.3f}", flush=True)
-    for r in rows[:top]:
+    port = [r for r, ev in zip(rows[top:], events[top:])
+            if any(k in ev.key for k in PORT_KERNEL_NAMES)]
+    for r in rows[:top] + port:
         print(f"  {r['device_ms']:8.3f} ms  x{r['calls']:<4d} {r['name']}")
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
     return {"device_busy_ms": busy, "device_launches": launches,
-            "idle_share": 1.0 - busy / ms_per_iter, "kernels": rows[:top]}
+            "idle_share": 1.0 - busy / ms_per_iter,
+            "kernels": rows[:top] + port}
 
 
 def iterate_once(X, ds, cfg, state):
@@ -1353,7 +1408,8 @@ def cuda_tool(name: str):
 
 def sass_report(lib_path) -> dict:
     """Tensor-core instructions in the SASS of the redesigned kernels
-    (flash_attention, fused_linear): HGMMA (wgmma) and HMMA (mma.sync)
+    (flash_attention, fused_linear, admm_pgrad, backtrack_resnorm's pass
+    1): HGMMA (wgmma) and HMMA (mma.sync)
     counts per kernel from ``cuobjdump -sass`` of the built library. A
     report of what was compiled, not a route."""
     tool = cuda_tool("cuobjdump")
@@ -1367,7 +1423,7 @@ def sass_report(lib_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             cur = line.split("Function :")[1].strip()
-        elif cur and ("flash" in cur or "fused_linear" in cur):
+        elif cur and any(k in cur for k in SASS_KERNELS):
             c = counts.setdefault(cur, {"HGMMA": 0, "HMMA": 0})
             for op in c:
                 c[op] += f" {op}." in line
@@ -1421,6 +1477,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
     sass = sass_report(lib_path)
+    for k in ("fused_linear_tc", "admm_pgrad_tc", "resnorm_partials_tc"):
+        if sass and not any(k in n and c["HGMMA"] for n, c in sass.items()):
+            raise AssertionError(f"SASS: no HGMMA in {k}")
 
     device = torch.device("cuda")
     ds = synthetic("cora", scale=1.0, device=device)
@@ -1473,7 +1532,8 @@ def main() -> int:
             "launches_run": run_of[name],
             "launches_per_iter": run["launches"][name] / n_iter,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "cases": cases})

@@ -3,19 +3,22 @@
     g = -ν (r @ Wᵀ) + u + ρ (p - q)        (r = z - pW - b from fused_linear)
 
 Replaces ``repro/kernels/admm_pgrad.py:admm_pgrad`` (its nested Pallas body
-``kernel``). Source: ``csrc/admm_pgrad.cu`` on the shared tile core
-``csrc/matmul_tile.cuh``.
+``kernel``). Source: ``csrc/admm_pgrad.cu`` on the 3xTF32 tile core
+``csrc/matmul_tf32x3.cuh`` (and the SIMT tile ``csrc/matmul_tile.cuh`` for
+narrow r).
 
-What bounds it on the H100: f32 operations for the hidden layers
-(2·V·n_out·n_in flops; [2485, 1000] @ [1000, 1000] is 4.97 GFLOP per layer
+What bounds it on the H100: operations for the hidden layers
+(2·V·n_out·n_in flops; [2485, 1000] @ [1000, 1000]ᵀ is 4.97 GFLOP per layer
 against 5·10 MB of operands), bytes for the last layer (n_out = 7: three
-[V, 1000] reads and one write dominate). SIMT f32 FMAs (fused_linear's
-3xTF32 tile core is the next step for it).
+[V, 1000] reads and one write dominate).
 
-Design: the 64×64×16 register-tiled SIMT core (matmul_tile.cuh), with the B
-tile loaded from rows of W, so Wᵀ is never materialised; u, p and q are
-read once in the epilogue and the product never goes to device memory.
-``blockIdx.z`` walks the stacked layers.
+Design, by ``route(n_out)``: for n_out > 16 the 3xTF32 tensor-core tile
+(three TF32 passes, about 22 mantissa bits, 128×128 output tiles) with a
+transposed B: the slabs are copied from rows of W, which are already
+K-major, so Wᵀ is never formed. For n_out ≤ 16 the 64×64 SIMT f32 tile,
+which reads W's rows the same way. Either way u, p and q are read once in
+the epilogue and the product never goes to device memory; ``blockIdx.z``
+walks the stacked layers.
 """
 from __future__ import annotations
 
@@ -24,6 +27,13 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
+NARROW = 16   # n_out at or below which the SIMT tile takes the product
+
+
+def route(n_out: int) -> str:
+    """The kernel's route for r of width n_out: "tensor_cores" (3xTF32) or
+    "simt" (the narrow last layer)."""
+    return "simt" if n_out <= NARROW else "tensor_cores"
 
 
 def admm_pgrad(r, W, u, p, q, *, nu: float, rho: float):
@@ -45,7 +55,8 @@ def admm_pgrad(r, W, u, p, q, *, nu: float, rho: float):
     err = build.library().admm_pgrad_f32(
         r.data_ptr(), W.data_ptr(), u.data_ptr(), p.data_ptr(), q.data_ptr(),
         out.data_ptr(), batch, V, n_out, n_in, V * n_out, n_in * n_out,
-        V * n_in, float(nu), float(rho), build.stream_handle(r))
+        V * n_in, float(nu), float(rho), int(route(n_out) == "tensor_cores"),
+        build.stream_handle(r))
     build.check(err, "admm_pgrad")
     launches += 1
     return out

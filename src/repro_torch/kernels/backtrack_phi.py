@@ -2,22 +2,28 @@
 one trial of the projected (pdADMM-G-Q) p-update.
 
 Replaces ``repro/kernels/backtrack_phi.py:backtrack_resnorm`` (Pallas body
-``_resnorm_kernel``). Source: ``csrc/backtrack_resnorm.cu`` on the shared
-tile core ``csrc/matmul_tile.cuh``.
+``_resnorm_kernel``). Source: ``csrc/backtrack_resnorm.cu`` on the 3xTF32
+tile core ``csrc/matmul_tf32x3.cuh`` and the row-parallel core
+``csrc/matmul_rows.cuh``.
 
-What bounds it on the H100: f32 operations. The ×8 hidden block
+What bounds it on the H100: operations for the hidden layers. The ×8 block
 d [8, 2485, 1000] @ W [8, 1000, 1000] is 39.8 GFLOP against 175 MB of
-operands (0.59 ms at 67 TFLOP/s, 0.05 ms at 3.35 TB/s); the last layer's
-[2485, 1000] @ [1000, 7] is bytes-bound (10 MB, about 3 µs). No TF32.
+operands: 0.24 ms as three TF32 passes at 495 TFLOP/s (0.59 ms as SIMT f32
+at 67), 0.05 ms at 3.35 TB/s. The last layer's [2485, 1000] @ [1000, 7] is
+bytes-bound (10 MB, about 3 µs).
 
-Design: the product tile stays in registers; the epilogue forms r0 − acc,
+Design, by ``route(N)``: for N > 16 the 3xTF32 tensor-core tile (three TF32
+passes, about 22 mantissa bits, 128×128 output tiles); for N ≤ 16 a
+row-parallel f32 kernel (Wᵀ in shared memory, each warp walking four rows
+of d). The product stays in registers; the epilogue forms r0 − acc,
 squares and reduces it inside the block and writes one partial per
-(layer, tile); a second launch sums each layer's partials in a fixed order
-(no atomics, so the accept test sees the same bits on every run).
-``blockIdx.z`` walks the layers, so the ×8 block is one call. An optional
-device-side ``active`` mask skips the layers whose backtracking search has
-already stopped: their blocks write 0 and return, so the 12 sync-free
-trials cost one full product only for the layers still searching.
+(layer, block) (``partials_per_layer``); a second launch sums each layer's
+partials in a fixed order (no atomics, so the accept test sees the same
+bits on every run). ``blockIdx.z`` walks the layers, so the ×8 block is one
+call. An optional device-side ``active`` mask skips the layers whose
+backtracking search has already stopped: their blocks write 0 and return
+before any load, so the 12 sync-free trials cost one full product only for
+the layers still searching.
 """
 from __future__ import annotations
 
@@ -26,7 +32,22 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
-TILE = 64          # rt::BM = rt::BN in csrc/matmul_tile.cuh
+NARROW = 16        # rows::MAX_N in csrc/matmul_rows.cuh
+TILE = 128         # tf32x3::BM = BN in csrc/matmul_tf32x3.cuh
+ROW_BLOCK = 32     # rows::BLOCK_ROWS: rows of d per row-parallel block
+
+
+def route(N: int) -> str:
+    """The kernel's route for an output of N columns: "tensor_cores"
+    (3xTF32) or "rows" (the row-parallel f32 kernel)."""
+    return "rows" if N <= NARROW else "tensor_cores"
+
+
+def partials_per_layer(M: int, N: int) -> int:
+    """Pass 1's blocks per layer on ``route(N)``: one partial each."""
+    if route(N) == "rows":
+        return -(-M // ROW_BLOCK)
+    return -(-M // TILE) * -(-N // TILE)
 
 
 def backtrack_resnorm(r0, d, W, active=None):
@@ -47,15 +68,15 @@ def backtrack_resnorm(r0, d, W, active=None):
     if active is not None:
         build.require(active, "active", lead, torch.int32)
     batch = lead[0] if lead else 1
-    tiles = -(-M // TILE) * -(-N // TILE)
-    partials = torch.empty((batch, tiles), dtype=torch.float32,
+    per_layer = partials_per_layer(M, N)
+    partials = torch.empty((batch, per_layer), dtype=torch.float32,
                            device=d.device)
     out = torch.empty(lead, dtype=torch.float32, device=d.device)
     err = build.library().backtrack_resnorm_f32(
         r0.data_ptr(), d.data_ptr(), W.data_ptr(),
         None if active is None else active.data_ptr(), partials.data_ptr(),
         out.data_ptr(), batch, M, K, N, M * N, M * K, K * N,
-        build.stream_handle(d))
+        int(route(N) == "tensor_cores"), per_layer, build.stream_handle(d))
     build.check(err, "backtrack_resnorm")
     launches += 1
     return out

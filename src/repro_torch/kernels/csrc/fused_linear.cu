@@ -10,12 +10,10 @@
 //   a second wave of 28) is split over K into `splits` parts whose f32
 //   partial products go to a scratch buffer; a second kernel adds the parts
 //   in order and applies the epilogue (the same sum on every run).
-// - N <= 16 (the last layer's [V, h] @ [h, C]): bound by the bytes of p (a
-//   128 x 128 tile would waste 121 of 128 columns and launch 20 blocks), so
-//   rows are spread over warps: Wᵀ is staged in shared memory in K chunks,
-//   each warp walks four rows of p once, side by side, with 16-byte loads
-//   (4-byte where the row stride does not allow), keeps N f32 partial sums
-//   per row per lane and reduces them with shuffles. Plain f32 FMAs.
+// - N <= 16 (the last layer's [V, h] @ [h, C]): bound by the bytes of p, so
+//   the row-parallel f32 core (matmul_rows.cuh): Wᵀ staged in shared memory,
+//   each warp walking four rows of p, the N sums reduced with shuffles.
+#include "matmul_rows.cuh"
 #include "matmul_tf32x3.cuh"
 
 namespace {
@@ -102,84 +100,27 @@ __global__ void fused_linear_reduce(Args a, int batch) {
   }
 }
 
-constexpr int NARROW_N = 16;
-constexpr int NARROW_THREADS = 256;
-constexpr int NARROW_ROWS = 4;                             // rows per warp
-constexpr int NARROW_BLOCK_ROWS = NARROW_ROWS * NARROW_THREADS / 32;
-constexpr int NARROW_KC = 1024;   // K chunk of Wᵀ in shared memory
-
-// Dynamic shared memory: Wᵀ, N x NARROW_KC floats (at most 64 KB).
+// Dynamic shared memory: Wᵀ, rows::smem_bytes(N).
 template <int VEC>
-__global__ void __launch_bounds__(NARROW_THREADS)
+__global__ void __launch_bounds__(rows::THREADS)
 fused_linear_narrow(Args a) {
   extern __shared__ __align__(16) float Wt[];
   const long long layer = blockIdx.z;
-  const float* p = a.p + layer * a.sp;
-  const float* W = a.W + layer * a.sw;
   const float* b = a.b == nullptr ? nullptr : a.b + layer * a.sb;
   a.out += layer * a.so;
   if (a.z != nullptr) a.z += layer * a.sz;
-  const int M = a.M, K = a.K, N = a.N;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int row0 = blockIdx.x * NARROW_BLOCK_ROWS + warp * NARROW_ROWS;
+  const int M = a.M, N = a.N;
+  const int lane = threadIdx.x % 32, row0 = rows::first_row();
 
-  float acc[NARROW_ROWS][NARROW_N];
+  float acc[rows::ROWS][rows::MAX_N];
+  rows::products<VEC>(a.p + layer * a.sp, a.W + layer * a.sw, M, a.K, N,
+                      row0, acc, Wt);
 #pragma unroll
-  for (int r = 0; r < NARROW_ROWS; ++r)
-#pragma unroll
-    for (int n = 0; n < NARROW_N; ++n) acc[r][n] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += NARROW_KC) {
-    const int kc = min(NARROW_KC, K - k0);
-    __syncthreads();    // the previous chunk's readers are done
-    for (int f = threadIdx.x; f < kc * N; f += NARROW_THREADS) {
-      const int k = f % kc, n = f / kc;   // conflict-free stores
-      Wt[n * NARROW_KC + k] = W[(long long)(k0 + k) * N + n];
-    }
-    __syncthreads();
-    // k outer, rows inner: the rows' loads are in flight together and each
-    // Wᵀ read serves every row
-    for (int k = VEC * lane; k < kc; k += 32 * VEC) {
-      float x[NARROW_ROWS][VEC];
-#pragma unroll
-      for (int r = 0; r < NARROW_ROWS; ++r) {
-        const int row = min(row0 + r, M - 1);   // rows past M are not stored
-        const float* pr = p + (long long)row * K + k0 + k;
-        if constexpr (VEC == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(pr);
-          x[r][0] = v.x; x[r][1] = v.y; x[r][2] = v.z; x[r][3] = v.w;
-        } else {
-          x[r][0] = *pr;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NARROW_N; ++n) {
-        if (n >= N) break;
-        float w[VEC];
-        if constexpr (VEC == 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(&Wt[n * NARROW_KC + k]);
-          w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-        } else {
-          w[0] = Wt[n * NARROW_KC + k];
-        }
-#pragma unroll
-        for (int r = 0; r < NARROW_ROWS; ++r)
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[r][n] = fmaf(x[r][e], w[e], acc[r][n]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NARROW_ROWS; ++r) {
+  for (int r = 0; r < rows::ROWS; ++r) {
     const int row = row0 + r;
 #pragma unroll
-    for (int n = 0; n < NARROW_N; ++n) {
-      float s = acc[r][n];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
+    for (int n = 0; n < rows::MAX_N; ++n) {
+      const float s = rows::lane_sum(acc[r][n]);
       if (lane == n && n < N && row < M) {
         const long long o = (long long)row * N + n;
         a.out[o] = epilogue(a, o, b, n, s);
@@ -211,14 +152,13 @@ extern "C" int fused_linear_f32(const float* p, const float* W, const float* b,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64 || !opted_in[dev]) {
-    const int narrow = NARROW_N * NARROW_KC * (int)sizeof(float);
     e = cudaFuncSetAttribute(fused_linear_narrow<4>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             narrow);
+                             rows::SMEM_MAX);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fused_linear_narrow<1>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               narrow);
+                               rows::SMEM_MAX);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fused_linear_tc,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -227,11 +167,10 @@ extern "C" int fused_linear_f32(const float* p, const float* W, const float* b,
     if (dev < 64) opted_in[dev] = true;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (N <= NARROW_N) {
-    const dim3 grid((M + NARROW_BLOCK_ROWS - 1) / NARROW_BLOCK_ROWS, 1, batch);
-    const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    auto kernel = vec ? fused_linear_narrow<4> : fused_linear_narrow<1>;
-    kernel<<<grid, NARROW_THREADS, N * NARROW_KC * (int)sizeof(float), s>>>(a);
+  if (N <= rows::MAX_N) {
+    auto kernel = rows::vec4(p, K) ? fused_linear_narrow<4>
+                                   : fused_linear_narrow<1>;
+    kernel<<<rows::grid(batch, M), rows::THREADS, rows::smem_bytes(N), s>>>(a);
     return (int)cudaGetLastError();
   }
   fused_linear_tc<<<tf32x3::grid(batch * splits, M, N), tf32x3::THREADS,

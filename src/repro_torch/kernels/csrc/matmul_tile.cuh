@@ -1,11 +1,12 @@
-// Shared f32 SIMT matmul tile core for admm_pgrad.cu and backtrack_resnorm.cu.
+// f32 SIMT matmul tile with a transposed B, for admm_pgrad.cu's narrow
+// route (r [V, n_out] @ Wᵀ with n_out <= 16, bound by the bytes of its
+// epilogue; the wide products run on the 3xTF32 core, matmul_tf32x3.cuh).
 //
 // One block of 256 threads computes a BM x BN = 64 x 64 output tile; each
 // thread owns a TM x TN = 4 x 4 patch held in registers. The K loop stages
 // a BM x BK slab of A and a BK x BN slab of B through shared memory, BK = 16.
-// Every load is masked, so ragged M, N and K (V = 2485, K = 5732, N = 7)
-// need no padding. Products are plain f32 FMAs, as in the reference (the
-// 3xTF32 core matmul_tf32x3.cuh keeps f32 accuracy on the tensor cores).
+// Every load is masked, so ragged M, N and K (V = 2485, n_out = 7) need no
+// padding. Products are plain f32 FMAs, as in the reference.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,18 +23,13 @@ constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 // transposing stores over more banks.
 constexpr int PAD = 4;
 
-// acc = A[m0:m0+BM, :] @ B[:, n0:n0+BN], rows/cols past M/N read as 0.
-//   A: row-major [M, K], leading dimension lda.
-//   B_TRANS = false: B is row-major [K, N], leading dimension ldb.
-//   B_TRANS = true:  B = Wᵀ with W row-major [N, K], leading dimension ldb;
-//                    the tile is loaded from rows of W (coalesced along K).
-template <bool B_TRANS>
+// acc = A[m0:m0+BM, :] @ Wᵀ[:, n0:n0+BN], rows/cols past M/N read as 0.
+//   A: row-major [M, K]; W: row-major [N, K], so B = Wᵀ is loaded from
+//   rows of W (coalesced along K) and never formed.
 __device__ __forceinline__ void matmul_tile(const float* __restrict__ A,
-                                            const float* __restrict__ B,
-                                            int M, int N, int K,
-                                            long long lda, long long ldb,
-                                            int m0, int n0,
-                                            float (&acc)[TM][TN]) {
+                                            const float* __restrict__ W,
+                                            int M, int N, int K, int m0,
+                                            int n0, float (&acc)[TM][TN]) {
   __shared__ __align__(16) float As[BK][BM + PAD];
   __shared__ __align__(16) float Bs[BK][BN + PAD];
   const int tid = threadIdx.x;
@@ -51,20 +47,14 @@ __device__ __forceinline__ void matmul_tile(const float* __restrict__ A,
       const int e = tid + i * THREADS;
       const int r = e / BK, c = e % BK;
       const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[gm * lda + gk] : 0.f;
+      As[c][r] = (gm < M && gk < K) ? A[(long long)gm * K + gk] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (BK * BN) / THREADS; ++i) {
       const int e = tid + i * THREADS;
-      if (!B_TRANS) {
-        const int r = e / BN, c = e % BN;
-        const int gk = k0 + r, gn = n0 + c;
-        Bs[r][c] = (gk < K && gn < N) ? B[gk * ldb + gn] : 0.f;
-      } else {
-        const int c = e / BK, r = e % BK;
-        const int gk = k0 + r, gn = n0 + c;
-        Bs[r][c] = (gk < K && gn < N) ? B[gn * ldb + gk] : 0.f;
-      }
+      const int c = e / BK, r = e % BK;
+      const int gk = k0 + r, gn = n0 + c;
+      Bs[r][c] = (gk < K && gn < N) ? W[(long long)gn * K + gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll

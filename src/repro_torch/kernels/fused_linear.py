@@ -24,8 +24,8 @@ memory. ``blockIdx.z`` walks the layers of the stacked hidden
 block, so the ×8 block is one launch. Ragged and unaligned edges are
 handled in the copies (4-byte copies where a row is not 16-byte aligned,
 zero-fill past the end), which replaces the TPU path's pad-to-tile plan.
-Outputs of at most 16 columns (the last layer) take a row-parallel f32
-shape in the same source instead: bound by the bytes of p.
+Outputs of at most 16 columns (the last layer) take the row-parallel f32
+core ``csrc/matmul_rows.cuh`` instead: bound by the bytes of p.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
-TILE, SLAB, NARROW_N = 128, 32, 16   # csrc: tf32x3::BM = BN, BK; NARROW_N
+TILE, SLAB, NARROW_N = 128, 32, 16   # csrc: tf32x3::BM = BN, BK; rows::MAX_N
 
 
 @functools.lru_cache(maxsize=None)

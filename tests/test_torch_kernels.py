@@ -487,6 +487,132 @@ def test_fused_linear_k_splits():
     assert k_splits(1, 97, 40, 130, 132) == 1         # 5 slabs
 
 
+@pytest.mark.parametrize("n_out,want", [
+    (1000, "tensor_cores"),    # the hidden layers' r [2485, 1000]
+    (7, "simt"),               # the last layer's r [2485, 7]
+    (16, "simt"), (17, "tensor_cores"), (130, "tensor_cores")])
+def test_admm_pgrad_route(n_out, want):
+    """The 3xTF32 tile takes r wider than 16 columns; the SIMT tile the
+    narrow last layer."""
+    from repro_torch.kernels.admm_pgrad import route
+    assert route(n_out) == want
+
+
+@pytest.mark.parametrize("M,N,want_route,want_partials", [
+    (2485, 1000, "tensor_cores", 20 * 8),   # hidden layers: 128x128 tiles
+    (2485, 7, "rows", 78),                  # last layer: 32 rows a block
+    (2485, 16, "rows", 78), (2485, 17, "tensor_cores", 20),
+    (97, 40, "tensor_cores", 1), (300, 200, "tensor_cores", 3 * 2),
+    (300, 7, "rows", 10)])
+def test_backtrack_resnorm_route_and_partials(M, N, want_route,
+                                              want_partials):
+    """Pass 1 writes one partial per block of its route: per 128x128 output
+    tile on the tensor cores, per 32 rows on the row-parallel route."""
+    from repro_torch.kernels.backtrack_phi import partials_per_layer, route
+    assert route(N) == want_route
+    assert partials_per_layer(M, N) == want_partials
+
+
+class _FakeLibrary:
+    """Stands in for the CUDA library: records each entry point's arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("n_out", [1000, 7])
+def test_matmul_wrappers_pass_their_route(monkeypatch, n_out):
+    """admm_pgrad and backtrack_resnorm hand C the route of their shape, and
+    backtrack_resnorm sizes its partials for that route."""
+    from repro_torch.kernels import admm_pgrad as pg
+    from repro_torch.kernels import backtrack_phi as bt
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "require", lambda *a, **k: None)
+    monkeypatch.setattr(build, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(pg, "launches", 0)
+    monkeypatch.setattr(bt, "launches", 0)
+    L, V, h = 2, 300, 200
+    r, W = torch.zeros(L, V, n_out), torch.zeros(L, h, n_out)
+    u = torch.zeros(L, V, h)
+    pg.admm_pgrad(r, W, u, u, u, nu=0.01, rho=1.0)
+    args = lib.calls["admm_pgrad_f32"]
+    assert args[6:10] == (L, V, n_out, h)
+    assert args[-2] == int(pg.route(n_out) == "tensor_cores")
+    r0, d, W = torch.zeros(L, V, n_out), torch.zeros(L, V, h), \
+        torch.zeros(L, h, n_out)
+    bt.backtrack_resnorm(r0, d, W)
+    args = lib.calls["backtrack_resnorm_f32"]
+    assert args[6:10] == (L, V, h, n_out)
+    assert args[-3:-1] == (int(bt.route(n_out) == "tensor_cores"),
+                           bt.partials_per_layer(V, n_out))
+    assert pg.launches == bt.launches == 1
+
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: PTX's cvt.rna.tf32.f32 on the bit pattern."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_3xtf32(a, b, slab=32):
+    """a @ b as the 3xTF32 tile core computes it: each operand split into
+    hi = rna(x) and lo = rna(x − hi), each 32-wide slab of K summed from zero
+    as lo·hi + hi·lo + hi·hi in f32, then added to the result in f32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], slab):
+        k = slice(k0, k0 + slab)
+        acc += (a_lo[:, k] @ b_hi[k] + a_hi[:, k] @ b_lo[k]) + a_hi[:, k] @ b_hi[k]
+    return acc
+
+
+def _matmul_1xtf32(a, b):
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+@pytest.mark.parametrize("case", ["pgrad", "resnorm", "resnorm_near_cancel"])
+def test_3xtf32_emulation_holds_the_chip_limits(case):
+    """A numpy emulation of the tile core's 3xTF32 arithmetic at [64, 1000] @
+    [1000, 64] meets the limits chip_smoke.py holds the two kernels to:
+    r @ Wᵀ within 1e-5 of max |f64| (MATMUL_REL_TOL), ||r0 − d W||² within
+    rtol 1e-5 of the f64 value (RESNORM_RTOL). A single TF32 pass misses
+    them where they have teeth: the product, and a residual 1% of d W."""
+    rng = np.random.default_rng(21)
+    M, K, N = 64, 1000, 64
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    if case == "pgrad":       # r @ Wᵀ, W row-major [N, K]
+        W = (rng.normal(size=(N, K)) / np.sqrt(K)).astype(np.float32)
+        want = a.astype(np.float64) @ W.T.astype(np.float64)
+        b = np.ascontiguousarray(W.T)
+
+        def err(mm):
+            return np.abs(mm(a, b) - want).max() / np.abs(want).max()
+    else:
+        W = (rng.normal(size=(K, N)) / np.sqrt(K)).astype(np.float32)
+        dW = a.astype(np.float64) @ W.astype(np.float64)
+        r0 = rng.normal(size=(M, N))
+        if case == "resnorm_near_cancel":
+            r0 = dW + 0.01 * r0
+        r0 = r0.astype(np.float32)
+        want = ((r0 - dW) ** 2).sum()
+
+        def err(mm):
+            r = r0 - mm(a, W)
+            return abs(float((r * r).sum(dtype=np.float32)) - want) / want
+    assert err(_matmul_3xtf32) <= 1e-5
+    if case != "resnorm":
+        assert err(_matmul_1xtf32) > 1e-5
+
+
 # --- CUDA kernels vs their plain versions (card only) ------------------------
 
 @pytest.mark.cuda
@@ -508,8 +634,14 @@ def test_cuda_fused_linear_matches_plain(cuda, lead, M, K, N, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,V,ni,no", [((), 97, 130, 40), ((), 500, 64, 7),
-                                          ((2,), 130, 96, 96)])
+@pytest.mark.parametrize("lead,V,ni,no", [
+    ((), 97, 130, 40), ((), 500, 64, 7), ((2,), 130, 96, 96),
+    ((8,), 2485, 1000, 1000),        # the stacked hidden layers
+    ((10,), 2485, 1000, 1000),       # the ring's
+    ((), 2485, 1000, 7),             # the last layer: the SIMT route
+    ((), 300, 200, 130),             # K = 130: 4-byte copies; ragged n_in
+    ((2,), 97, 201, 130),            # odd n_in: no paired epilogue
+    ((), 130, 96, 16), ((), 130, 96, 17)])   # either side of the routes
 def test_cuda_admm_pgrad_matches_plain(cuda, lead, V, ni, no):
     r, W, u, p, q = _t(*_np(10, lead + (V, no), lead + (ni, no),
                             lead + (V, ni), lead + (V, ni), lead + (V, ni)),
@@ -518,6 +650,8 @@ def test_cuda_admm_pgrad_matches_plain(cuda, lead, V, ni, no):
     want = tref.admm_pgrad_ref(r, W, u, p, q, nu=0.01, rho=1.0)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    # no atomics and no data-dependent order: the same bits on a second run
+    assert torch.equal(got, cuda_admm_pgrad(r, W, u, p, q, nu=0.01, rho=1.0))
 
 
 @pytest.mark.cuda
@@ -549,8 +683,15 @@ def test_cuda_fista_zlast_matches_plain(cuda, width, n_classes, n_iters):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lead,M,K,N", [((), 97, 130, 40), ((), 2485, 1000, 7),
-                                        ((3,), 200, 64, 64), ((8,), 130, 96, 70)])
+@pytest.mark.parametrize("lead,M,K,N", [
+    ((), 97, 130, 40), ((), 2485, 1000, 7), ((3,), 200, 64, 64),
+    ((8,), 130, 96, 70),
+    ((8,), 2485, 1000, 1000),        # the stacked hidden layers
+    ((10,), 2485, 1000, 1000),       # the ring's
+    ((), 300, 130, 200),             # K = 130: 4-byte copies; ragged N
+    ((2,), 97, 130, 131),            # odd N: no paired epilogue
+    ((2,), 300, 130, 7),             # the row route with 4-byte loads
+    ((), 130, 96, 16), ((), 130, 96, 17)])   # either side of the routes
 def test_cuda_backtrack_resnorm_matches_plain(cuda, lead, M, K, N):
     r0, d, W = _t(*_np(17, lead + (M, N), lead + (M, K), lead + (K, N)),
                   device=cuda)
