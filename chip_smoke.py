@@ -50,7 +50,31 @@ and the script exits non-zero without printing a result:
    run with ``use_kernels=False`` at rtol 1e-3. Last,
    ``quantized_psum`` on a ``LocalRing`` of data 4 over [2485, 1000]
    shards: gather and code_psum give the same bits (4-bit affine and grid).
-7. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
+7. ``ft_phase``, fault tolerance on the same ring (mesh (1, 10)), with
+   checkpoints in a ``tempfile.mkdtemp()`` directory deleted at the end:
+   (a) ``distributed_train(health=True)`` and a zero-rate ``FaultPlan``
+   give the plain ring's objectives and state bit for bit over 5
+   iterations; the sentinel step's ms per iteration beside the plain
+   step's, through ``distributed_train`` too, the device ms of an
+   iteration's six checksums, and a profile of the health step;
+   (b) the G-Q ring under ``FT_CHAOS`` (link flips and drops) for 10 ticks,
+   overlap off and on: per edge injected == detected == recovered == the
+   ledger's counts, the header bytes == ``_record_sentinel_headers``'s, and
+   a second run gives the same bits; (c) the G ring under ``FT_SNEAKY``
+   with a checkpoint every 2 iterations rolls back at least once and ends
+   finite; (d) 4 iterations, a save and a fresh ``resume=True`` run to 8
+   equal 8 uninterrupted iterations bit for bit, and the checkpoint
+   restores onto mesh (1, 5) and trains on; (e) the paper's G-Q setting
+   (Δ = {-1..20}, p on it and q not, ν 1e-2, 15 FISTA steps) through
+   ``pdadmm.train`` as phase 4 runs it, then ``train_adaptive`` with the
+   controller over the p/q ``admm_edges`` and the grid Δ as its one 8-bit
+   entry (so q lies on Δ too) against ``use_kernels=False`` at rtol 1e-3
+   (stepwise where a τ flips), and again with a ``fault_hook`` that puts a
+   NaN into iteration 3: one rollback, objectives equal to the clean run's.
+   Test accuracies of G, G-Q on the uniform grid and the paper's setting
+   are printed side by side, and those of the two G-Q settings after the
+   paper's 100 iterations.
+8. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
    layers, d 2048, 32 query / 4 KV heads, bf16, seeded random weights):
    ``ModelBundle.prefill`` of 4 prompts of 2048 tokens with every launch
    count set to 0 just before (``flash_attention`` must launch exactly 22
@@ -67,7 +91,7 @@ and the script exits non-zero without printing a result:
    the 0.02 init), a profile of one prefill and one decode step, and
    ``ServingEngine`` answering 7 requests on 4 slots
    (``examples/serve_lm.py``'s), each with 12 tokens in the vocab.
-8. Print the wire bytes per iteration from the port's ledger (G, G-Q,
+9. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
 
@@ -155,6 +179,14 @@ STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
                         thresholds=((0.5, 4), (0.1, 8)))
+FT_TICKS = 10      # iterations of the chaos and rollback runs
+FT_ZERO_SEED = 7
+FT_CHAOS = dict(seed=3, flip_rate=0.05, drop_rate=0.05)
+# picked on the host from the port's own bit draw (comm.faults.flip_draws)
+# at this ring's slab size: at tick 8 two sneaky u slabs (stages 3 and 5)
+# carry a flip of bit 30 (the exponent's top bit), which sends a dual of
+# magnitude below 2 past 1e30 and so must trip the sentinels
+FT_SNEAKY = dict(seed=35, sneaky_rate=0.02, flips_per_event=6)
 SASS_KERNELS = ("flash", "fused_linear", "admm_pgrad", "resnorm_partials")
 # what the port's kernels' names hold (the grid kernels are
 # elementwise_kernel<..., Project | Encode<...> | Decode>), for the profiles
@@ -1193,6 +1225,306 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
     return out
 
 
+def sentinel_ms_per_iter(mesh, L, C, cfg, init, data, n=5, plan=None):
+    """``ring_ms_per_iter`` for the sentinel step (health=True, or a fault
+    plan's controls at tick 0), the good slabs primed once and the controls
+    made once on the card; returns (ms, step, carry after the run, ctl)."""
+    from repro_torch.comm import faults as FT
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing
+    ring = LocalRing(mesh, init.p.device)
+    step, _ = SP.make_distributed_step(mesh, L, C, cfg, health=True,
+                                       faults=plan, ring=ring)
+    st = SP.shard_stack(init, ring)
+    carry = (st, SP.make_sentinel_primer(mesh, ring=ring)(st.q, st.u, st.p))
+    ctl = (FT.null_controls(mesh.model, device=ring.device) if plan is None
+           else plan.controls(0, mesh.model, device=ring.device))
+    carry, _ = step(carry, *data, ctl)                         # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        carry, m = step(carry, *data, ctl)
+    float(m["objective"])
+    return (time.perf_counter() - t) / n * 1e3, step, carry, ctl
+
+
+def ft_check_equal(label, got, want):
+    """Objectives and the final global stacks of two runs, bit for bit."""
+    (sg, hg), (sw, hw) = got, want
+    if hg["objective"] != hw["objective"]:
+        raise AssertionError(f"{label}: objectives differ: {hg['objective']} "
+                             f"vs {hw['objective']}")
+    for f in sg._fields:
+        if not torch.equal(getattr(sg, f), getattr(sw, f)):
+            raise AssertionError(f"{label}: state {f} differs")
+
+
+def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
+    """Fault tolerance at full width (module docstring, phase 7): (a) the
+    sentinel ring without faults, (b) chaos accounting, (c) rollback,
+    (d) resume and elastic restore, (e) the paper's G-Q setting through
+    train_adaptive, with a NaN rollback."""
+    import tempfile
+    from repro_torch.comm import faults as FT
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig, admm_edges,
+                                             train_adaptive)
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.configs.gamlp_paper import GAMLP
+    from repro_torch.core.quantize import integer_grid
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    dev = X.device
+    Xp = ring_problem(X, ds, dev)
+    L, C = STAGES, ds.n_classes
+    mesh = StageMesh(1, STAGES)
+    args = (Xp, ds.labels, ds.masks)
+    data = [LocalRing(mesh, dev).to_local(x, "rows")
+            for x in (Xp, ds.labels, ds.masks["train"])]
+    init = SP.init_stack(0, Xp, L, cfg)
+    out = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        # (a) health and a zero-rate plan: today's ring, bit for bit
+        plain = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                     init=init)
+        for label, kw in (("health", dict(health=True)),
+                          ("zero-rate plan", dict(
+                              faults=FT.FaultPlan(seed=FT_ZERO_SEED)))):
+            ops.reset_launch_counts()
+            got = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                       init=init, **kw)
+            counts = ops.launch_counts()
+            missing = [k for k in BASE_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"sentinel ring ({label}): kernels never"
+                                     f" launched: {missing}")
+            ft_check_equal(f"sentinel ring ({label})", got, plain)
+            if got[1]["faults"]["detected"] or got[1]["faults"]["rolled_back"]:
+                raise AssertionError(f"{label}: {got[1]['faults']}")
+            print(f"ft (a) {label}: {epochs} iterations bitwise equal to the "
+                  f"plain ring; launches {counts}", flush=True)
+        ms_plain, _, _ = ring_ms_per_iter(mesh, L, C, cfg, init, data)
+        ms_health, step_h, carry_h, ctl = sentinel_ms_per_iter(
+            mesh, L, C, cfg, init, data)
+        ms_zero = sentinel_ms_per_iter(mesh, L, C, cfg, init, data,
+                                       plan=FT.FaultPlan(seed=FT_ZERO_SEED))[0]
+        ms_plain_b, _, _ = ring_ms_per_iter(mesh, L, C, cfg, init, data)
+        loop_ms = {}
+        for label, kw in (("plain", {}), ("health", dict(health=True))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                 init=init, **kw)
+            torch.cuda.synchronize()
+            loop_ms[label] = (time.perf_counter() - t0) / epochs * 1e3
+        slab = torch.randn((1, STAGES, 1) + tuple(Xp.shape), device=dev)
+        seq = torch.zeros((), dtype=torch.int32, device=dev)
+        cs_ms = device_ms(lambda: [FT.checksum_header(slab, seq, batch_dims=2)
+                                   for _ in range(6)])
+        held = [carry_h]
+
+        def run_once():
+            held[0], _ = step_h(held[0], *data, ctl)
+        prof = profile_phase("G ring, health step", run_once, ms_health)
+        print(f"ft (a) sentinel cost, G ring: step ms per iteration plain "
+              f"{ms_plain:.3f} / {ms_plain_b:.3f}, health {ms_health:.3f}, "
+              f"zero-rate plan {ms_zero:.3f}; through distributed_train "
+              f"(one host read per iteration with health) plain "
+              f"{loop_ms['plain']:.3f}, health {loop_ms['health']:.3f}; the "
+              f"six checksums of an iteration ([1,10,1,{Xp.shape[0]},"
+              f"{Xp.shape[1]}] f32 each) {cs_ms:.4f} device ms", flush=True)
+        out["health"] = {"bitwise": True, "ms_plain": [ms_plain, ms_plain_b],
+                         "ms_health": ms_health, "ms_zero_rate": ms_zero,
+                         "loop_ms": loop_ms, "checksums_device_ms": cs_ms,
+                         "profile": prof}
+
+        # (b) chaos accounting on the G-Q ring
+        init_q = SP.init_stack(0, Xp, L, cfg_q)
+        plan = FT.FaultPlan(**FT_CHAOS)
+        chaos = {}
+        for overlap in (False, True):
+            led = CommLedger()
+            ops.reset_launch_counts()
+            st, h = SP.distributed_train(mesh, None, *args, L, C, cfg_q,
+                                         FT_TICKS, init=init_q, faults=plan,
+                                         overlap=overlap, ledger=led)
+            counts = ops.launch_counts()
+            missing = [k for k in GQ_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"chaos ring: kernels never launched: "
+                                     f"{missing}")
+            f, fc = h["faults"], led.fault_counts()
+            for en in FT.EDGES:
+                c = f["per_edge"][en]
+                if not (c["injected"] == c["detected"] == c["recovered"]
+                        == fc.get(en, {}).get("injected", 0)
+                        == fc.get(en, {}).get("detected", 0)):
+                    raise AssertionError(f"chaos accounting {en}: {c}, "
+                                         f"ledger {fc.get(en)}")
+            if f["injected"] == 0 or f["rolled_back"]:
+                raise AssertionError(f"chaos: {f}")
+            hdr = sum(r.wire_bytes for r in led.records
+                      if r.kind == "header" and r.edge in FT.EDGES)
+            want = CommLedger()
+            SP._record_sentinel_headers(want, 0, FT_TICKS, mesh)
+            if hdr != want.total_wire_bytes():
+                raise AssertionError(f"header bytes {hdr} != "
+                                     f"{want.total_wire_bytes()}")
+            again = SP.distributed_train(mesh, None, *args, L, C, cfg_q,
+                                         FT_TICKS, init=init_q, faults=plan,
+                                         overlap=overlap)
+            ft_check_equal(f"chaos repeat (overlap {overlap})", again,
+                           (st, h))
+            if not all(math.isfinite(o) for o in h["objective"]):
+                raise AssertionError(f"chaos: objective {h['objective']}")
+            print(f"ft (b) chaos G-Q ring, overlap {overlap}: {FT_CHAOS}, "
+                  f"{FT_TICKS} ticks: per edge "
+                  f"{ {en: f['per_edge'][en]['injected'] for en in FT.EDGES} }"
+                  f" injected == detected == recovered == the ledger's; "
+                  f"header bytes {hdr} == _record_sentinel_headers; a second "
+                  f"run gives the same bits; objective {h['objective'][-1]:.6g}",
+                  flush=True)
+            chaos[str(overlap)] = {"faults": {k: f[k] for k in (
+                "per_edge", "injected", "detected", "recovered",
+                "rolled_back", "ticks")}, "header_bytes": hdr,
+                "objective": h["objective"], "launches": counts}
+        out["chaos"] = chaos
+
+        # (c) undetected corruption rolls back to a checkpoint
+        led = CommLedger()
+        d = os.path.join(tmp, "rollback")
+        _, h = SP.distributed_train(mesh, None, *args, L, C, cfg, FT_TICKS,
+                                    init=init, faults=FT.FaultPlan(**FT_SNEAKY),
+                                    ckpt=d, ckpt_every=2, ledger=led)
+        shutil.rmtree(d)
+        f = h["faults"]
+        print(f"ft (c) rollback: {FT_SNEAKY}: {f['injected']} sneaky slabs "
+              f"injected, rolled back {f['rolled_back']} time(s) over "
+              f"{f['ticks']} ticks; objectives {h['objective']}", flush=True)
+        if f["rolled_back"] < 1 or len(h["objective"]) != FT_TICKS or not all(
+                math.isfinite(o) for o in h["objective"]):
+            raise AssertionError(f"rollback: {f}, {h['objective']}")
+        if led.fault_counts()["step"]["rolled_back"] != f["rolled_back"]:
+            raise AssertionError("rollback: the ledger's count differs")
+        out["rollback"] = {"plan": FT_SNEAKY, "rolled_back": f["rolled_back"],
+                           "injected": f["injected"], "ticks": f["ticks"],
+                           "objective": h["objective"]}
+
+        # (d) resume: 4 + a save + a fresh resume to 8 == 8, bit for bit
+        d = os.path.join(tmp, "resume")
+        _, h4 = SP.distributed_train(mesh, None, *args, L, C, cfg, 4,
+                                     init=init, ckpt=d, ckpt_every=4)
+        s8r, h8r = SP.distributed_train(mesh, None, *args, L, C, cfg, 8,
+                                        init=init, ckpt=d, resume=True)
+        s8, h8 = SP.distributed_train(mesh, None, *args, L, C, cfg, 8,
+                                      init=init, health=True)
+        ft_check_equal("resume", (s8r, {"objective": h4["objective"]
+                                        + h8r["objective"]}), (s8, h8))
+        mesh5 = StageMesh(1, STAGES // 2)
+        _, h5 = SP.distributed_train(mesh5, None, *args, L, C, cfg, 6,
+                                     init=init, ckpt=d, resume=True)
+        shutil.rmtree(d)
+        if len(h5["objective"]) != 2 or not all(
+                math.isfinite(o) for o in h5["objective"]):
+            raise AssertionError(f"elastic restore: {h5['objective']}")
+        print(f"ft (d) resume: 4 iterations + save + resume to 8 == 8 "
+              f"uninterrupted, bit for bit (objectives {h8['objective'][-1]:.6g}"
+              f"); restored onto mesh (1, {STAGES // 2}) and trained 2 more: "
+              f"{h5['objective']}", flush=True)
+        out["resume"] = {"bitwise": True, "elastic_1x5": h5["objective"]}
+
+        # (e) the paper's G-Q setting on one host
+        grid = integer_grid(-1, 20)
+        cfg_paper = dataclasses.replace(
+            cfg, nu=GAMLP.nu, rho=GAMLP.rho, fista_iters=GAMLP.fista_iters,
+            quantize_p=GAMLP.quantize_p, quantize_q=GAMLP.quantize_q,
+            grid=grid)
+        _, runs["GQ_paper"] = train_phase(
+            X, ds, dims, cfg_paper, epochs, GQ_KERNELS,
+            "pdADMM-G-Q, the paper's setting (Δ = {-1..20}, p on it, q not)")
+        V = X.shape[0]
+
+        def adaptive(config, **kw):
+            ctl = BitWidthController(admm_edges(dims, V)[:len(dims) - 2],
+                                     ControllerConfig(allowed_bits=(8,),
+                                                      min_bits=8, max_bits=8))
+            led = CommLedger()
+            _, h = train_adaptive(0, X, ds.labels, ds.masks, dims, config,
+                                  epochs, controller=ctl, ledger=led,
+                                  grids_by_bits={8: grid}, device=dev, **kw)
+            return h, led
+        ops.reset_launch_counts()
+        ha, led_a = adaptive(cfg_paper)
+        counts = ops.launch_counts()
+        missing = [k for k in GQ_KERNELS if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"train_adaptive: kernels never launched: "
+                                 f"{missing}")
+        hp, _ = adaptive(dataclasses.replace(cfg_paper, use_kernels=False))
+        print(f"ft (e) train_adaptive (Δ = {{-1..20}} as the 8-bit entry, "
+              f"p and q on it): objective kernels {ha['objective']}, plain "
+              f"{hp['objective']}; launches {counts}", flush=True)
+        try:
+            np.testing.assert_allclose(ha["objective"], hp["objective"],
+                                       rtol=TRAJ_RTOL)
+            check = f"rtol {TRAJ_RTOL}"
+        except AssertionError:
+            print("  beyond rtol: holding both paths from shared states",
+                  flush=True)
+            stepwise_check(X, ds, dims, dataclasses.replace(
+                cfg_paper, quantize_q=True), epochs)
+            check = "stepwise"
+        poisoned = {"n": 0}
+
+        def hook(e, state):
+            if e == 3 and poisoned["n"] == 0:
+                poisoned["n"] += 1
+                W = list(state.W)
+                W[0] = W[0].clone()
+                W[0][0, 0] = float("nan")
+                return state._replace(W=W)
+            return state
+        hr, led_r = adaptive(cfg_paper, ckpt=os.path.join(tmp, "adaptive"),
+                             ckpt_every=2, fault_hook=hook)
+        n_rb = led_r.fault_counts().get("step", {}).get("rolled_back", 0)
+        if poisoned["n"] != 1 or n_rb != 1 or hr["objective"] != \
+                ha["objective"]:
+            raise AssertionError(f"train_adaptive rollback: {n_rb} "
+                                 f"rollbacks, {hr['objective']} vs "
+                                 f"{ha['objective']}")
+        acc = {"G": runs["G"]["test_acc"], "GQ_uniform": runs["GQ"]["test_acc"],
+               "GQ_paper": runs["GQ_paper"]["test_acc"],
+               "GQ_paper_adaptive": ha["test_acc"][-1]}
+        # the paper's epoch count, for G-Q on either grid
+        from repro_torch.core import pdadmm
+        for key, c in (("GQ_paper", cfg_paper), ("GQ_uniform", cfg_q)):
+            _, h = pdadmm.train(0, X, ds.labels, ds.masks, dims, c,
+                                GAMLP.epochs, device=dev)
+            acc[f"{key}_{GAMLP.epochs}"] = h["test_acc"][-1]
+            if not math.isfinite(h["objective"][-1]):
+                raise AssertionError(f"{key}: {GAMLP.epochs} iterations end "
+                                     f"at {h['objective'][-1]}")
+        print(f"ft (e) NaN at iteration 3: rolled back {n_rb} time, "
+              f"objectives equal to the clean run's; test accuracy after "
+              f"{epochs} iterations: G {acc['G']:.4f}, G-Q uniform_grid(8, "
+              f"-2, 6) {acc['GQ_uniform']:.4f}, G-Q paper (p on Δ) "
+              f"{acc['GQ_paper']:.4f}, train_adaptive (p, q on Δ) "
+              f"{acc['GQ_paper_adaptive']:.4f}; after {GAMLP.epochs}: G-Q "
+              f"paper {acc[f'GQ_paper_{GAMLP.epochs}']:.4f}, G-Q uniform "
+              f"{acc[f'GQ_uniform_{GAMLP.epochs}']:.4f}", flush=True)
+        out["paper_gq"] = {"adaptive_objective": ha["objective"],
+                           "adaptive_objective_plain": hp["objective"],
+                           "check": check, "launches": counts,
+                           "rollback_equal": True, "test_acc": acc,
+                           "wire_bytes_per_iter": led_a.iteration_bytes(0)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def timed_ms(fn, n: int) -> float:
     """Mean host-clock ms of ``n`` calls after one warm-up, each run ending
     in a device sync."""
@@ -1510,6 +1842,7 @@ def main() -> int:
               f"{r['test_acc']:.4f} (plain {r['test_acc_plain']:.4f})",
               flush=True)
     runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
+    runs["ft"] = ft_phase(X, ds, dims, cfg, cfg_q, EPOCHS, runs)
     del X, ds
     torch.cuda.empty_cache()
     from repro_torch.configs.base import get_arch

@@ -17,14 +17,16 @@ violation.
     the controller demotes the loosest (highest-residual) edges first until
     the projected per-iteration spend fits the remaining budget.
 
-``objective="walltime"`` needs the replay cost model and waits for the
-port's analysis slice, as does the single-host ``train_adaptive`` loop.
+``train_adaptive`` is the single-host loop that drives the controller over
+``admm_edges``. ``objective="walltime"`` needs the replay cost model and
+waits for the port's analysis slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,10 +264,210 @@ def stage_ring_edges(n_stages: int, V: int, h: int,
 
 
 def admm_edges(dims, V: int) -> List[int]:
-    """Managed-edge element counts for the single-host adaptive loop
-    (``train_adaptive``, a later slice of the port): per boundary l, one
+    """Managed-edge element counts for `train_adaptive`: per boundary l, one
     p/q edge (q_l forward + p_{l+1} backward: 2*V*n_l elements) followed by
     one u edge (u_l forward: V*n_l elements)."""
     n_bound = len(dims) - 2
     return ([2 * V * dims[l + 1] for l in range(n_bound)] +
             [V * dims[l + 1] for l in range(n_bound)])
+
+
+def train_adaptive(seed, X, labels, masks, dims, config, epochs: int, *,
+                   controller: BitWidthController, ledger,
+                   grids_by_bits: Dict[int, "object"],
+                   control_interval: int = 1, ckpt=None, ckpt_every: int = 0,
+                   resume: bool = False, recovery=None, fault_hook=None,
+                   init=None, device=None):
+    """pdADMM-G-Q training with the controller assigning each boundary's
+    p/q exchange (and, with an ``admm_edges``-shaped controller, its u
+    exchange) a bit-width every iteration; every payload goes on the
+    ledger. Returns ``(state, hist)`` like ``pdadmm.train``.
+
+    The p/q wire is the optimisation grid itself (the projection is the
+    prox of the grid's indicator, as in the paper); the u wire is an affine
+    codec on the transmitted view of the dual (the stored dual stays
+    exact). With a controller over the p/q edges only (the legacy layout)
+    u flies fp32. One step per distinct schedule, built lazily.
+
+    The loop rides ``pdadmm.run_chunked``: each control step runs
+    ``control_interval`` iterations under its schedule with one host
+    transfer of the chunk's metrics, then the controller is replayed over
+    the chunk's interior iterations, so its dwell/peak/budget state
+    evolves as if consulted every iteration (``control_interval=1`` is the
+    per-iteration loop).
+
+    ``seed`` (an int or a CPU ``torch.Generator``) draws the initial state
+    on the grid the first iterations train on, unless ``init`` gives one
+    (an ``ADMMState``; the reference's initial state comes over this way,
+    since its ``jax.random`` numbers cannot be drawn here). Runs on
+    ``device`` (default: the card).
+
+    Fault tolerance: ``ckpt`` (a CheckpointManager or a directory) with
+    ``ckpt_every=k`` saves state, controller and ledger rollup atomically
+    every k iterations; ``resume=True`` restores the latest checkpoint
+    first. ``fault_hook(iteration, state) -> state`` is the chaos seam: it
+    may corrupt the state a chunk trains on. With either, each chunk's
+    last objective and residual are checked (non-finite, or a spike past
+    the last accepted objective by ``faults.SPIKE_TOL``): a bad chunk is
+    discarded and rolled back to the latest checkpoint (or the initial
+    state), and :meth:`BitWidthController.force_widest` holds the widest
+    width for ``recovery.cooldown`` control steps.
+    """
+    from repro_torch import resolve_device
+    from repro_torch.comm import ledger as ledger_mod
+    from repro_torch.comm.codecs import FP32, AffineCodec, GridCodec
+    from repro_torch.comm.faults import SPIKE_TOL, RecoveryConfig
+    from repro_torch.core import pdadmm
+
+    device = resolve_device(device)
+    X, labels = X.to(device), labels.to(device)
+    masks = {k: m.to(device) for k, m in masks.items()}
+    L = len(dims) - 1
+    V = X.shape[0]
+    n_bound = L - 1
+    manage_u = len(controller.edge_elements) == 2 * n_bound
+    if not manage_u and len(controller.edge_elements) != n_bound:
+        raise ValueError(f"{len(controller.edge_elements)} managed edges for "
+                         f"{n_bound} boundaries; expected one or two each")
+
+    if init is None:
+        # the grid the first iterations train on (the initial schedule's
+        # width, never coarser than 8): a coarser projection at init breaks
+        # the forward consistency the residual-driven schedule reads from
+        init_bits = max(controller.schedule[0],
+                        min(8, max(grids_by_bits)))
+        init_grid = grids_by_bits.get(init_bits,
+                                      grids_by_bits[max(grids_by_bits)])
+        state = pdadmm.init_state(
+            seed, X, dims, dataclasses.replace(config, quantize_p=True,
+                                               quantize_q=True,
+                                               grid=init_grid),
+            device=device)
+    else:
+        state = init
+
+    step_cache = {}
+
+    def split(schedule):
+        pq = schedule[:n_bound]
+        uu = schedule[n_bound:] if manage_u else None
+        return pq, uu
+
+    def step_for(schedule):
+        if schedule not in step_cache:
+            pq, uu = split(schedule)
+            p_grids = tuple([None] + [grids_by_bits[b] for b in pq])
+            q_grids = tuple(grids_by_bits[b] for b in pq)
+            u_codecs = (tuple(AffineCodec(b) for b in uu)
+                        if uu is not None else None)
+            step_cache[schedule] = functools.partial(
+                pdadmm.iterate, config=config, p_grids=p_grids,
+                q_grids=q_grids, u_codecs=u_codecs)
+        return step_cache[schedule]
+
+    hist = {"objective": [], "residual": [], "val_acc": [], "test_acc": [],
+            "schedules": []}
+    bound_res = [0.0] * n_bound
+    interval = max(1, int(control_interval))
+
+    mgr = None
+    if ckpt is not None:
+        from repro_torch.ckpt.manager import CheckpointManager
+        mgr = ckpt if hasattr(ckpt, "save") else CheckpointManager(str(ckpt))
+    if (resume or ckpt_every) and mgr is None:
+        raise ValueError("resume=/ckpt_every= need ckpt= (a "
+                         "CheckpointManager or a directory path)")
+    guard = mgr is not None or fault_hook is not None
+    rec = recovery if recovery is not None else RecoveryConfig()
+    state0, ctl_state0 = state, controller.state_dict()
+    prev_obj = float("inf")
+    n_rb = 0
+    e = 0
+
+    def _trim(at):
+        for k in ("objective", "residual", "schedules"):
+            del hist[k][at:]
+
+    def _restore():
+        nonlocal state, e, prev_obj, bound_res
+        state, manifest = mgr.restore(like=state)
+        ex = manifest.get("extra") or {}
+        e = int(ex.get("iteration", 0))
+        prev_obj = float(ex.get("prev_obj", float("inf")))
+        bound_res = [float(r) for r in ex.get("bound_res",
+                                              [0.0] * n_bound)]
+        if ex.get("controller"):
+            controller.load_state_dict(ex["controller"])
+        _trim(e)
+
+    if resume and mgr is not None and mgr.latest_step() is not None:
+        _restore()
+
+    while e < epochs:
+        residuals = bound_res + bound_res if manage_u else bound_res
+        sched = controller.assign(residuals, e)
+        c = min(interval, epochs - e)
+        if fault_hook is not None:
+            state = fault_hook(e, state)
+        state, ms = pdadmm.run_chunked(
+            step_for(sched), state, (X, labels, masks["train"]), c, chunk=c)
+        if guard:
+            obj_last = float(ms["objective"][-1])
+            res_last = float(ms["residual"][-1])
+            bad = (not math.isfinite(obj_last)
+                   or not math.isfinite(res_last)
+                   or (math.isfinite(prev_obj) and obj_last > prev_obj
+                       + SPIKE_TOL * (1.0 + abs(prev_obj))))
+            if bad:
+                n_rb += 1
+                if n_rb > rec.max_rollbacks:
+                    raise RuntimeError(
+                        f"train_adaptive: {n_rb} rollbacks exceeded "
+                        f"max_rollbacks={rec.max_rollbacks}")
+                if ledger is not None:
+                    ledger.record_fault(e, "step", "rolled_back", 1)
+                if mgr is not None and mgr.latest_step() is not None:
+                    _restore()
+                else:
+                    state, e, prev_obj = state0, 0, float("inf")
+                    bound_res = [0.0] * n_bound
+                    controller.load_state_dict(dict(ctl_state0))
+                    _trim(0)
+                controller.force_widest(e, rec.cooldown)
+                continue
+        # primal + dual residual per boundary: the primal part collapses to
+        # 0 once p and q share a grid, the dual part keeps decaying with
+        # real progress; their sum drives the width everywhere
+        chunk_res = [[float(r) + float(d) for r, d in zip(lr, ldr)]
+                     for lr, ldr in zip(ms["layer_residuals"],
+                                        ms["layer_dual_residuals"])]
+        pq, uu = split(sched)
+        codecs = [GridCodec(grids_by_bits[b]) for b in pq]
+        u_codecs = ([AffineCodec(b) for b in uu] if uu is not None else FP32)
+        for i in range(c):
+            hist["schedules"].append(sched)
+            ledger_mod.record_admm_iteration(ledger, e + i, dims, V, codecs,
+                                             codecs, u_codecs)
+            hist["objective"].append(float(ms["objective"][i]))
+            hist["residual"].append(float(ms["residual"][i]))
+        # replay the controller over the chunk's interior iterations
+        for i in range(1, c):
+            br = chunk_res[i - 1]
+            controller.assign(br + br if manage_u else br, e + i)
+        bound_res = chunk_res[-1]
+        prev_obj = hist["objective"][-1]
+        e_before = e
+        e += c
+        if (mgr is not None and ckpt_every
+                and e_before // ckpt_every != e // ckpt_every):
+            extra = {"iteration": e, "prev_obj": prev_obj,
+                     "bound_res": bound_res,
+                     "controller": controller.state_dict()}
+            if ledger is not None:
+                extra["ledger"] = ledger.summary()
+            mgr.save(e, state, extra=extra)
+    hist["val_acc"].append(float(pdadmm.forward_accuracy(
+        state, X, labels, masks["val"])))
+    hist["test_acc"].append(float(pdadmm.forward_accuracy(
+        state, X, labels, masks["test"])))
+    return state, hist

@@ -188,8 +188,9 @@ class ArchConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# The dense configs, the one family the port serves; each other family's
-# config comes with the slice that ports it.
+# The dense configs, the one LM family the port serves; each other family's
+# config comes with the slice that ports it. "gamlp-paper" is the paper's
+# own GA-MLP, registered (as in the reference) but not an LM arch.
 ARCH_IDS = ("yi-9b", "phi3-mini-3.8b", "tinyllama-1.1b", "granite-8b")
 
 _MODULE_BY_ID = {
@@ -197,6 +198,7 @@ _MODULE_BY_ID = {
     "phi3-mini-3.8b": "phi3_mini",
     "tinyllama-1.1b": "tinyllama",
     "granite-8b": "granite_8b",
+    "gamlp-paper": "gamlp_paper",
 }
 
 

@@ -24,10 +24,14 @@ beforehand (``Xp = relu(X @ P0)``), and the risk reads the first C columns
 of the last layer's z (the head folded into layer L-1). First/last-layer
 special cases are masked, so every stage computes the same thing.
 
-Not in this slice of the port: the sentinel step (``health=`` /
-``faults=``), checkpoints (``ckpt=`` / ``resume=``) and
-``make_sentinel_primer`` (the fault-tolerance slice); the replay cost-model
-hooks ``step_program_plan``, ``trace_step_dag``, ``choose_overlap_for``,
+Fault tolerance (``health=`` / ``faults=`` / ``ckpt=``): the sentinel step
+checks every boundary slab against its integrity header and substitutes the
+last verified one on a failed verdict (``comm.faults``), and
+``distributed_train`` rolls an unhealthy iteration back to its latest
+checkpoint (``ckpt.manager``).
+
+Not in this slice of the port: the replay cost-model hooks
+``step_program_plan``, ``trace_step_dag``, ``choose_overlap_for``,
 ``step_cost_model`` and ``overlap="replay"`` (the analysis slice).
 """
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm import faults as FT
 from repro_torch.comm.codecs import FP32, WireCodec, codec_for_grid
 from repro_torch.comm.transport import (ContainerExchange, NeighborExchange,
                                         PaddedWire)
@@ -47,8 +52,6 @@ from repro_torch.parallel.ring import LocalRing
 # ring-shift tags of the three boundary exchanges (told apart in flight)
 TAG_Q, TAG_U, TAG_P = 0, 1, 2
 
-FAULT_SLICE = ("the port's fault-tolerance slice (comm/faults.py, "
-               "ckpt/manager.py)")
 ANALYSIS_SLICE = "the port's analysis slice (analysis/replay.py)"
 
 
@@ -141,7 +144,8 @@ def make_distributed_step(mesh, L: int, n_classes: int,
                           p_codec: Optional[WireCodec] = None,
                           q_codec: Optional[WireCodec] = None,
                           wire: Optional[PaddedWire] = None,
-                          health: bool = False, faults=None, ring=None):
+                          health: bool = False,
+                          faults: Optional[FT.FaultPlan] = None, ring=None):
     """Build the distributed ADMM iteration on ``ring`` (default: a
     :class:`LocalRing` of ``mesh`` on the card); returns ``(step, ring)``.
 
@@ -167,6 +171,21 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     the p one; host integers), and each stage's exchanges run at its own
     width. u always flies fp32.
 
+    ``health=True`` (or any ``faults=`` plan) builds the SENTINEL step:
+    every boundary slab flies with its int32[2] checksum/seqno header
+    (:mod:`repro_torch.comm.faults`), the carry's state becomes
+    ``(StackState, GoodSlabs)`` with the last verified boundaries, the step
+    takes a trailing :class:`~repro_torch.comm.faults.FaultControls` (after
+    ``widths``), and ``metrics["health"]`` holds ``wire_bad`` (int32 [3],
+    failed verdicts per edge summed over stages and data shards),
+    ``p_finite`` / ``W_finite`` / ``b_finite`` / ``z_finite``,
+    ``residual_finite`` and ``objective_spike``. A failed verdict
+    substitutes the last good slab. ``faults=`` also runs the injector
+    around each exchange. Prime the good slabs with
+    :func:`make_sentinel_primer` and, under overlap, the carry with
+    ``make_overlap_primer(..., sentinel=True)``. With ``health=False,
+    faults=None`` the step, its carry and its metrics are the plain ones.
+
     ``donate=True`` writes the new state into the storage of the state
     passed in (and returns those tensors): each field is copied into its old
     storage as soon as the step has read the old value for the last time
@@ -174,8 +193,6 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     step holds one state plus the fields still in flight instead of two
     whole states. It costs one device copy per field.
     """
-    if health or faults is not None:
-        raise _not_yet("health=/faults= (the sentinel step)", FAULT_SLICE)
     if wire is not None and (p_codec is not None or q_codec is not None):
         raise ValueError("wire= (padded containers) replaces the static "
                          "p/q codecs")
@@ -195,6 +212,10 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     if wire is not None:
         cex_q = ContainerExchange(ring, "model", wire, TAG_Q)
         cex_p = ContainerExchange(ring, "model", wire, TAG_P)
+    sentinel = bool(health) or faults is not None
+    if sentinel:
+        sx_q, sx_u, sx_p = _sentinel_exchanges(ring, p_codec, q_codec, wire,
+                                               faults)
     n_stages = mesh.shape["model"]
     if L % n_stages:
         raise ValueError(f"{L} layers do not split over {n_stages} stages")
@@ -205,7 +226,7 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     first = stages.index(0) if 0 in stages else None
     last = stages.index(n_stages - 1) if n_stages - 1 in stages else None
 
-    def body(st, fly, Xp, labels, label_mask, widths):
+    def body(st, fly, Xp, labels, label_mask, widths, ctl, good):
         D, S = st.p.shape[:2]
         B = D * S * m
 
@@ -223,6 +244,7 @@ def make_distributed_step(mesh, L: int, n_classes: int,
             old.copy_(fresh)
             return old
 
+        sel_q = sel_p = sel_q_prev = sel_p_next = None
         if wire is not None:
             sel_q = [widths[0][s] for s in stages]
             sel_p = [widths[1][s] for s in stages]
@@ -231,7 +253,23 @@ def make_distributed_step(mesh, L: int, n_classes: int,
             sel_p_next = [widths[1][(s + 1) % n_stages] for s in stages]
 
         # ---- neighbour exchange (previous iteration's values) -------------
-        if overlap:
+        if sentinel:
+            # a carried slab was stamped with the previous tick
+            exp_qu = ctl.seqno - 1 if overlap else ctl.seqno
+            if overlap:
+                q_fly, u_fly = fly
+            else:
+                q_fly = sx_q.start(st.q[:, :, -1:], ctl, +1, sel=sel_q)
+                u_fly = sx_u.start(st.u[:, :, -1:], ctl, +1)
+            slab = st.q[:, :, -1:].shape
+            qb, ok_q, raw_q = sx_q.finish(q_fly, ctl, exp_qu, slab,
+                                          st.q.dtype, good.q, +1,
+                                          sel_src=sel_q_prev)
+            ub, ok_u, raw_u = sx_u.finish(u_fly, ctl, exp_qu, slab,
+                                          st.u.dtype, good.u, +1)
+            q_prev = torch.cat([qb, st.q[:, :, :-1]], dim=2)
+            u_prev = torch.cat([ub, st.u[:, :, :-1]], dim=2)
+        elif overlap:
             q_fly, u_fly = fly
             q_prev = (cex_q.finish_shift_from_prev(q_fly, st.q, sel_q_prev)
                       if wire is not None
@@ -263,8 +301,12 @@ def make_distributed_step(mesh, L: int, n_classes: int,
         del p_new, r_new, r_in
 
         if overlap:    # the W/b/z solves never read p_next: start it now
-            p_fly = (cex_p.start_shift_from_next(p, sel_p)
-                     if wire is not None else ex_p.start_shift_from_next(p))
+            if sentinel:
+                p_fly = sx_p.start(p[:, :, :1], ctl, -1, sel=sel_p)
+            else:
+                p_fly = (cex_p.start_shift_from_next(p, sel_p)
+                         if wire is not None
+                         else ex_p.start_shift_from_next(p))
 
         # ---- W-update (layer 0: zeroed q/u make the same formula exact) ---
         W, _, r = sp.update_W(flat(p), W0, b0, z0, flat(q_prev),
@@ -288,7 +330,15 @@ def make_distributed_step(mesh, L: int, n_classes: int,
                 config.fista_iters, use_kernels=uk)
 
         # ---- q-update (needs the next layer's NEW p) ------------------------
-        if wire is not None:
+        if sentinel:
+            # the backward p slab always flies within its own tick
+            if not overlap:
+                p_fly = sx_p.start(p[:, :, :1], ctl, -1, sel=sel_p)
+            pb, ok_p, _ = sx_p.finish(p_fly, ctl, ctl.seqno,
+                                      p[:, :, :1].shape, p.dtype, good.p, -1,
+                                      sel_src=sel_p_next)
+            p_next = torch.cat([p[:, :, 1:], pb], dim=2)
+        elif wire is not None:
             p_next = (cex_p.finish_shift_from_next(p_fly, p, sel_p_next)
                       if overlap else
                       cex_p.shift_from_next(p, sel_p, sel_p_next))
@@ -310,7 +360,16 @@ def make_distributed_step(mesh, L: int, n_classes: int,
 
         # overlap: q and u are what the next entry exchange sends
         out_fly = None
-        if overlap:
+        if overlap and sentinel:
+            out_fly = (sx_q.start(q[:, :, -1:], ctl, +1, sel=sel_q),
+                       sx_u.start(u[:, :, -1:], ctl, +1))
+            if faults is not None:
+                # a late send from my source: my carry keeps the stale pair
+                # (caught next tick by its seqno)
+                late = sx_q.pick(ctl.delay, +1)
+                out_fly = (out_fly[0]._replace(held=(late, raw_q)),
+                           out_fly[1]._replace(held=(late, raw_u)))
+        elif overlap:
             out_fly = ((cex_q.start_shift_from_prev(q, sel_q)
                         if wire is not None
                         else ex_q.start_shift_from_prev(q)),
@@ -343,18 +402,81 @@ def make_distributed_step(mesh, L: int, n_classes: int,
         lag = (ring.psum(lag, ("model", "data")) + risk_val).reshape(())
         metrics = {"residual": torch.sqrt(res_sq), "objective": lag,
                    "stage_residuals": torch.sqrt(seg)}
+        new_good = None
+        if sentinel:
+            metrics["health"] = _health(ring, (ok_q, ok_u, ok_p),
+                                        (p, W, b, z), res_sq, lag, ctl)
+            new_good = FT.GoodSlabs(q=qb, u=ub, p=pb)
         new = StackState(p, W, b, settle(st.z, z), q, u)
-        return new, out_fly, metrics
+        return new, out_fly, metrics, new_good
 
-    def step(carry, Xp, labels, label_mask, widths=None):
-        if (wire is not None) != (widths is not None):
-            raise ValueError("a padded-wire step takes the widths table, "
-                             "and only it does")
-        st, fly = carry if overlap else (carry, None)
-        new, out_fly, metrics = body(st, fly, Xp, labels, label_mask, widths)
-        return ((new, out_fly) if overlap else new), metrics
+    n_extra = (wire is not None) + sentinel
+
+    def step(carry, Xp, labels, label_mask, *extra):
+        if len(extra) != n_extra:
+            raise ValueError(f"this step takes {n_extra} trailing argument(s)"
+                             " (the widths table of a padded wire, then the "
+                             "FaultControls of a sentinel step)")
+        widths = extra[0] if wire is not None else None
+        ctl = extra[-1] if sentinel else None
+        st_c, fly = carry if overlap else (carry, None)
+        st, good = st_c if sentinel else (st_c, None)
+        new, out_fly, metrics, new_good = body(st, fly, Xp, labels,
+                                               label_mask, widths, ctl, good)
+        out = (new, new_good) if sentinel else new
+        return ((out, out_fly) if overlap else out), metrics
 
     return step, ring
+
+
+def _sentinel_exchanges(ring, p_codec, q_codec, wire, plan):
+    """The q, u and p sentinel exchanges of a step (or a primer: plan
+    None)."""
+    return (FT.SentinelExchange(ring, "model", 0, codec=q_codec, wire=wire,
+                                plan=plan, tag=TAG_Q),
+            FT.SentinelExchange(ring, "model", 1, codec=FP32, plan=plan,
+                                tag=TAG_U),
+            FT.SentinelExchange(ring, "model", 2, codec=p_codec, wire=wire,
+                                plan=plan, tag=TAG_P))
+
+
+HEALTH_FLAGS = ("p_finite", "W_finite", "b_finite", "z_finite",
+                "residual_finite", "objective_spike")
+
+
+def _health(ring, oks, new_leaves, res_sq, lag, ctl) -> dict:
+    """The ``metrics["health"]`` block, replicated like the other metrics:
+    failed verdicts per edge and the finite / spike sentinels."""
+    axes = ("model", "data")
+
+    def all_finite(t):
+        # min and max propagate NaN, and an infinity is one of them: both
+        # finite iff every element is (one read of t, no temporaries)
+        lo, hi = torch.aminmax(t.reshape(*t.shape[:2], -1), dim=-1)
+        bad = (~(torch.isfinite(lo) & torch.isfinite(hi))).to(torch.int32)
+        return ring.psum(bad, axes).reshape(()) == 0
+
+    health = {"wire_bad": torch.stack([
+        ring.psum((~ok).to(torch.int32), axes).reshape(()) for ok in oks])}
+    for name, t in zip(HEALTH_FLAGS[:4], new_leaves):
+        health[name] = all_finite(t)
+    prev = ctl.prev_obj
+    health["residual_finite"] = torch.isfinite(res_sq) & torch.isfinite(lag)
+    health["objective_spike"] = torch.isfinite(prev) & (
+        lag > prev + FT.SPIKE_TOL * (1.0 + prev.abs()))
+    return health
+
+
+def _health_row(metrics) -> np.ndarray:
+    """One host read of a sentinel step's verdict: ``wire_bad`` (3), the
+    six HEALTH_FLAGS, the objective and the residual, as float64."""
+    h = metrics["health"]
+    row = torch.cat([h["wire_bad"].to(torch.float64),
+                     torch.stack([h[k] for k in HEALTH_FLAGS]).to(
+                         torch.float64),
+                     torch.stack([metrics["objective"],
+                                  metrics["residual"]]).to(torch.float64)])
+    return row.cpu().numpy()
 
 
 def make_overlap_primer(mesh, q_codec: WireCodec = FP32, *,
@@ -363,10 +485,27 @@ def make_overlap_primer(mesh, q_codec: WireCodec = FP32, *,
     """Start the FIRST iteration's forward q/u exchange for an
     ``overlap=True`` step: ``prime(q, u) -> (q_inflight, u_inflight)``, the
     in-flight half of the carry (``prime(q, u, widths)`` with a padded
-    ``wire``). ``q_codec`` must be the step's q wire; u flies fp32."""
-    if sentinel:
-        raise _not_yet("the sentinel primer", FAULT_SLICE)
+    ``wire``). ``q_codec`` must be the step's q wire; u flies fp32.
+
+    ``sentinel=True`` primes the carry of a ``health=`` / ``faults=`` step:
+    the primer takes a trailing ``seqno`` (stamp it with ``tick - 1``, the
+    tick whose tail would have started this exchange) and each half is a
+    sentinel slab with its header. Priming is always clean: no injection,
+    a fresh checksum."""
     ring = LocalRing(mesh) if ring is None else ring
+    stages = ring.axis_index("model")
+    if sentinel:
+        sx_q, sx_u, _ = _sentinel_exchanges(ring, FP32, q_codec, wire, None)
+        n_stages = mesh.shape["model"]
+
+        def start(q, u, sel_q, seqno):
+            ctl = FT.null_controls(n_stages, seqno=seqno, device=q.device)
+            return (sx_q.start(q[:, :, -1:], ctl, +1, sel=sel_q),
+                    sx_u.start(u[:, :, -1:], ctl, +1))
+        if wire is None:
+            return lambda q, u, seqno: start(q, u, None, seqno)
+        return lambda q, u, widths, seqno: start(
+            q, u, [widths[0][s] for s in stages], seqno)
     ex_q = NeighborExchange(ring, "model", q_codec, TAG_Q)
     ex_u = NeighborExchange(ring, "model", FP32, TAG_U)
     if wire is None:
@@ -375,11 +514,47 @@ def make_overlap_primer(mesh, q_codec: WireCodec = FP32, *,
                     ex_u.start_shift_from_prev(u))
         return prime
     cex = ContainerExchange(ring, "model", wire, TAG_Q)
-    stages = ring.axis_index("model")
 
     def prime_container(q, u, widths):
         return (cex.start_shift_from_prev(q, [widths[0][s] for s in stages]),
                 ex_u.start_shift_from_prev(u))
+    return prime_container
+
+
+def make_sentinel_primer(mesh, p_codec: WireCodec = FP32,
+                         q_codec: WireCodec = FP32, *,
+                         wire: Optional[PaddedWire] = None, ring=None):
+    """The initial :class:`~repro_torch.comm.faults.GoodSlabs` of a
+    sentinel step: ``prime(q, u, p) -> GoodSlabs`` (``prime(q, u, p,
+    widths)`` with a padded ``wire``). Each slab comes from a CLEAN ring
+    shift in the step's wire format, the boundary a fault-free tick would
+    decode, so a fault on the very first tick already substitutes the
+    right value."""
+    ring = LocalRing(mesh) if ring is None else ring
+    stages = ring.axis_index("model")
+    n_stages = mesh.shape["model"]
+    ex_u = NeighborExchange(ring, "model", FP32, TAG_U)
+    if wire is None:
+        ex_q = NeighborExchange(ring, "model", q_codec, TAG_Q)
+        ex_p = NeighborExchange(ring, "model", p_codec, TAG_P)
+
+        def prime(q, u, p):
+            return FT.GoodSlabs(q=ex_q.shift_from_prev(q)[:, :, :1],
+                                u=ex_u.shift_from_prev(u)[:, :, :1],
+                                p=ex_p.shift_from_next(p)[:, :, -1:])
+        return prime
+    cex_q = ContainerExchange(ring, "model", wire, TAG_Q)
+    cex_p = ContainerExchange(ring, "model", wire, TAG_P)
+
+    def prime_container(q, u, p, widths):
+        sel_q = [widths[0][s] for s in stages]
+        sel_p = [widths[1][s] for s in stages]
+        sel_q_prev = [widths[0][(s - 1) % n_stages] for s in stages]
+        sel_p_next = [widths[1][(s + 1) % n_stages] for s in stages]
+        return FT.GoodSlabs(
+            q=cex_q.shift_from_prev(q, sel_q, sel_q_prev)[:, :, :1],
+            u=ex_u.shift_from_prev(u)[:, :, :1],
+            p=cex_p.shift_from_next(p, sel_p, sel_p_next)[:, :, -1:])
     return prime_container
 
 
@@ -508,6 +683,25 @@ def _record_qu_pair(ledger, iteration: int, mesh, L, V, h,
                   wb["u_fwd"])
 
 
+def _sentinel_links(mesh) -> int:
+    """Sentinel-checked links per edge per iteration: one slab per stage
+    per data shard."""
+    return mesh.shape["model"] * _dp_total(mesh)
+
+
+def _record_sentinel_headers(ledger, start: int, n: int, mesh,
+                             edges=FT.EDGES) -> None:
+    """Charge the integrity headers a sentinel step flies: int32[2] per
+    slab per link per edge, physical ``wire_bytes`` only (kind
+    ``"header"``, no logical payload: integrity is not part of the
+    compression story)."""
+    links = _sentinel_links(mesh)
+    for edge in edges:
+        ledger.record_span(start, n, edge, "header", 2 * links, 32,
+                           payload_bytes=0,
+                           wire_bytes=FT.SENTINEL_HEADER_BYTES * links)
+
+
 def step_program_plan(*args, **kwargs):
     raise _not_yet("step_program_plan", ANALYSIS_SLICE)
 
@@ -522,6 +716,203 @@ def choose_overlap_for(*args, **kwargs):
 
 def step_cost_model(*args, **kwargs):
     raise _not_yet("step_cost_model", ANALYSIS_SLICE)
+
+
+_UNSET = object()
+
+
+def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
+                   epochs, hist, ledger, controller, codecs_for, step_cache,
+                   overlap, faults, ckpt, ckpt_every, resume, recovery):
+    """The sentinel training loop behind ``distributed_train(faults= /
+    health= / ckpt=)``: one sentinel step per iteration (last-good
+    substitution inside the step), one host read of its verdict, the fault
+    accounting, checkpoints, and rollback. ``state`` is in the ring's shard
+    layout. Returns ``(state, hist)``; the policy is in the
+    ``distributed_train`` docstring."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    mgr = None
+    if ckpt is not None:
+        if not isinstance(ring, LocalRing):
+            raise NotImplementedError(
+                "ckpt= on a ProcessGroupRing (one process per shard) waits "
+                "for the multi-card work (ROADMAP.md, Queue 1 item 8): a "
+                "checkpoint is written by one process that holds every "
+                "shard")
+        mgr = ckpt if hasattr(ckpt, "save") else CheckpointManager(str(ckpt))
+    rec = recovery if recovery is not None else FT.RecoveryConfig()
+    n_stages = mesh.shape["model"]
+    links = _sentinel_links(mesh)
+    dp_total = links // n_stages
+    dev = ring.device
+
+    def ft_step(bits):
+        k = ("sentinel", bits)
+        if k not in step_cache:
+            pc, qc = codecs_for(bits)
+            step_cache[k] = make_distributed_step(
+                mesh, L, n_classes, config, overlap=overlap, p_codec=pc,
+                q_codec=qc, health=True, faults=faults, ring=ring)[0]
+        return step_cache[k]
+
+    def prime_good(bits, st):
+        pc, qc = codecs_for(bits)
+        return make_sentinel_primer(mesh, pc, qc, ring=ring)(st.q, st.u,
+                                                             st.p)
+
+    def prime_fly(bits, st, seqno):
+        return make_overlap_primer(mesh, codecs_for(bits)[1], sentinel=True,
+                                   ring=ring)(st.q, st.u, seqno)
+
+    def charge_pair(it, old_bits, suffix):
+        # a q/u pair (and its headers) that crossed the link unconsumed
+        _record_qu_pair(ledger, it, mesh, L, V, h, *codecs_for(old_bits),
+                        suffix)
+        for en in ("q_fwd/", "u_fwd/"):
+            ledger.record(it, en + suffix, "header", 2 * links, 32,
+                          payload_bytes=0,
+                          wire_bytes=FT.SENTINEL_HEADER_BYTES * links)
+
+    state0 = state
+    ctl_state0 = controller.state_dict() if controller is not None else None
+    fault_counts = {en: {"injected": 0, "detected": 0, "recovered": 0}
+                    for en in FT.EDGES}
+    ft_trace = []
+    n_rb = 0
+    e, tick = 0, 0
+    prev_obj = float("inf")
+    stage_res = 0.0
+    good, inflight, cur_bits = None, None, _UNSET
+
+    def _restore_latest(with_tick: bool):
+        nonlocal state, e, tick, prev_obj, stage_res
+        restored, manifest = mgr.restore(like=state)
+        state = shard_stack(StackState(*restored), ring)
+        ex = manifest.get("extra") or {}
+        e = int(ex.get("iteration", 0))
+        prev_obj = float(ex.get("prev_obj", float("inf")))
+        stage_res = float(ex.get("residual", 0.0))
+        if with_tick:
+            # a resume continues the plan clock; an in-run rollback NEVER
+            # rewinds it (faults are transient wire events)
+            tick = int(ex.get("tick", tick))
+        if controller is not None and ex.get("controller"):
+            controller.load_state_dict(ex["controller"])
+        del hist["objective"][e:]
+        del hist["residual"][e:]
+
+    if resume and mgr is not None and mgr.latest_step() is not None:
+        _restore_latest(with_tick=True)
+
+    def _save():
+        extra = {"iteration": e, "tick": tick, "prev_obj": prev_obj,
+                 "residual": stage_res,
+                 "controller": (controller.state_dict()
+                                if controller is not None else None)}
+        if ledger is not None:
+            extra["ledger"] = ledger.summary()
+        mgr.save(e, gather_stack(state, ring), extra=extra)
+
+    while e < epochs:
+        if controller is not None:
+            (bits,) = controller.assign([stage_res], e)
+            hist["schedules"].append(bits)
+        else:
+            bits = None
+        step = ft_step(bits)
+        p_codec, q_codec = codecs_for(bits)
+        if good is None or bits != cur_bits:
+            if overlap and inflight is not None and ledger is not None:
+                charge_pair(e, cur_bits, "dropped")
+            good = prime_good(bits, state)
+            inflight = prime_fly(bits, state, tick - 1) if overlap else None
+            cur_bits = bits
+        ctl = (faults.controls(tick, n_stages, prev_obj=prev_obj,
+                               device=dev)
+               if faults is not None
+               else FT.null_controls(n_stages, seqno=tick,
+                                     prev_obj=prev_obj, device=dev))
+        carry = ((state, good), inflight) if overlap else (state, good)
+        out, m = step(carry, *data, ctl)
+        if overlap:
+            (new_state, new_good), new_inflight = out
+        else:
+            (new_state, new_good), new_inflight = out, None
+        row = _health_row(m)                 # the iteration's one host read
+        wire_bad = [int(x) for x in row[:3]]
+        flags = dict(zip(HEALTH_FLAGS, (bool(x) for x in row[3:9])))
+        healthy = (all(flags[k] for k in HEALTH_FLAGS[:5])
+                   and not flags["objective_spike"])
+        # -- fault accounting (every attempt, healthy or not) --------------
+        if faults is not None:
+            for (en, s_, kind) in faults.events(tick, n_stages):
+                ft_trace.append((tick, en, int(s_), kind))
+                # one event corrupts that link's slab on EVERY data shard
+                fault_counts[en]["injected"] += dp_total
+                if ledger is not None:
+                    ledger.record_fault(tick, en, "injected", dp_total,
+                                        detail=kind)
+        for en, bad in zip(FT.EDGES, wire_bad):
+            if bad:
+                # every failed verdict substituted the last good slab
+                fault_counts[en]["detected"] += bad
+                fault_counts[en]["recovered"] += bad
+                if ledger is not None:
+                    ledger.record_fault(tick, en, "detected", bad)
+                    ledger.record_fault(tick, en, "recovered", bad)
+        if ledger is not None:
+            # the attempt's bytes moved whether or not it is accepted
+            _record_ring_span(ledger, e, 1, mesh, L, V, h, p_codec, q_codec)
+            _record_sentinel_headers(ledger, e, 1, mesh)
+        tick += 1
+        if healthy:
+            state, good, inflight = new_state, new_good, new_inflight
+            prev_obj, stage_res = float(row[9]), float(row[10])
+            hist["objective"].append(prev_obj)
+            hist["residual"].append(stage_res)
+            e += 1
+            if mgr is not None and ckpt_every and e % ckpt_every == 0:
+                _save()
+        else:
+            n_rb += 1
+            if ledger is not None:
+                ledger.record_fault(tick - 1, "step", "rolled_back", 1)
+            if n_rb > rec.max_rollbacks:
+                raise RuntimeError(
+                    f"distributed_train: {n_rb} rollbacks exceeded "
+                    f"max_rollbacks={rec.max_rollbacks}: persistent "
+                    "divergence, not transient faults")
+            if overlap and ledger is not None:
+                # the failed attempt's carried pair is discarded
+                charge_pair(e, cur_bits, "dropped")
+            if mgr is not None and mgr.latest_step() is not None:
+                _restore_latest(with_tick=False)
+            else:
+                state = state0
+                e = 0
+                prev_obj = float("inf")
+                stage_res = 0.0
+                del hist["objective"][:]
+                del hist["residual"][:]
+                if controller is not None and ctl_state0 is not None:
+                    controller.load_state_dict(ctl_state0)
+            if controller is not None:
+                controller.force_widest(e, rec.cooldown)
+            good, inflight, cur_bits = None, None, _UNSET
+
+    if overlap and ledger is not None and cur_bits is not _UNSET:
+        # the tail pair still in flight in the carry at the end
+        charge_pair(epochs, cur_bits, "inflight")
+    hist["faults"] = {
+        "per_edge": fault_counts,
+        "injected": sum(c["injected"] for c in fault_counts.values()),
+        "detected": sum(c["detected"] for c in fault_counts.values()),
+        "recovered": sum(c["recovered"] for c in fault_counts.values()),
+        "rolled_back": n_rb,
+        "ticks": tick,
+        "trace": ft_trace,
+    }
+    return state, hist
 
 
 def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
@@ -563,16 +954,42 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
     consumed is charged too (``*/inflight`` at the end, ``*/dropped`` on a
     schedule change).
 
-    ``faults``, ``health``, ``ckpt``, ``ckpt_every``, ``resume``,
-    ``recovery`` and ``overlap="replay"`` raise: they come with later
-    slices of the port.
+    Fault tolerance (any of ``faults`` / ``health=True`` / ``ckpt``)
+    switches to the SENTINEL loop: every iteration runs a ``health=True``
+    step (integrity headers, last-good substitution, finite/spike
+    sentinels; :mod:`repro_torch.comm.faults`), ``faults`` injects its
+    deterministic chaos plan, and an UNHEALTHY iteration (non-finite state
+    or metrics, or an objective spike: what undetected corruption causes)
+    is rolled back to the latest checkpoint (or the initial state when
+    there is none), the good-slab and overlap carries re-primed and
+    :meth:`BitWidthController.force_widest` held for
+    ``recovery.cooldown`` control steps; more than
+    ``recovery.max_rollbacks`` rollbacks raise. ``ckpt`` is a
+    :class:`repro_torch.ckpt.manager.CheckpointManager` or a directory;
+    ``ckpt_every=k`` saves atomically every k accepted iterations (the
+    global stack, :func:`gather_stack`, plus iteration, plan tick,
+    objective, controller state and ledger rollup in the manifest), and
+    ``resume=True`` restores the latest checkpoint first, through this
+    ring's layout, so resuming onto another mesh is elastic. The plan tick
+    advances every attempted iteration and is never rewound by a rollback;
+    a resume continues it. ``hist["faults"]`` accounts every injected event
+    (re-enumerated from the plan) against detected and recovered verdicts
+    and rollbacks; the ledger gains per-edge fault counts and the header
+    bytes. Not with ``mixed_width=True``; ``ckpt`` not on a
+    ``ProcessGroupRing``.
+
+    ``overlap="replay"`` raises: it comes with the analysis slice.
     """
     if overlap == "replay":
         raise _not_yet('overlap="replay"', ANALYSIS_SLICE)
-    if (faults is not None or health or ckpt is not None or ckpt_every
-            or resume or recovery is not None):
-        raise _not_yet("faults=/health=/ckpt=/resume=/recovery=",
-                       FAULT_SLICE)
+    ft_mode = faults is not None or bool(health) or ckpt is not None
+    if (resume or ckpt_every) and ckpt is None:
+        raise ValueError("resume=/ckpt_every= need ckpt= (a "
+                         "CheckpointManager or a directory path)")
+    if ft_mode and mixed_width:
+        raise NotImplementedError(
+            "mixed_width is not supported with faults/health/ckpt yet: the "
+            "fault-tolerant loop drives the uniform-codec step family")
     overlap = bool(overlap)
     V, h = Xp.shape
     ring = LocalRing(mesh, Xp.device) if ring is None else ring
@@ -608,7 +1025,14 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
         hist["objective"].append(float(m["objective"]))
         hist["residual"].append(float(m["residual"]))
 
-    if mixed_width:
+    if ft_mode:
+        state, hist = _ft_train_loop(
+            mesh=mesh, ring=ring, state=state, data=data, L=L, V=V, h=h,
+            n_classes=n_classes, config=config, epochs=epochs, hist=hist,
+            ledger=ledger, controller=controller, codecs_for=codecs_for,
+            step_cache=step_cache, overlap=overlap, faults=faults, ckpt=ckpt,
+            ckpt_every=ckpt_every, resume=resume, recovery=recovery)
+    elif mixed_width:
         if controller is None or grids_by_bits is None:
             raise ValueError("mixed_width needs a controller and "
                              "grids_by_bits")

@@ -406,27 +406,46 @@ def test_layouts_round_trip_and_data_shard_zero_is_read():
                        stack[5, 4:])
 
 
-def test_unported_options_raise_and_name_their_slice():
+def test_unported_options_raise_and_name_their_slice(tmp_path):
+    """What the port still refuses: the replay cost model (the analysis
+    slice), the mixed-width wire under fault tolerance (as the reference
+    refuses it) and checkpoints of a ProcessGroupRing (the multi-card
+    work)."""
+    import torch.distributed as dist
+    from repro_torch.comm.faults import FaultPlan
+    from repro_torch.parallel.ring import ProcessGroupRing
     Xp, ds = _tiny_problem()
     mesh = StageMesh(1, 2)
     cfg = ADMMConfig()
     args = (mesh, 0, Xp, ds.labels, ds.masks, 4, ds.n_classes, cfg, 1)
-    for kw in (dict(health=True), dict(faults=object()), dict(ckpt="x"),
-               dict(resume=True), dict(ckpt_every=2)):
-        with pytest.raises(NotImplementedError, match="fault-tolerance"):
-            SP.distributed_train(*args, **kw)
     with pytest.raises(NotImplementedError, match="analysis"):
         SP.distributed_train(*args, overlap="replay")
     for fn in (SP.step_program_plan, SP.trace_step_dag,
                SP.choose_overlap_for, SP.step_cost_model):
         with pytest.raises(NotImplementedError, match="analysis"):
             fn(mesh, 4, ds.n_classes, cfg)
-    with pytest.raises(NotImplementedError, match="fault-tolerance"):
-        SP.make_distributed_step(mesh, 4, ds.n_classes, cfg, health=True,
-                                 ring=LocalRing(mesh, "cpu"))
-    with pytest.raises(NotImplementedError, match="fault-tolerance"):
-        SP.make_overlap_primer(mesh, sentinel=True,
-                               ring=LocalRing(mesh, "cpu"))
+    grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8)}
+    for kw in (dict(health=True), dict(faults=FaultPlan(seed=1)),
+               dict(ckpt=str(tmp_path / "ck"))):
+        with pytest.raises(NotImplementedError, match="mixed_width"):
+            SP.distributed_train(
+                *args, mixed_width=True, grids_by_bits=grids,
+                controller=BitWidthController(
+                    stage_ring_edges(2, Xp.shape[0], Xp.shape[1]),
+                    ControllerConfig(**MIXED)), **kw)
+    for kw in (dict(resume=True), dict(ckpt_every=2)):
+        with pytest.raises(ValueError, match="need ckpt"):
+            SP.distributed_train(*args, **kw)
+    dist.init_process_group("gloo", init_method="file://" + str(
+        tmp_path / "pg"), rank=0, world_size=1)
+    try:
+        one = StageMesh(1, 1)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SP.distributed_train(one, 0, Xp, ds.labels, ds.masks, 4,
+                                 ds.n_classes, cfg, 1, ckpt=str(tmp_path),
+                                 ring=ProcessGroupRing(one, "cpu"))
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="replaces"):
         SP.make_distributed_step(
             mesh, 4, ds.n_classes, cfg, ring=LocalRing(mesh, "cpu"),
@@ -484,3 +503,76 @@ def test_cuda_ring_with_two_layers_per_stage_matches_plain(cuda, wire):
             assert counts["pack_codes"] and counts["unpack_codes"]
     np.testing.assert_allclose(runs[0][1]["objective"],
                                runs[1][1]["objective"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_sentinel_ring_flips_the_bits_the_cpu_flips(cuda):
+    """Mesh (2, 2) with L = 4 (two layers per stage), G-Q under a fault plan
+    with link flips, drops and sneaky flips, overlapped: through the kernels
+    on the card and the plain path on the CPU, the same fault accounting
+    and ledger counts, the objectives at rtol 1e-3; and one tick's flips of
+    a ring payload on both devices (the host-drawn positions), bit for bit,
+    with equal headers."""
+    from repro_torch.comm import faults as F
+    Xp, ds = _tiny_problem()
+    cfg = ADMMConfig(nu=1e-2, rho=1.0, quantize_p=True, quantize_q=True,
+                     grid=uniform_grid(8, -2.0, 6.0))
+    plan = F.FaultPlan(seed=5, flip_rate=0.3, drop_rate=0.1,
+                       sneaky_rate=0.1, flips_per_event=3)
+    runs = {}
+    for dev in ("cpu", cuda):
+        led = CommLedger()
+        _, h = SP.distributed_train(
+            StageMesh(2, 2), 3, Xp.to(dev), ds.labels.to(dev),
+            {"train": ds.masks["train"].to(dev)}, 4, ds.n_classes, cfg, 6,
+            faults=plan, ledger=led, overlap=True)
+        runs[str(dev)] = (h, led)
+    (hc, lc), (hg, lg) = runs["cpu"], runs[str(cuda)]
+    assert hc["faults"] == hg["faults"]
+    assert hc["faults"]["detected"] > 0
+    assert lc.fault_counts() == lg.fault_counts()
+    np.testing.assert_allclose(hg["objective"], hc["objective"], rtol=1e-3)
+    x = torch.randn((2, 2, 1) + tuple(Xp.shape),
+                    generator=torch.Generator().manual_seed(0))
+    ctl = plan.controls(3, 2, device="cpu")
+    flipped = {}
+    for dev in ("cpu", cuda):
+        c = F.FaultControls(*(t.to(dev) for t in ctl))
+        bad = F.flip_bits(x.to(dev), c.draws[1, :, 1][None],
+                          torch.ones((1, 2), device=dev), batch_dims=2)
+        flipped[str(dev)] = (bad.cpu(), F.checksum_header(
+            bad, c.seqno, batch_dims=2).cpu())
+    assert torch.equal(flipped["cpu"][0].view(torch.int32),
+                       flipped[str(cuda)][0].view(torch.int32))
+    assert not torch.equal(flipped["cpu"][0].view(torch.int32),
+                           x.view(torch.int32))
+    assert torch.equal(flipped["cpu"][1], flipped[str(cuda)][1])
+    # the checksum's int32 sum wraps on the card as numpy's exact one does
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 2, 100003),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(1))
+    want = ((words.numpy().astype(np.int64).sum(-1) + 2 ** 31) % 2 ** 32
+            - 2 ** 31).astype(np.int32)
+    assert np.array_equal(F.payload_checksum(words.to(cuda), 2).cpu().numpy(),
+                          want)
+    # uint16 containers widen (zero-extend) on the card as on the CPU
+    u16 = (words & 0xFFFF).to(torch.uint16)
+    want16 = ((words.numpy().astype(np.int64) & 0xFFFF).sum(-1) + 2 ** 31) \
+        % 2 ** 32 - 2 ** 31
+    for dev in ("cpu", cuda):
+        assert np.array_equal(F.payload_checksum(u16.to(dev), 2).cpu()
+                              .numpy(), want16.astype(np.int32)), dev
+    # the finite sentinels see a NaN and an infinity on the card
+    mesh = StageMesh(1, 2)
+    ring = LocalRing(mesh, cuda)
+    st = SP.shard_stack(SP.init_stack(3, Xp.to(cuda), 4, cfg), ring)
+    st.W[0, 0, 0, 0, 0] = float("nan")
+    st.z[0, 1, 1, 0, 0] = float("inf")
+    data = [ring.to_local(x.to(cuda), "rows")
+            for x in (Xp, ds.labels, ds.masks["train"])]
+    step, _ = SP.make_distributed_step(mesh, 4, ds.n_classes, cfg,
+                                       health=True, ring=ring)
+    good = SP.make_sentinel_primer(mesh, ring=ring)(st.q, st.u, st.p)
+    _, m = step((st, good), *data, F.null_controls(2, device=cuda))
+    assert not bool(m["health"]["W_finite"])
+    assert not bool(m["health"]["residual_finite"])
