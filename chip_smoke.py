@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out FILE.json]
+    python3 chip_smoke.py --fista-parent OTHER_TREE/.../csrc/fista_zlast.cu
 
 Run from the repository root on a host with a CUDA card, the CUDA toolkit
 (``nvcc``) and PyTorch built for CUDA. Phases, in order; any failure raises
@@ -16,6 +17,12 @@ and the script exits non-zero without printing a result:
    kernel also by the device time its launches take (``device_ms``,
    torch.profiler), which leaves out the host's gaps that set the event
    time of the smallest kernels.
+   ``fista_zlast`` also runs at coauthor_cs's and ogbn_arxiv's last
+   layers ([18333, 15], [169343, 40]) and ogbn_arxiv's ring last layer
+   ([169343, 1000], 40 classes), from ``graph.datasets.TABLE_II``; every
+   case must give the same bits on a second call, and the two [V, C]
+   cases print the launch floor (the device time of a one-element
+   ``torch.zeros`` fill) beside the bound.
 3. Train pdADMM-G on cora at 10×1000 for a few iterations through
    ``repro_torch.core.pdadmm.train`` with every launch counter set to 0
    just before; its four kernels must have launched, the objective must be
@@ -95,12 +102,18 @@ and the script exits non-zero without printing a result:
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
 
+With ``--fista-parent`` the script builds that file alone (another tree's
+``fista_zlast.cu``, e.g. from a ``git archive`` of the parent commit) and
+only times it against this tree's kernel at phase 2's six ``fista_zlast``
+shapes, in turns (parent, this, this, parent), by device time and by
+events, after checking the two against each other.
+
 Tolerances (f32 on both sides, sums in another order): matmul kernels
 max|kernel − plain| ≤ 1e-5·max|plain|; backtrack_resnorm within rtol 1e-5
 of the plain value per layer; fista_zlast atol 1e-5 + rtol 1e-5 (expf
-against torch's exp, ulps over 16 steps); relu_zupdate within 1e-6
-relative (IEEE /3 in the kernel, a reciprocal multiply in PyTorch's CUDA
-division by a scalar), and where the two branch objectives tie to 1e-5,
+against torch's exp and the row sums in another order, ulps over 16
+steps); relu_zupdate within 1e-6 relative (IEEE /3 in the kernel, a
+reciprocal multiply in PyTorch's CUDA division by a scalar), and where the two branch objectives tie to 1e-5,
 equal objective values; the grid kernels bitwise (the same arithmetic);
 fista_zlast on rows wider than the classes: the class columns as above, the
 proximal columns bitwise; pack_codes / unpack_codes bitwise (the wire
@@ -154,6 +167,11 @@ MATMUL_REL_TOL = 1e-5
 RESNORM_RTOL = 1e-5
 FISTA_ATOL = 1e-5
 FISTA_RTOL = 1e-5
+FISTA_ITERS = 15
+# fista_zlast beyond cora, from the paper's Table II: (dataset, row width;
+# None = the classes alone, a one-host last layer)
+FISTA_TABLE_CASES = (("coauthor_cs", None), ("ogbn_arxiv", None),
+                     ("ogbn_arxiv", 1000))
 TRAJ_RTOL = 1e-3
 EPOCHS = 5          # iterations of each training run (the reference trains 200)
 MAX_DOUBLINGS = 12  # the p-update's backtracking trials (subproblems.update_p)
@@ -236,22 +254,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
     """Device time of one call: the self time of every kernel it launches,
     summed by torch.profiler over ``iters`` calls. Unlike ``time_ms`` it
     leaves out the gaps where the device waits for the host, which set
-    the event time of the smallest kernels."""
+    the event time of the smallest kernels. Every call launches a kernel,
+    so a trace that holds fewer than ``iters`` kernels lost some (the
+    profiler has been seen to drop them) and is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+        caught = sum(ev.count for ev in kernels)
+        if caught >= iters:
+            return sum(ev.self_device_time_total
+                       for ev in kernels) / 1e3 / iters
+        print(f"  device_ms: the trace holds {caught} kernels for {iters} "
+              f"calls; tracing again", flush=True)
+    raise AssertionError(f"device_ms: {tries} traces lost kernels")
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
@@ -368,6 +396,163 @@ def zupdate_check_for(a, q, z0):
     return check
 
 
+def launch_floor_ms(dev) -> float:
+    """Device time of the smallest launch: a one-element torch.zeros fill."""
+    return device_ms(lambda: torch.zeros(1, device=dev))
+
+
+def fista_work(nr: int, w: int, nc: int) -> tuple:
+    """(bytes, flops) of one z_L solve on [nr, w] with nc classes: a, z_old
+    read and z_L written once, labels and mask; 16 flops a class column and
+    step; a proximal column 4 in the first step and 7 in each later one
+    (y = z + m(z − z₋), g = ν(y − a), z⁺ = y − step·g, each rounded)."""
+    steps = FISTA_ITERS + 1
+    return (4 * (3 * nr * w + 2 * nr),
+            nr * (16 * nc * steps + (w - nc) * (4 + 7 * (steps - 1))))
+
+
+def fista_inputs(ds, gen, C: int, h: int):
+    """The z_L solves, one at a time: cora's last layer [V, C] and the
+    ring's head-folded [V, h] and [10 V, h] (cora's labels and train mask),
+    then coauthor_cs's and ogbn_arxiv's last layers [V, C] and ogbn_arxiv's
+    ring last layer [V, h] (V, C from ``graph.datasets.TABLE_II``; labels
+    and a train mask of the table's size drawn on the card from ``gen``).
+    Yields (label, a, z_old, labels, mask, classes)."""
+    from repro_torch.graph.datasets import TABLE_II
+    dev = ds.labels.device
+    steps = FISTA_ITERS + 1
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 3.0
+
+    V = ds.labels.shape[0]
+    mask = ds.masks["train"]
+    yield f"[{V},{C}] x{steps} steps", rand(V, C), rand(V, C), ds.labels, \
+        mask, C
+    for nr in (V, STAGES * V):
+        yield (f"[{nr},{h}] {C} classes x{steps} steps", rand(nr, h),
+               rand(nr, h), ds.labels.repeat(nr // V), mask.repeat(nr // V), C)
+    for name, w in FISTA_TABLE_CASES:
+        nr, _, nc, _, n_tr = TABLE_II[name][:5]
+        w = nc if w is None else w
+        lab = torch.randint(0, nc, (nr,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        msk = (torch.rand(nr, generator=gen, device=dev) < n_tr / nr).float()
+        yield (f"[{nr},{w}] {nc} classes x{steps} steps ({name})",
+               rand(nr, w), rand(nr, w), lab, msk, nc)
+
+
+def fista_rows(ds, gen, C: int, h: int, nu: float) -> list:
+    """``case`` for fista_zlast at every ``fista_inputs`` shape, each also
+    called twice more for the same bits; the [V, C] rows carry the launch
+    floor."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fista_zlast import fista_zlast
+    print("fista_zlast:", flush=True)
+    floor_ms = launch_floor_ms(ds.labels.device)
+    print(f"  launch floor (device ms of a one-element torch.zeros fill): "
+          f"{floor_ms:.4f}", flush=True)
+    rows = []
+    for label, a, z0, lab, msk, nc in fista_inputs(ds, gen, C, h):
+        nr, w = a.shape
+
+        def kern(a=a, z0=z0, lab=lab, msk=msk, nc=nc):
+            return fista_zlast(a, z0, lab, msk, nu=nu, n_iters=FISTA_ITERS,
+                               n_classes=nc)
+        row = case(
+            label, kern,
+            lambda a=a, z0=z0, lab=lab, msk=msk, nc=nc: ref.fista_zlast_ref(
+                a, z0, lab, msk, nu=nu, n_iters=FISTA_ITERS, n_classes=nc),
+            None, *fista_work(nr, w, nc),
+            fista_check if w == nc else fista_wide_check(nc))
+        if not torch.equal(kern(), kern()):
+            raise AssertionError(f"fista_zlast {label}: a second call gave "
+                                 f"other bits")
+        row["repeat_bitwise"] = True
+        if w == nc:
+            row["launch_floor_ms"] = floor_ms
+        rows.append(row)
+    return rows
+
+
+def fista_entry(lib, nu: float):
+    """A caller of ``lib``'s ``fista_zlast_f32`` (the C entry point every
+    version of the kernel exports) as the port's wrapper calls it, with no
+    launch count: the same host path for each library timed."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fista_zlast import momentum_schedule
+    fn = lib.fista_zlast_f32
+    fn.argtypes = build.SIGNATURES["fista_zlast_f32"]
+    fn.restype = ctypes.c_int
+    moms = momentum_schedule(FISTA_ITERS)
+    moms_c = (ctypes.c_float * len(moms))(*moms)
+
+    def call(a, z0, lab, msk, nc):
+        out = torch.empty_like(a)
+        build.check(fn(a.data_ptr(), z0.data_ptr(), lab.data_ptr(),
+                       msk.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
+                       nc, moms_c, len(moms), 1.0 / (1.0 + nu), nu,
+                       build.stream_handle(a)), "fista_zlast_f32")
+        return out
+    return call
+
+
+def build_one(src, out_dir) -> str:
+    """``src`` alone (a plain-C-interface CUDA source) built as the port's
+    build builds each source, into ``out_dir``; ptxas's report printed."""
+    from repro_torch.kernels import build
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "lib" + os.path.basename(src)[:-3] + ".so")
+    res = subprocess.run([build.find_nvcc(), *build.ARCH, *build.CFLAGS,
+                          "-shared", "-o", lib, src], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas (parent):", line.strip())
+    return lib
+
+
+def fista_ab(parent_src, ds, nu, h) -> list:
+    """fista_zlast from ``parent_src`` (another tree's ``fista_zlast.cu``)
+    against this tree's, in turns (parent, this, this, parent) at every
+    ``fista_inputs`` shape, by device time (``device_ms``) and by CUDA
+    events; each pair's outputs checked against each other (class columns
+    at the FISTA tolerance, proximal columns bitwise)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    lib = build_one(os.path.abspath(parent_src),
+                    str(build.BUILD_ROOT.parent / "fista_parent"))
+    versions = {"parent": fista_entry(ctypes.CDLL(lib), nu),
+                "this": fista_entry(build.library(), nu)}
+    gen = torch.Generator(device=ds.labels.device).manual_seed(1)
+    C = ds.n_classes
+    out = []
+    for label, a, z0, lab, msk, nc in fista_inputs(ds, gen, C, h):
+        runs = {k: (lambda f=f: f(a, z0, lab, msk, nc))
+                for k, f in versions.items()}
+        got, want = runs["this"](), runs["parent"]()
+        torch.cuda.synchronize()
+        (fista_check if a.shape[1] == nc else fista_wide_check(nc))(
+            got, want, float((got - want).abs().max()))
+        del got, want
+        r = {"shape": label, "device_ms": {}, "ms": {}}
+        for k in ("parent", "this", "this", "parent"):
+            r["device_ms"].setdefault(k, []).append(device_ms(runs[k]))
+            r["ms"].setdefault(k, []).append(time_ms(runs[k]))
+        r["bound_ms"] = bound(*fista_work(*a.shape, nc))[0]
+        print(f"  {label}: device ms parent {r['device_ms']['parent']} this "
+              f"{r['device_ms']['this']}; events parent {r['ms']['parent']} "
+              f"this {r['ms']['this']}; bound {r['bound_ms']:.4f}",
+              flush=True)
+        out.append(r)
+    return out
+
+
 def kernel_phase(X, ds, dims, nu, rho, grid):
     from repro_torch.comm.codecs import _body_bytes
     from repro_torch.kernels import ref
@@ -377,7 +562,6 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     from repro_torch.kernels.admm_pgrad import route as pgrad_route
     from repro_torch.kernels.backtrack_phi import backtrack_resnorm
     from repro_torch.kernels.backtrack_phi import route as resnorm_route
-    from repro_torch.kernels.fista_zlast import fista_zlast, momentum_schedule
     from repro_torch.kernels.fused_linear import NARROW_N as NARROW
     from repro_torch.kernels.fused_linear import fused_linear
     from repro_torch.kernels.relu_zupdate import relu_zupdate
@@ -462,31 +646,7 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             lambda a=a, q=q, z0=z0: ref.relu_zupdate_ref(a, q, z0), None,
             16 * n, 27 * n, zupdate_check_for(a, q, z0)))
 
-    print("fista_zlast:", flush=True)
-    a, z0 = rand(V, C, scale=3.0), rand(V, C, scale=3.0)
-    mask = ds.masks["train"]
-    n_iters = 15
-    steps = len(momentum_schedule(n_iters))
-    rows["fista_zlast"] = [case(
-        f"[{V},{C}] x{steps} steps",
-        lambda: fista_zlast(a, z0, ds.labels, mask, nu=nu, n_iters=n_iters,
-                            n_classes=C),
-        lambda: ref.fista_zlast_ref(a, z0, ds.labels, mask, nu=nu,
-                                    n_iters=n_iters),
-        None, 4 * (3 * V * C + 2 * V), steps * V * (12 * C + 4 * C),
-        fista_check)]
-    # the ring's head-folded last layer: rows of width h, C classes
-    for nr in (V, STAGES * V):
-        a, z0 = rand(nr, h, scale=3.0), rand(nr, h, scale=3.0)
-        lab, msk = ds.labels.repeat(nr // V), mask.repeat(nr // V)
-        rows["fista_zlast"].append(case(
-            f"[{nr},{h}] {C} classes x{steps} steps",
-            lambda a=a, z0=z0, lab=lab, msk=msk: fista_zlast(
-                a, z0, lab, msk, nu=nu, n_iters=n_iters, n_classes=C),
-            lambda a=a, z0=z0, lab=lab, msk=msk: ref.fista_zlast_ref(
-                a, z0, lab, msk, nu=nu, n_iters=n_iters, n_classes=C),
-            None, 4 * (3 * nr * h + 2 * nr),
-            steps * nr * (16 * C + 6 * (h - C)), fista_wide_check(C)))
+    rows["fista_zlast"] = fista_rows(ds, gen, C, h, nu)
 
     print("backtrack_resnorm:", flush=True)
     bt = []
@@ -1784,9 +1944,18 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def write_record(path, record) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the record here")
+    ap.add_argument("--fista-parent", default=None, metavar="FISTA_ZLAST_CU",
+                    help="only time another tree's fista_zlast.cu against "
+                         "this one's, in turns, at the kernel phase's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1822,6 +1991,15 @@ def main() -> int:
                        grid=uniform_grid(8, -2.0, 6.0))
     print(f"cora: V={X.shape[0]} X={tuple(X.shape)} dims={dims}", flush=True)
 
+    if args.fista_parent:
+        print("fista_zlast, parent against this tree:", flush=True)
+        record = {"card": card_line(), "launch_floor_ms": launch_floor_ms(
+            device), "fista_ab": fista_ab(args.fista_parent, ds, cfg.nu,
+                                          dims[1])}
+        print(record["card"])
+        if args.out:
+            write_record(args.out, record)
+        return 0
     rows = kernel_phase(X, ds, dims, cfg.nu, cfg.rho, cfg_q.grid)
     runs = {}
     state, runs["G"] = train_phase(X, ds, dims, cfg, EPOCHS, BASE_KERNELS,
@@ -1875,9 +2053,7 @@ def main() -> int:
     record = {"card": card, "build_s": t_build, "wall_s": wall,
               "sass_tensor_core": sass, "kernels": kernels, "train": runs}
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(record, f, indent=1)
+        write_record(args.out, record)
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):

@@ -4,22 +4,29 @@ Replaces ``repro/kernels/fista_zlast.py:fista_zlast`` / ``fista_step``
 (Pallas body ``_fista_step_kernel``), which the TPU path dispatches
 n_iters + 1 times. Source: ``csrc/fista_zlast.cu``.
 
-What bounds it on the H100: launch latency. At cora's [2485, 7] the solve
-reads about 0.2 MB and does about 6 Mflop over 16 steps — well under a
-microsecond of bytes or operations — so the cost is the launch itself. The
-distributed runtime's head-folded last layer [2485, 1000] (7 classes)
-reads and writes 30 MB: about 9 µs of bytes.
+What bounds it on the H100. At [V, C] (one host; C = 3..40 over the
+paper's Table II datasets) the solve reads 12 bytes per element once, well
+under a microsecond at cora's [2485, 7]: the launch and the 16 dependent
+steps, each an ``expf``, a division and two row reductions, set the time.
+At the distributed runtime's head-folded last layer [V, h] (h = 1000, C
+classes) almost every column is proximal: 12 bytes per element against
+109 separately rounded f32 operations over 16 steps, so the FP32
+instruction rate bounds it about as tightly as the bytes.
 
-Design: all n_iters + 1 steps inside one launch. The C class columns of a
-row belong to one thread, with z_prev, z_cur and a held in registers (C
-takes a template cap of 8, 16, 32 or 64; every Table II dataset has
-C ≤ 40). Columns at and beyond C only follow the proximal flow, which is
-elementwise: in the same launch one thread per element runs all steps in
-registers, with the plain version's roundings (bitwise equal to it). Rows
-are independent, so this computes the same iteration map as the TPU's
-per-step dispatches with one launch instead of 16. The momentum weights are
-data-independent and come from ``momentum_schedule`` on the host, passed by
-value.
+Design: all n_iters + 1 steps inside one launch. The class columns take a
+group of G lanes per row (G the smallest power of two ≥ C, at most 8; a
+lane of 8 holds ceil(C / 8) columns, 8 at 64 classes), each lane keeping
+z_prev, z_cur and a of its own columns in registers, with the row's max
+and sum reduced by warp shuffles inside the group in a fixed order
+(deterministic; not bitwise the plain version, whose sum runs in another
+order). The columns ≥ C follow only the proximal flow, which is
+elementwise: each thread runs all steps on one 16-byte chunk of a row
+(float4 loads and stores, a scalar head up to the row's first 16-byte
+boundary and a scalar tail), with the plain version's roundings, so they
+equal it bit for bit. Rows are independent, so this computes the same
+iteration map as the TPU's per-step dispatches with one launch instead of
+16. The momentum weights are data-independent and come from
+``momentum_schedule`` on the host, passed by value.
 """
 from __future__ import annotations
 

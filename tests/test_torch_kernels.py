@@ -154,7 +154,10 @@ def test_momentum_schedule_is_the_reference_schedule(jx):
 
 
 @pytest.mark.parametrize("n_iters", [0, 15])
-@pytest.mark.parametrize("width,n_classes", [(8, 8), (8, 5)])
+@pytest.mark.parametrize("width,n_classes", [
+    (8, 8), (8, 5),
+    (3, 3), (16, 15), (40, 40),      # pubmed's, coauthor_cs's, ogbn_arxiv's classes
+    (64, 7)])                        # head-folded: a row wider than its classes
 def test_fista_zlast_plain_matches_jax(jx, n_iters, width, n_classes):
     V = 128
     a, z0 = _np(4, (V, width), (V, width), scale=2.0)
@@ -664,22 +667,46 @@ def test_cuda_relu_zupdate_matches_plain(cuda, shape):
     _assert_zupdate_tie_tolerant(got, want, *arrays)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("width,n_classes,n_iters", [(7, 7, 15), (8, 5, 0),
-                                                     (40, 40, 15), (64, 33, 4)])
-def test_cuda_fista_zlast_matches_plain(cuda, width, n_classes, n_iters):
-    V = 300
-    a, z0 = _t(*_np(12, (V, width), (V, width), scale=2.0), device=cuda)
+def _fista_inputs(device, V, width, n_classes):
+    a, z0 = _t(*_np(12, (V, width), (V, width), scale=2.0), device=device)
     rng = np.random.default_rng(13)
-    labels = torch.from_numpy(rng.integers(0, n_classes, V).astype(np.int32)).to(cuda)
-    mask = torch.from_numpy((rng.random(V) < 0.6).astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, n_classes, V).astype(np.int32))
+    mask = torch.from_numpy((rng.random(V) < 0.6).astype(np.float32))
+    return a, z0, labels.to(device), mask.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,width,n_classes,n_iters", [
+    (300, 7, 7, 15), (300, 8, 5, 0), (300, 40, 40, 15), (300, 64, 33, 4),
+    (300, 3, 3, 15), (300, 15, 15, 15),      # lane groups of 4 and 16
+    (300, 1000, 7, 15),                      # the ring's head-folded layer
+    (300, 1001, 7, 15),                      # odd width: row starts drift
+    (300, 1000, 40, 15),                     # two columns a lane, wide rows
+    (70001, 8, 7, 15),                       # V above gridDim.y's 65535
+    (70001, 300, 7, 15)])                    # row slots run out: the grid strides
+def test_cuda_fista_zlast_matches_plain(cuda, V, width, n_classes, n_iters):
+    a, z0, labels, mask = _fista_inputs(cuda, V, width, n_classes)
     kw = dict(nu=0.01, n_iters=n_iters, n_classes=n_classes)
     got = cuda_fista_zlast(a, z0, labels, mask, **kw)
     want = tref.fista_zlast_ref(a, z0, labels, mask, **kw)
     torch.cuda.synchronize()
-    # expf and torch's exp differ by ulps; over 16 steps that is ~1e-6 of
-    # the value, so an absolute 1e-5 plus 1e-5 of the value
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # expf and torch's exp differ by ulps and the row sums run in another
+    # order; over 16 steps that is ~1e-6 of the value, so an absolute 1e-5
+    # plus 1e-5 of the value on the class columns
+    torch.testing.assert_close(got[:, :n_classes], want[:, :n_classes],
+                               rtol=1e-5, atol=1e-5)
+    # the proximal columns keep the plain version's roundings: bitwise
+    assert torch.equal(got[:, n_classes:], want[:, n_classes:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,width,n_classes", [(2485, 7, 7), (300, 1001, 40)])
+def test_cuda_fista_zlast_is_deterministic(cuda, V, width, n_classes):
+    """No atomics; the group's shuffle reductions run in one fixed order."""
+    a, z0, labels, mask = _fista_inputs(cuda, V, width, n_classes)
+    kw = dict(nu=0.01, n_iters=15, n_classes=n_classes)
+    assert torch.equal(cuda_fista_zlast(a, z0, labels, mask, **kw),
+                       cuda_fista_zlast(a, z0, labels, mask, **kw))
 
 
 @pytest.mark.cuda
