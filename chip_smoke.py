@@ -81,7 +81,25 @@ and the script exits non-zero without printing a result:
    Test accuracies of G, G-Q on the uniform grid and the paper's setting
    are printed side by side, and those of the two G-Q settings after the
    paper's 100 iterations.
-8. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
+8. ``baseline_phase``, the paper's comparison methods at cora 10×1000:
+   the kernels held against their plain versions at the shapes greedy
+   growth adds (the 5-layer stage's ×3 stack, its [4, V, h] and the
+   2-layer stage's [V, h] z-updates); ``core.greedy.greedy_train`` with
+   ``GAMLP.greedy_schedule`` (2, 5, 10) and ``GAMLP.epochs // 3`` iterations
+   a stage for pdADMM-G, and for pdADMM-G-Q with p (not q) on the paper's
+   Δ = {-1..20} and on ``calibrate_grid``'s 8-bit grid, each with every
+   launch count set to 0 just before (its kernels must launch; per stage
+   ms per iteration, test accuracy and launches) and against
+   ``use_kernels=False`` at rtol 1e-3 (stepwise from shared states where a
+   τ flips); ``core.gd_baseline.train_gd`` with GD, Adadelta, Adagrad and
+   Adam for 2 × ``GAMLP.epochs`` epochs at ``benchmarks/bench_accuracy.py``'s
+   learning rates (finite losses, ms per epoch, no port kernel launched);
+   block-pdADMM (``core.block_admm``) on 9 stacked relu(p @ W_l) blocks
+   [1, 2485, 1000] behind a seeded relu(X @ W_in), 5 iterations by the CE
+   route (one ``fista_zlast`` launch an iteration, 7 classes) against the
+   generic route (objectives at rtol 1e-4, z_last within 1e-4 × its max),
+   each route's ms per iteration; and the test accuracies side by side.
+9. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
    layers, d 2048, 32 query / 4 KV heads, bf16, seeded random weights):
    ``ModelBundle.prefill`` of 4 prompts of 2048 tokens with every launch
    count set to 0 just before (``flash_attention`` must launch exactly 22
@@ -98,7 +116,7 @@ and the script exits non-zero without printing a result:
    the 0.02 init), a profile of one prefill and one decode step, and
    ``ServingEngine`` answering 7 requests on 4 slots
    (``examples/serve_lm.py``'s), each with 12 tokens in the vocab.
-9. Print the wire bytes per iteration from the port's ledger (G, G-Q,
+10. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
 
@@ -205,6 +223,21 @@ FT_CHAOS = dict(seed=3, flip_rate=0.05, drop_rate=0.05)
 # carry a flip of bit 30 (the exponent's top bit), which sends a dual of
 # magnitude below 2 past 1e30 and so must trip the sentinels
 FT_SNEAKY = dict(seed=35, sneaky_rate=0.02, flips_per_event=6)
+# baseline_phase: the paper's comparison methods at cora 10x1000. The
+# backprop baselines train for twice the ADMM epochs and take the learning
+# rates of benchmarks/bench_accuracy.py (GD_METHODS); block-pdADMM stacks 9
+# relu(p @ W_l) blocks behind a seeded relu(X @ W_in)
+GD_METHODS = (("gd", 1e-1), ("adadelta", 1.0), ("adagrad", 1e-2),
+              ("adam", 1e-3))
+BLOCK_LAYERS = 9
+BLOCK_ITERS = 5
+BLOCK_OBJ_RTOL = 1e-4
+# z_last of the CE route (the fista_zlast kernel) against the generic route
+# (autograd's CE gradient in PyTorch), relative to max |z_last|: each solve
+# agrees to 1e-5 + 1e-5·|z| (FISTA_ATOL, FISTA_RTOL), and over 5 iterations
+# z_last feeds back only through its own next solve and the last block's
+# W-step, so 5 solves' worth of that, with room, is 1e-4
+BLOCK_Z_TOL = 1e-4
 SASS_KERNELS = ("flash", "fused_linear", "admm_pgrad", "resnorm_partials")
 # what the port's kernels' names hold (the grid kernels are
 # elementwise_kernel<..., Project | Encode<...> | Decode>), for the profiles
@@ -929,7 +962,9 @@ def accept_margin(state, args, cfg, layer: int, t: float) -> float:
     nu, rho = cfg.nu, cfg.rho
     g = sp.grad_p(p, W, b, z, qp, up, nu, rho)
     phi0 = sp.phi(p, W, b, z, qp, up, nu, rho)
-    x = cfg.grid.project((p - g / t).float()).double()
+    x = p - g / t
+    if cfg.quantize_p and cfg.grid is not None:
+        x = cfg.grid.project(x.float()).double()
     d = x - p
     u_val = phi0 + sp._dot(g, d) + 0.5 * t * sp._dot(d, d)
     phi_x = sp.phi(x, W, b, z, qp, up, nu, rho)
@@ -966,35 +1001,43 @@ def ms_per_iter(X, ds, config, state, n=5, **kw):
     return (time.perf_counter() - t) / n * 1e3
 
 
+def hold_step(s, args, cfg, it, flips):
+    """One iteration of both paths from the shared state ``s``: the
+    objective at rtol 1e-3 where τ agree on every layer, each τ flip
+    appended to ``flips`` with its accept-test margin. Returns (the kernel
+    path's new state, whether the objective was held)."""
+    from repro_torch.core import pdadmm
+    cfg_plain = dataclasses.replace(cfg, use_kernels=False)
+    sk, mk = pdadmm.iterate(s, *args, cfg)
+    sp_, mp = pdadmm.iterate(s, *args, cfg_plain)
+    tk = [float(t) for t in sk.tau]
+    tp = [float(t) for t in sp_.tau]
+    ok, op = float(mk["objective"]), float(mp["objective"])
+    differ = [l for l in range(1, len(tk)) if tk[l] != tp[l]]
+    for l in differ:
+        margin = accept_margin(s, args, cfg, l, min(tk[l], tp[l]))
+        flips.append({"iteration": it, "layer": l, "tau_kernels": tk[l],
+                      "tau_plain": tp[l], "margin": margin})
+        print(f"  τ flip: iteration {it} layer {l}: kernels {tk[l]:.6g} "
+              f"plain {tp[l]:.6g}; (φ−U−slack)/|U| at the smaller τ "
+              f"{margin:.3e}", flush=True)
+    if not math.isfinite(ok) or not math.isfinite(op):
+        raise AssertionError(f"objective not finite at {it}: {ok}, {op}")
+    if not differ:
+        np.testing.assert_allclose(ok, op, rtol=TRAJ_RTOL)
+    return sk, not differ
+
+
 def stepwise_check(X, ds, dims, cfg, epochs):
     """Both paths from one shared state (the kernel path's), one iteration
-    at a time: the objective at rtol 1e-3 wherever τ agree on every layer;
-    each τ flip printed with its accept-test margin."""
+    at a time (``hold_step``)."""
     from repro_torch.core import pdadmm
     args = (X, ds.labels, ds.masks["train"])
-    cfg_plain = dataclasses.replace(cfg, use_kernels=False)
     s = pdadmm.init_state(0, X, dims, cfg, device=X.device)
     flips, held = [], 0
     for it in range(epochs):
-        sk, mk = pdadmm.iterate(s, *args, cfg)
-        sp_, mp = pdadmm.iterate(s, *args, cfg_plain)
-        tk = [float(t) for t in sk.tau]
-        tp = [float(t) for t in sp_.tau]
-        ok, op = float(mk["objective"]), float(mp["objective"])
-        differ = [l for l in range(1, len(tk)) if tk[l] != tp[l]]
-        for l in differ:
-            margin = accept_margin(s, args, cfg, l, min(tk[l], tp[l]))
-            flips.append({"iteration": it, "layer": l, "tau_kernels": tk[l],
-                          "tau_plain": tp[l], "margin": margin})
-            print(f"  τ flip: iteration {it} layer {l}: kernels {tk[l]:.6g} "
-                  f"plain {tp[l]:.6g}; (φ−U−slack)/|U| at the smaller τ "
-                  f"{margin:.3e}", flush=True)
-        if not math.isfinite(ok) or not math.isfinite(op):
-            raise AssertionError(f"objective not finite at {it}: {ok}, {op}")
-        if not differ:
-            np.testing.assert_allclose(ok, op, rtol=TRAJ_RTOL)
-            held += 1
-        s = sk
+        s, ok = hold_step(s, args, cfg, it, flips)
+        held += ok
     return {"flips": flips, "iterations_held": held}
 
 
@@ -1685,6 +1728,328 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
     return out
 
 
+def held(name, kernel, plain, check) -> dict:
+    """One kernel call held against its plain version (no timing)."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    check(got, want, err)
+    print(f"  {name}: err {err:.3e}, held", flush=True)
+    return {"shape": name, "max_abs_err": err}
+
+
+def greedy_kernel_checks(X, h: int, nu: float, rho: float, grid) -> list:
+    """The kernels at the shapes greedy growth adds to those of
+    ``kernel_phase``: the 5-layer stage's stacked block (x3) and its four
+    hidden z-updates, and the 2-layer stage's single [V, h] z-update."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.admm_pgrad import admm_pgrad
+    from repro_torch.kernels.backtrack_phi import backtrack_resnorm
+    from repro_torch.kernels.fused_linear import fused_linear
+    from repro_torch.kernels.quantize_kernel import grid_project
+    from repro_torch.kernels.relu_zupdate import relu_zupdate
+
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    V, k = X.shape[0], 3
+    p, W, b, z = (rand(k, V, h).relu(), rand(k, h, h, scale=h ** -0.5),
+                  rand(k, h), rand(k, V, h))
+    u, q = rand(k, V, h), rand(k, V, h).relu()
+    d = rand(k, V, h, scale=0.05)
+    out = [
+        held(f"fused_linear residual x{k} [{V},{h}]@[{h},{h}]",
+             lambda: fused_linear(p, W, b, z, mode="residual"),
+             lambda: ref.fused_linear_ref(p, W, b, z, mode="residual"),
+             matmul_check),
+        held(f"admm_pgrad x{k} [{V},{h}]@[{h},{h}]ᵀ",
+             lambda: admm_pgrad(z, W, u, p, q, nu=nu, rho=rho),
+             lambda: ref.admm_pgrad_ref(z, W, u, p, q, nu=nu, rho=rho),
+             matmul_check),
+        held(f"backtrack_resnorm x{k} [{V},{h}]@[{h},{h}], all active",
+             lambda: backtrack_resnorm(z, d, W, None),
+             lambda: ref.backtrack_resnorm_ref(z, d, W, None), resnorm_check),
+        held(f"grid_project [{k},{V},{h}]",
+             lambda: grid_project(z * 3.0 + 2.0, grid),
+             lambda: ref.grid_project_ref(z * 3.0 + 2.0, grid),
+             bitwise_check)]
+    for shape in ((k + 1, V, h), (V, h)):
+        a, qz, z0 = rand(*shape), rand(*shape).relu(), rand(*shape)
+        out.append(held(
+            "relu_zupdate [" + ",".join(map(str, shape)) + "]",
+            lambda a=a, qz=qz, z0=z0: relu_zupdate(a, qz, z0),
+            lambda a=a, qz=qz, z0=z0: ref.relu_zupdate_ref(a, qz, z0),
+            zupdate_check_for(a, qz, z0)))
+    return out
+
+
+def greedy_stepwise(X, ds, h: int, cfg, schedule, epochs: int) -> dict:
+    """Greedy growth with both paths held from one shared state (the kernel
+    path's) one iteration at a time (``hold_step``), through each growth;
+    the state and noise are drawn as ``greedy_train`` draws them from seed
+    0, so this follows its kernel path's trajectory."""
+    from repro_torch.core import pdadmm
+    from repro_torch.core.greedy import grow
+    args = (X, ds.labels, ds.masks["train"])
+    gen = torch.Generator().manual_seed(0)
+    flips, held_n, it, s = [], 0, 0, None
+    for L in schedule:
+        dims = [X.shape[1]] + [h] * (L - 1) + [ds.n_classes]
+        if s is None:
+            s = pdadmm.init_state(gen, X, dims, cfg, device=X.device)
+        else:
+            s = grow(s, X, dims, cfg, [
+                torch.randn((h, h), generator=gen, dtype=torch.float32)
+                for _ in range(L - len(s.W))])
+        for _ in range(epochs):
+            s, ok = hold_step(s, args, cfg, it, flips)
+            held_n += ok
+            it += 1
+    return {"flips": flips, "iterations_held": held_n}
+
+
+def greedy_phase(X, ds, h: int, cfg, required, label) -> dict:
+    """``greedy_train`` at the paper's schedule through the kernels, with
+    every launch count set to 0 just before (per stage: the launches since
+    the last stage's end, ms per iteration, test accuracy), then with
+    ``use_kernels=False``; the objectives at rtol 1e-3, or stepwise from
+    shared states where a τ flips."""
+    from repro_torch.configs.gamlp_paper import GAMLP
+    from repro_torch.core.greedy import greedy_train
+    from repro_torch.kernels import ops
+    schedule, epochs = tuple(GAMLP.greedy_schedule), GAMLP.epochs // 3
+    marks = []
+
+    def stage_end(si, state):
+        marks.append(ops.launch_counts())
+
+    ops.reset_launch_counts()
+    state, hist = greedy_train(0, X, ds.labels, ds.masks, h, ds.n_classes,
+                               schedule, epochs, cfg, device=X.device,
+                               callback=stage_end)
+    counts = ops.launch_counts()
+    missing = [k for k in required if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: "
+                             f"{missing}")
+    obj = np.asarray(hist["objective"])
+    if obj.shape != (len(schedule) * epochs,) or not np.all(np.isfinite(obj)):
+        raise AssertionError(f"{label}: objective not finite: {obj}")
+    stages = []
+    prev = dict.fromkeys(counts, 0)
+    for si, L in enumerate(schedule):
+        per = {k: marks[si][k] - prev[k] for k in required}
+        prev = marks[si]
+        stages.append({
+            "layers": L, "test_acc": hist["test_acc"][si],
+            "val_acc": hist["val_acc"][si],
+            "ms_per_iter": hist["stage_seconds"][si] / epochs * 1e3,
+            "launches": per,
+            "launches_per_iter": {k: v / epochs for k, v in per.items()}})
+        print(f"{label}: stage {si} ({L} layers, {epochs} iterations): "
+              f"{stages[-1]['ms_per_iter']:.3f} ms per iteration, test "
+              f"accuracy {hist['test_acc'][si]:.4f}, launches {per}",
+              flush=True)
+
+    cfg_plain = dataclasses.replace(cfg, use_kernels=False)
+    _, hist_plain = greedy_train(0, X, ds.labels, ds.masks, h, ds.n_classes,
+                                 schedule, epochs, cfg_plain, device=X.device)
+    obj_plain = np.asarray(hist_plain["objective"])
+    run = {"schedule": list(schedule), "epochs_per_stage": epochs,
+           "launches": counts, "iterations": len(obj), "stages": stages,
+           "objective": obj.tolist(), "objective_plain": obj_plain.tolist(),
+           "test_acc": hist["test_acc"][-1],
+           "test_acc_plain": hist_plain["test_acc"][-1],
+           "ms_per_iter_plain": [t / epochs * 1e3
+                                 for t in hist_plain["stage_seconds"]],
+           # how much of the hidden activity survives p's grid: the largest
+           # hidden relu(z) and the share of nonzero entries of p[1:]
+           "hidden_relu_max": max(float(z.clamp(min=0).max())
+                                  for z in state.z[:-1]),
+           "p_nonzero": float(sum(int((p != 0).sum()) for p in state.p[1:])
+                              / sum(p.numel() for p in state.p[1:]))}
+    try:
+        np.testing.assert_allclose(obj, obj_plain, rtol=TRAJ_RTOL)
+        run["trajectory_check"] = f"rtol {TRAJ_RTOL} over {len(obj)} iterations"
+    except AssertionError as e:
+        print(f"  {label}: the trajectories part beyond rtol {TRAJ_RTOL} "
+              f"({str(e).splitlines()[-1]}); holding both paths from shared "
+              f"states instead", flush=True)
+        run["stepwise"] = greedy_stepwise(X, ds, h, cfg, schedule, epochs)
+        if not run["stepwise"]["flips"]:
+            raise AssertionError(f"{label}: the paths part with no τ flip")
+        run["trajectory_check"] = "stepwise from shared states"
+    print(f"  {label}: {run['trajectory_check']}; ms per iteration, plain "
+          f"path, per stage {run['ms_per_iter_plain']}; largest hidden "
+          f"relu(z) {run['hidden_relu_max']:.4g}, nonzero share of p "
+          f"{run['p_nonzero']:.4f}", flush=True)
+    return run
+
+
+def gd_phase(X, ds, dims) -> dict:
+    """The four backprop baselines, 2 x GAMLP.epochs epochs each from one
+    seeded init: ms per epoch (host clock, the run ends in a device sync),
+    finite losses, test accuracy; no port kernel launches."""
+    from repro_torch.configs.gamlp_paper import GAMLP
+    from repro_torch.core.gd_baseline import init_mlp, train_gd
+    from repro_torch.kernels import ops
+    epochs = 2 * GAMLP.epochs
+    out = {}
+    for method, lr in GD_METHODS:
+        params = init_mlp(0, dims, device=X.device)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = train_gd(0, X, ds.labels, ds.masks, dims, method, lr,
+                           epochs, device=X.device, params=params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / epochs * 1e3
+        loss = np.asarray(hist["loss"])
+        if loss.shape != (epochs,) or not np.all(np.isfinite(loss)):
+            raise AssertionError(f"{method}: loss not finite: {loss}")
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"{method}: port kernels launched {launched}")
+        out[method] = {"lr": lr, "epochs": epochs, "ms_per_epoch": ms,
+                       "loss_first": float(loss[0]),
+                       "loss_last": float(loss[-1]),
+                       "test_acc": hist["test_acc"], "val_acc": hist["val_acc"]}
+        print(f"{method} (lr {lr}): {epochs} epochs, {ms:.3f} ms per epoch, "
+              f"loss {loss[0]:.4f} -> {loss[-1]:.4f}, test accuracy "
+              f"{hist['test_acc']:.4f}", flush=True)
+    return out
+
+
+def block_phase(X, ds, h: int, nu: float, rho: float) -> dict:
+    """block-pdADMM at full width: BLOCK_LAYERS stacked relu(p @ W_l) blocks
+    on x0 = relu(X @ W_in), cora's labels and train mask, 7 classes;
+    BLOCK_ITERS iterations by the CE route (one ``fista_zlast`` launch an
+    iteration, on [V, h] rows with 7 classes) and by the generic route,
+    held against each other; then ms per iteration of each, in turns."""
+    from repro_torch.core.block_admm import init_block_state, make_block_iterate
+    from repro_torch.core.pdadmm import ADMMConfig
+    from repro_torch.kernels import ops
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    K0, C = X.shape[1], ds.n_classes
+    W_in = torch.randn((K0, h), generator=gen, device=dev) * (2.0 / K0) ** 0.5
+    W = torch.randn((BLOCK_LAYERS, h, h), generator=gen, device=dev) \
+        * (2.0 / h) ** 0.5
+    x0 = (X @ W_in).relu()[None]                      # [B 1, S V, h]
+    labels, mask = ds.labels[None], ds.masks["train"][None]
+
+    def block_fn(Wl, p):
+        return torch.clamp(p @ Wl, min=0.0)
+
+    def risk_fn(z):
+        zc = z.reshape(-1, h)[:, :C]
+        logp = torch.log_softmax(zc, dim=-1)
+        nll = -logp.gather(-1, labels.reshape(-1, 1).long())[:, 0]
+        return (nll * mask.reshape(-1)).sum()
+
+    cfg = ADMMConfig(nu=nu, rho=rho)
+    st0 = init_block_state(block_fn, W, x0, BLOCK_LAYERS, cfg, device=dev)
+    routes = {
+        "ce": make_block_iterate(block_fn, risk_fn, cfg,
+                                 fista_iters=FISTA_ITERS, labels=labels,
+                                 label_mask=mask, n_classes=C),
+        "generic": make_block_iterate(block_fn, risk_fn, cfg,
+                                      fista_iters=FISTA_ITERS)}
+
+    def run(it):
+        st, objs = st0, []
+        for _ in range(BLOCK_ITERS):
+            st, m = it(st, x0)
+            objs.append(m["objective"])
+        return st, [float(o) for o in torch.stack(objs).cpu()]
+
+    ops.reset_launch_counts()
+    st_ce, obj_ce = run(routes["ce"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st_gen, obj_gen = run(routes["generic"])
+    if counts["fista_zlast"] != BLOCK_ITERS:
+        raise AssertionError(f"block CE route: fista_zlast launched "
+                             f"{counts['fista_zlast']} times in {BLOCK_ITERS} "
+                             f"iterations")
+    if not (np.all(np.isfinite(obj_ce)) and np.all(np.isfinite(obj_gen))):
+        raise AssertionError(f"block objectives {obj_ce} / {obj_gen}")
+    np.testing.assert_allclose(obj_ce, obj_gen, rtol=BLOCK_OBJ_RTOL)
+    z_ce, z_gen = st_ce.z[-1], st_gen.z[-1]
+    z_err = float((z_ce - z_gen).abs().max())
+    z_tol = BLOCK_Z_TOL * float(z_gen.abs().max())
+    if not z_err <= z_tol:
+        raise AssertionError(f"block z_last: max |CE − generic| {z_err:.3e} "
+                             f"> {z_tol:.3e}")
+    samples = {"ce": [], "generic": []}
+    for name in ("ce", "generic", "generic", "ce"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(routes[name])
+        torch.cuda.synchronize()
+        samples[name].append((time.perf_counter() - t0) / BLOCK_ITERS * 1e3)
+    out = {"layers": BLOCK_LAYERS, "iterations": BLOCK_ITERS,
+           "shape": [BLOCK_LAYERS, 1, X.shape[0], h], "classes": C,
+           "launches": counts, "objective_ce": obj_ce,
+           "objective_generic": obj_gen, "z_last_max_abs_err": z_err,
+           "z_last_tol": z_tol,
+           "ms_per_iter_ce": float(np.mean(samples["ce"])),
+           "ms_per_iter_generic": float(np.mean(samples["generic"])),
+           "ms_samples": samples}
+    print(f"block-pdADMM ({BLOCK_LAYERS} blocks [{X.shape[0]}, {h}], {C} "
+          f"classes): objective CE {obj_ce}, generic {obj_gen}; z_last max "
+          f"|Δ| {z_err:.3e} (tolerance {z_tol:.3e}); fista_zlast launches "
+          f"{counts['fista_zlast']}; ms per iteration CE "
+          f"{out['ms_per_iter_ce']:.3f}, generic "
+          f"{out['ms_per_iter_generic']:.3f} ({samples})", flush=True)
+    return out
+
+
+def baseline_phase(X, ds, dims, cfg, runs) -> dict:
+    """The paper's comparison methods at cora 10x1000 (module docstring,
+    phase 8): the kernels at greedy growth's new shapes, greedy pdADMM-G,
+    greedy pdADMM-G-Q on the paper's grid and on an 8-bit calibrated grid,
+    the four backprop baselines, block-pdADMM's two routes, and the
+    accuracy table."""
+    from repro_torch.configs.gamlp_paper import GAMLP
+    from repro_torch.core import pdadmm
+    from repro_torch.core.quantize import integer_grid
+    h = dims[1]
+    grid_paper = integer_grid(min(GAMLP.quant_levels), max(GAMLP.quant_levels))
+    grid8 = pdadmm.calibrate_grid(0, X, [X.shape[1], h, ds.n_classes], 8)
+    out = {"kernel_checks": greedy_kernel_checks(X, h, cfg.nu, cfg.rho,
+                                                 grid_paper)}
+    out["greedy_G"] = greedy_phase(X, ds, h, cfg, BASE_KERNELS,
+                                   "greedy pdADMM-G")
+    for key, grid, label in (
+            ("greedy_GQ_paper", grid_paper, "greedy pdADMM-G-Q, Δ = {-1..20}"),
+            ("greedy_GQ_8bit", grid8,
+             f"greedy pdADMM-G-Q, 8-bit grid [{grid8.lo:.4g}, "
+             f"{grid8.hi:.4g}]")):
+        cfg_q = dataclasses.replace(cfg, quantize_p=True, quantize_q=False,
+                                    grid=grid)
+        out[key] = greedy_phase(X, ds, h, cfg_q, GQ_KERNELS, label)
+    out["grid8"] = dataclasses.asdict(grid8)
+    out["gd"] = gd_phase(X, ds, dims)
+    out["block"] = block_phase(X, ds, h, cfg.nu, cfg.rho)
+
+    no_growth = runs["ft"]["paper_gq"]["test_acc"]
+    table = {m: out["gd"][m]["test_acc"] for m, _ in GD_METHODS}
+    table.update({k: out[k]["test_acc"] for k in
+                  ("greedy_G", "greedy_GQ_paper", "greedy_GQ_8bit")})
+    out["accuracy_table"] = table
+    print("accuracy on cora, 10x1000 (test): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in table.items()), flush=True)
+    print(f"  G-Q on Δ = {{-1..20}}: greedy {table['greedy_GQ_paper']:.4f} "
+          f"after {len(out['greedy_GQ_paper']['objective'])} iterations; "
+          f"without growth {no_growth[f'GQ_paper_{GAMLP.epochs}']:.4f} after "
+          f"{GAMLP.epochs} (ft (e), this run)", flush=True)
+    return out
+
+
 def timed_ms(fn, n: int) -> float:
     """Mean host-clock ms of ``n`` calls after one warm-up, each run ending
     in a device sync."""
@@ -2021,6 +2386,7 @@ def main() -> int:
               flush=True)
     runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
     runs["ft"] = ft_phase(X, ds, dims, cfg, cfg_q, EPOCHS, runs)
+    runs["baselines"] = baseline_phase(X, ds, dims, cfg, runs)
     del X, ds
     torch.cuda.empty_cache()
     from repro_torch.configs.base import get_arch

@@ -57,6 +57,16 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pdadmm.train(0, X, ds.labels, ds.masks, dims, pdadmm.ADMMConfig(), 1)
 
+    from repro_torch.core import block_admm, gd_baseline, greedy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gd_baseline.train_gd(0, X, ds.labels, ds.masks, dims, "adam", 1e-3, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        greedy.greedy_train(0, X, ds.labels, ds.masks, 8, ds.n_classes, (2,),
+                            1, pdadmm.ADMMConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        block_admm.init_block_state(lambda W, p: p @ W, torch.zeros(2, 4, 4),
+                                    torch.zeros(3, 4), 2, pdadmm.ADMMConfig())
+
     from repro_torch.configs.base import get_arch
     from repro_torch.examples import serve_lm
     from repro_torch.models import api
