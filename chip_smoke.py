@@ -116,7 +116,30 @@ and the script exits non-zero without printing a result:
    the 0.02 init), a profile of one prefill and one decode step, and
    ``ServingEngine`` answering 7 requests on 4 slots
    (``examples/serve_lm.py``'s), each with 12 tokens in the vocab.
-10. Print the wire bytes per iteration from the port's ledger (G, G-Q,
+10. ``lm_train_phase``: the same LM trained, through the port's
+   training path (``Trainer``, ``make_accum_train_step``,
+   ``ModelBundle.loss``: the plain attention, no port kernel). (a) At full
+   width, bf16 weights with f32 adamw(3e-4) moments and remat, six steps
+   of ``Trainer.run`` on ``TokenPipeline``'s 4 × 4096 tokens (one card's
+   share of the reference's ``TRAIN_4K``) with every launch count set to 0
+   just before, checkpointing once at the end into a temporary directory:
+   the losses finite, step 0's within [ln 32000 − 0.5, ln 32000 + 1.5]
+   (beside ln V + σ²/2 for the measured std σ of its logits), the smaller
+   of the last two below step 0's, no port kernel launched; ms per step
+   (host clock, median of steps 1-5), tokens/s, peak allocated memory,
+   the save's seconds and bytes, a profile of one step with device time by
+   kernel group, and one layer's plain attention (forward, recompute and
+   backward) by events. (b) ``ops.flash_attention`` on inputs that require
+   grad raises under grad mode; under no_grad it matches its plain version
+   by the flash check. At full width with the depth cut to 2 layers: (c)
+   ``ModelBundle.loss`` and every leaf's gradient in bf16 against the same
+   weights in f32, and a control with q, k, v detached before attention
+   that must break the limit; (d) one step with two microbatches (f32,
+   then bf16 accumulator) against one; (e) a crash at step 2 with a
+   checkpoint every 2 steps, then a resume: the restored leaves equal the
+   saved ones bit for bit, the resumed losses within rtol 1e-2 of an
+   uninterrupted run.
+11. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
 
@@ -211,6 +234,29 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LONG_ROW = 16384          # prefill_32k's sequence, halved for the plain check
 LM_REL_L2 = 2e-2          # last-position logits, kernel vs plain attention
 LM_VS_F32 = 1.05          # kernel path's distance to f32, x the plain path's
+# lm_train_phase: tinyllama-1.1b trained at full width through Trainer.run
+# on one card's share of TRAIN_4K (sequences of 4096, global batch 4), and
+# the checks (c)-(e) at full width with the depth cut to TRAIN_CUT_LAYERS
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 4, 6, 3e-4
+TRAIN_CUT_LAYERS = 2
+# step 0's loss: ln(vocab) for uniform logits, plus about σ²/2 for logits of
+# std σ (the 0.02 head over unit-RMS hidden states: σ ≈ 0.02·√2048 ≈ 0.9)
+TRAIN_LOSS0_BELOW, TRAIN_LOSS0_ABOVE = 0.5, 1.5
+# (c) bf16 against the same weights in f32, full width, 2 layers, 4 × 4096
+# tokens: the loss within TRAIN_F32_LOSS_RTOL (measured 4.6e-5); every
+# leaf's gradient within TRAIN_F32_GRAD_REL_L2, 3x the largest measured
+# (wq 6.7e-3; the others 3.9-6.6e-3 on an H100). Detaching q, k, v puts
+# ln1, wq, wk, wv and embed at 1.0
+TRAIN_F32_LOSS_RTOL = 1e-2
+TRAIN_F32_GRAD_REL_L2 = 2e-2
+# (d) two microbatches against one: the loss (measured equal) and each
+# leaf's first adamw update within TRAIN_ACCUM_UPDATE_REL_L2, 3x the
+# largest measured (wq 1.45e-2; an update is ±lr where |g| >> eps, so this
+# counts the elements whose sign flips between the two sums)
+TRAIN_ACCUM_LOSS_RTOL = 1e-3
+TRAIN_ACCUM_UPDATE_REL_L2 = 5e-2
+TRAIN_RESUME_RTOL = 1e-2       # (e) resumed losses against uninterrupted
+PROFILE_TRIES = 3              # traces of the training step (see train_full)
 STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
@@ -1144,10 +1190,31 @@ def wire_phase(X, ds, cfg, state, n_iters: int = 2):
                                        u_codecs=codecs)}
 
 
+def kernel_group(name: str) -> str:
+    """The group of a device kernel, by its name: the port's kernels;
+    cuBLAS products in bf16 (Hopper's ``nvjet`` kernels; TF32 is off, so
+    no f32 product takes them) and in f32 (SIMT ``xmma`` FFMA kernels, e.g.
+    the plain attention's scores); softmax and its backward; copies and
+    casts; other elementwise kernels; reductions; the rest."""
+    if any(k in name for k in PORT_KERNEL_NAMES):
+        return "port kernels"
+    low = name.lower()
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
+        return ("GEMM bf16" if "bf16" in low or "nvjet" in low
+                else "GEMM f32")
+    for key, group in (("softmax", "softmax"), ("copy", "copies and casts"),
+                       ("reduce", "reductions"),
+                       ("elementwise", "other elementwise")):
+        if key in low:
+            return group
+    return "other"
+
+
 def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
     """Device time by kernel over one iteration, ``run_once()``
     (torch.profiler): the ``top`` largest and every kernel of the port
-    beyond them; and the device's idle share of an unprofiled iteration
+    beyond them, and the device ms of each ``kernel_group`` over all
+    kernels; and the device's idle share of an unprofiled iteration
     (1 − busy / ``ms_per_iter``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1176,9 +1243,19 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
         print(f"  {r['device_ms']:8.3f} ms  x{r['calls']:<4d} {r['name']}")
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
+    groups = {}
+    for r, ev in zip(rows, events):
+        g = groups.setdefault(kernel_group(ev.key), {"device_ms": 0.0,
+                                                     "calls": 0})
+        g["device_ms"] += r["device_ms"]
+        g["calls"] += r["calls"]
+    print("  by group: " + "; ".join(
+        f"{name} {g['device_ms']:.3f} ms ({g['device_ms'] / busy:.3f}), "
+        f"x{g['calls']}" for name, g in sorted(
+            groups.items(), key=lambda kv: -kv[1]["device_ms"])), flush=True)
     return {"device_busy_ms": busy, "device_launches": launches,
             "idle_share": 1.0 - busy / ms_per_iter,
-            "kernels": rows[:top] + port}
+            "kernels": rows[:top] + port, "groups": groups}
 
 
 def iterate_once(X, ds, cfg, state):
@@ -2136,7 +2213,7 @@ def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len) -> dict:
 
 def lm_phase(dev, cfg):
     """The dense LM ``cfg`` (tinyllama-1.1b at full width) served on
-    ``dev`` (see the module docstring, phase 7)."""
+    ``dev`` (see the module docstring, phase 9)."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build
     from repro_torch.serve.engine import Request, ServingEngine
@@ -2237,6 +2314,379 @@ def lm_phase(dev, cfg):
             raise AssertionError(f"engine: request {rid} got {toks}")
     out["LM_engine"] = {"wall_s": wall, "requests": 7, "slots": 4,
                         "tokens": {str(k): v for k, v in done.items()}}
+    return out
+
+
+def attention_ms(dev, cfg) -> float:
+    """Device ms of one layer's plain attention as a remat training step
+    runs it (CUDA events): a forward pass, the layer's recomputed forward
+    under grad, and the backward pass that recomputes each query chunk,
+    at the training shape."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.hd
+    q, k, v = (torch.randn((B, S, h, hd), generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    grad = torch.randn((B, S, cfg.n_heads, hd), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+    def once():
+        layers.attention(q, k, v, use_kernel=False)
+        layers.attention(q, k, v, use_kernel=False).backward(grad)
+    return time_ms(once, iters=2, warmup=1)
+
+
+def leaf_items(tree):
+    """(dotted name, tensor) of a params tree, keys sorted."""
+    from repro_torch.models.common import leaves
+    return sorted((".".join(k), t) for k, t in leaves(tree))
+
+
+def train_full(dev, cfg) -> dict:
+    """(a) ``Trainer.run`` at full width (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    if not cfg.remat or cfg.microbatches != 1:
+        raise AssertionError(f"{cfg.name}: expected remat on and one "
+                             f"microbatch, got {cfg.remat}, "
+                             f"{cfg.microbatches}")
+    bundle = build(cfg, device=dev)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, device=dev)
+    n_tok = TRAIN_SEQ * TRAIN_BATCH
+    # the head's logits on step 0's batch, from the same seeded init
+    with torch.no_grad():
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        hidden, _ = transformer.forward_hidden(
+            cfg, params, {"tokens": pipe.batch(0)["tokens"][:1]})
+        sigma = float((hidden[:, :512] @ params["head"]).float().std())
+        del params, hidden
+    predicted = math.log(cfg.vocab) + sigma ** 2 / 2
+    print(f"LM train (a): {cfg.name}, {bundle.n_params():,} parameters, "
+          f"{TRAIN_BATCH} × {TRAIN_SEQ} tokens a step, adamw({TRAIN_LR}), "
+          f"remat {cfg.remat}; step 0's logits have std {sigma:.4f}, so "
+          f"its loss should be near ln V + σ²/2 = {predicted:.4f}",
+          flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                           ckpt_dir=ckpt_dir, log_every=1)
+        trainer = Trainer(bundle, optim.adamw(TRAIN_LR), pipe, tc)
+        saves = []
+        real_save = trainer.ckpt.save
+
+        def timed_save(step, tree, extra=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = real_save(step, tree, extra)
+            saves.append({"step": step, "s": time.perf_counter() - t,
+                          "bytes": sum(f.stat().st_size
+                                       for f in path.iterdir())})
+            return path
+        trainer.ckpt.save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        params, state = trainer.run(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [h["loss"] for h in trainer.history]
+    step_ms = sorted(h["sec"] * 1e3 for h in trainer.history[1:])
+    ms = step_ms[len(step_ms) // 2]
+    lo = math.log(cfg.vocab) - TRAIN_LOSS0_BELOW
+    hi = math.log(cfg.vocab) + TRAIN_LOSS0_ABOVE
+    save = saves[-1]
+    print(f"  losses {losses}; ms per step (host clock, steps 1-"
+          f"{TRAIN_STEPS - 1}) {[round(x, 3) for x in step_ms]}, median "
+          f"{ms:.3f} ({n_tok / ms * 1e3:.0f} tokens/s); first step "
+          f"{trainer.history[0]['sec'] * 1e3:.3f} ms; peak allocated "
+          f"{peak_mib:.1f} MiB; final save (step {save['step']}) "
+          f"{save['s']:.3f} s, {save['bytes'] / 1e9:.3f} GB; launches "
+          f"{counts}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train (a): losses {losses}")
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"train (a): step 0's loss {losses[0]:.4f} "
+                             f"outside [{lo:.4f}, {hi:.4f}]")
+    if not min(losses[-2:]) < losses[0]:
+        raise AssertionError(f"train (a): the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"train (a): a port kernel launched on the "
+                             f"training path: {counts}")
+    if [x["step"] for x in saves] != [TRAIN_STEPS - 1]:
+        raise AssertionError(f"train (a): saves at {saves}")
+    attn = attention_ms(dev, cfg)
+    print(f"  plain attention, one layer's forward, recompute and backward "
+          f"at {TRAIN_BATCH} × {TRAIN_SEQ}: {attn:.3f} ms (events); × "
+          f"{cfg.n_layers} layers = {attn * cfg.n_layers:.1f} ms, "
+          f"{attn * cfg.n_layers / ms:.3f} of the step", flush=True)
+    batch = pipe.batch(TRAIN_STEPS)
+    held = [params, state]
+    del params, state
+
+    def step_once():
+        held[0], held[1], _ = trainer.step_fn(held[0], held[1], batch)
+    # the step's device time cannot fall below its attention's alone: one
+    # trace of this step read every kernel ~0.54x as long as another (an f32
+    # GEMM past the card's peak), a clock the profiler got wrong
+    for _ in range(PROFILE_TRIES):
+        prof = profile_phase("training step", step_once, ms)
+        prof["attention_events_ms"] = attn * cfg.n_layers
+        if prof["device_busy_ms"] >= 0.95 * attn * cfg.n_layers:
+            break
+        print(f"  the trace's device time {prof['device_busy_ms']:.1f} ms "
+              f"is below the attention's alone by events "
+              f"({attn * cfg.n_layers:.1f} ms): its clock is off; "
+              f"tracing again", flush=True)
+    del held
+    return {"launches": counts, "iterations": TRAIN_STEPS, "losses": losses,
+            "step_ms": step_ms, "ms_per_step": ms,
+            "first_step_ms": trainer.history[0]["sec"] * 1e3,
+            "tokens_per_s": n_tok / ms * 1e3, "peak_mib": peak_mib,
+            "logit_std": sigma, "loss0_predicted": predicted,
+            "save_s": save["s"], "save_bytes": save["bytes"],
+            "attention_ms_per_layer": attn, "profile": prof}
+
+
+def train_guard(dev) -> dict:
+    """(b) ``ops.flash_attention`` refuses inputs that require grad under
+    grad mode; under no_grad the same call runs and holds against its
+    plain version as ``flash_cases`` holds it."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 2048, h, 64), generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_() for h in (32, 4, 4))
+    try:
+        ops.flash_attention(q, k, v)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("flash_attention ran on inputs that require "
+                             "grad")
+    print(f"LM train (b): flash_attention under grad mode raised: "
+          f"{message}", flush=True)
+    with torch.no_grad():
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        plain = ref.flash_attention_ref(q, k, v, p_dtype=torch.bfloat16)
+        err = float((got.double() - plain.double()).abs().max())
+        r = flash_check_for(want)(got, plain, err)
+    return {"message": message, "max_abs_err": err, **r}
+
+
+def train_vs_f32(dev, cfg, params, batch) -> dict:
+    """(c) One ``ModelBundle.loss`` and backward in bf16 and with the same
+    weights in f32: the loss within TRAIN_F32_LOSS_RTOL, each leaf's
+    gradient within a relative L2 distance of TRAIN_F32_GRAD_REL_L2; the
+    same bf16 run with q, k, v detached before attention must break it."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import layers
+    from repro_torch.models.api import build
+    from repro_torch.models.common import tree_map
+
+    b16 = build(cfg, device=dev)
+    b32 = build(cfg, device=dev, dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    loss32, g32 = value_and_grad(b32, params32, batch)
+    del params32
+    g32 = leaf_items(g32)
+    real = layers.attention
+
+    def detached(q, k, v, **kw):
+        return real(q.detach(), k.detach(), v.detach(), **kw)
+    out = {}
+    for name in ("bf16", "control: q, k, v detached"):
+        layers.attention = real if name == "bf16" else detached
+        try:
+            loss, g = value_and_grad(b16, params, batch)
+        finally:
+            layers.attention = real
+        rel = {n: float((a.float() - b).norm() / b.norm())
+               for (n, a), (_, b) in zip(leaf_items(g), g32)}
+        dloss = abs(float(loss) - float(loss32)) / abs(float(loss32))
+        out[name] = {"loss": float(loss), "loss_rel": dloss, "grad_rel_l2": rel}
+        print(f"LM train (c), {name}: loss {float(loss):.6f} (f32 "
+              f"{float(loss32):.6f}, relative {dloss:.3e}); gradients' "
+              f"relative L2 to f32: " + ", ".join(
+                  f"{n} {x:.3e}" for n, x in rel.items()), flush=True)
+        del g
+    ok = out["bf16"]
+    broken = [n for n, x in ok["grad_rel_l2"].items()
+              if not x <= TRAIN_F32_GRAD_REL_L2]
+    if not ok["loss_rel"] <= TRAIN_F32_LOSS_RTOL or broken:
+        raise AssertionError(f"train (c): bf16 against f32: loss relative "
+                             f"{ok['loss_rel']:.3e}, leaves above "
+                             f"{TRAIN_F32_GRAD_REL_L2}: {broken}")
+    ctl = out["control: q, k, v detached"]["grad_rel_l2"]
+    if all(x <= TRAIN_F32_GRAD_REL_L2 for x in ctl.values()):
+        raise AssertionError("train (c): the check passes the control with "
+                             "q, k, v detached")
+    out["loss_f32"] = float(loss32)
+    return out
+
+
+def train_accum(dev, cfg, params, batch) -> dict:
+    """(d) One adamw step with two microbatches (f32, then bf16
+    accumulator) against one: the loss within TRAIN_ACCUM_LOSS_RTOL; each
+    leaf's update (new − old, f32) within a relative L2 distance of
+    TRAIN_ACCUM_UPDATE_REL_L2 of one microbatch's (a leaf that neither run
+    moves, bf16 norms at 1 under a 3e-4 step, counts as 0); and every
+    updated element within 2.2·lr + 2⁻⁷·|p| of one microbatch's: Adam's
+    first step moves an element by lr·g/(|g| + eps) plus lr·0.1·p of
+    decay, so two runs differ by at most a flipped sign, 2·lr, and the
+    rounding to bf16."""
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_accum_train_step
+
+    bundle = build(cfg, device=dev)
+    opt = optim.adamw(TRAIN_LR)
+    state = opt.init(params)
+    old = dict(leaf_items(params))
+    runs = {}
+    for name, mb, adt in (("one", 1, None), ("two, f32", 2, None),
+                          ("two, bf16", 2, torch.bfloat16)):
+        new, _, loss = make_accum_train_step(bundle, opt, mb, adt)(
+            params, state, batch)
+        runs[name] = (float(loss), dict(leaf_items(new)))
+    base_loss, base = runs.pop("one")
+    out = {"loss_one": base_loss}
+    for name, (loss, new) in runs.items():
+        r = {"loss": loss, "loss_rel": abs(loss - base_loss) / base_loss,
+             "update_rel_l2": {}, "max_abs": {}, "over_bound": {}}
+        for n, p in new.items():
+            p1, p2 = base[n].float(), p.float()
+            d1, d2 = p1 - old[n].float(), p2 - old[n].float()
+            diff = float((d2 - d1).norm())
+            r["update_rel_l2"][n] = diff / float(d1.norm()) if diff else 0.0
+            r["max_abs"][n] = float((p2 - p1).abs().max())
+            limit = 2.2 * TRAIN_LR + 2.0 ** -7 * torch.maximum(p1.abs(),
+                                                             p2.abs())
+            r["over_bound"][n] = int(((p2 - p1).abs() > limit).sum())
+        out[name] = r
+        print(f"LM train (d), {name} microbatches against one: loss "
+              f"{loss:.6f} ({base_loss:.6f}, relative {r['loss_rel']:.3e}); "
+              f"updates' relative L2 " + ", ".join(
+                  f"{n} {x:.3e}" for n, x in r["update_rel_l2"].items())
+              + "; max |Δp| " + ", ".join(
+                  f"{n} {x:.2e}" for n, x in r["max_abs"].items()),
+              flush=True)
+        broken = [n for n, x in r["update_rel_l2"].items()
+                  if not x <= TRAIN_ACCUM_UPDATE_REL_L2]
+        broken += [f"{n}: {c} elements past 2.2·lr + 2⁻⁷·|p|"
+                   for n, c in r["over_bound"].items() if c]
+        if not r["loss_rel"] <= TRAIN_ACCUM_LOSS_RTOL or broken:
+            raise AssertionError(f"train (d), {name}: loss relative "
+                                 f"{r['loss_rel']:.3e}; {broken}")
+    return out
+
+
+def train_resume(dev, cfg) -> dict:
+    """(e) ``Trainer`` with ``fail_at_step=2``, ``ckpt_every=2``, then a
+    resume: the restored leaves are the saved ones bit for bit, and the
+    losses of steps 2-3 lie within TRAIN_RESUME_RTOL of a run without the
+    crash."""
+    import tempfile
+
+    from repro_torch.ckpt.manager import flatten
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    bundle = build(cfg, device=dev)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, device=dev)
+    root = tempfile.mkdtemp(prefix="lm_resume_")
+
+    def trainer(name, every, fail_at=None):
+        return Trainer(bundle, optim.adamw(TRAIN_LR), pipe, TrainerConfig(
+            steps=4, ckpt_every=every, ckpt_dir=os.path.join(root, name),
+            log_every=100, fail_at_step=fail_at))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(1)
+    try:
+        whole = trainer("whole", 4)
+        whole.run(gen())
+        crash = trainer("crash", 2, fail_at=2)
+        saved = []
+        real_save = crash.ckpt.save
+
+        def keep_save(step, tree, extra=None):
+            saved.append((step, flatten(tree)))
+            return real_save(step, tree, extra)
+        crash.ckpt.save = keep_save
+        try:
+            crash.run(gen())
+        except RuntimeError as e:
+            if "injected failure at step 2" not in str(e):
+                raise
+        else:
+            raise AssertionError("train (e): no injected failure")
+        resumed = trainer("crash", 2)
+        restored = []
+        real_restore = resumed.init_or_restore
+
+        def keep_restore(generator):
+            out = real_restore(generator)
+            restored.append(flatten(out[:2]))
+            return out
+        resumed.init_or_restore = keep_restore
+        resumed.run(gen())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if [s for s, _ in saved] != [1] or len(restored) != 1:
+        raise AssertionError(f"train (e): saved {[s for s, _ in saved]}, "
+                             f"restored {len(restored)} times")
+    same = sum(torch.equal(a, b) for a, b in zip(saved[0][1], restored[0]))
+    want = {h["step"]: h["loss"] for h in whole.history}
+    got = {h["step"]: h["loss"] for h in resumed.history}
+    rel = {s: abs(got[s] - want[s]) / want[s] for s in got}
+    print(f"LM train (e): crash at step 2, resume from step 1's checkpoint: "
+          f"{same} of {len(restored[0])} leaves restored bit for bit; "
+          f"losses resumed {got} against {want}, relative {rel}", flush=True)
+    if same != len(saved[0][1]) or len(restored[0]) != len(saved[0][1]):
+        raise AssertionError("train (e): restored leaves differ from the "
+                             "saved ones")
+    if sorted(got) != [2, 3] or not all(x <= TRAIN_RESUME_RTOL
+                                        for x in rel.values()):
+        raise AssertionError(f"train (e): resumed losses {got} against "
+                             f"{want}")
+    return {"leaves": same, "losses_resumed": got, "losses_whole": want,
+            "loss_rel": rel}
+
+
+def lm_train_phase(dev, cfg) -> dict:
+    """The dense LM ``cfg`` (tinyllama-1.1b) trained on ``dev``: (a) at full
+    width, (b) the flash kernel's autograd guard, (c)-(e) at full width and
+    TRAIN_CUT_LAYERS layers (see the module docstring, phase 10)."""
+    from repro_torch.data.pipeline import TokenPipeline
+
+    out = {"LM_train": train_full(dev, cfg)}
+    torch.cuda.empty_cache()
+    out["LM_train_guard"] = train_guard(dev)
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    batch = TokenPipeline(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                          device=dev).batch(0)
+    from repro_torch.models.api import build
+    params = build(cut, device=dev).init(
+        torch.Generator(device=dev).manual_seed(1))
+    out["LM_train_vs_f32"] = train_vs_f32(dev, cut, params, batch)
+    torch.cuda.empty_cache()
+    out["LM_train_accum"] = train_accum(dev, cut, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    out["LM_train_resume"] = train_resume(dev, cut)
     return out
 
 
@@ -2391,6 +2841,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs.base import get_arch
     runs.update(lm_phase(device, get_arch(LM_ARCH)))
+    torch.cuda.empty_cache()
+    runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
 
     # each kernel's launches come from the run whose path needs it
     run_of = dict.fromkeys(BASE_KERNELS, "G")

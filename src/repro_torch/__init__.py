@@ -2,10 +2,11 @@
 
 The layout mirrors the JAX package module for module (``graph/``,
 ``core/``, ``kernels/``); the JAX package stays the reference the port is
-tested against. Every kernel on the training path is a hand-written CUDA
-kernel for Hopper (``kernels/csrc``) with a plain PyTorch version beside it
-(``kernels/ref.py``): a CUDA tensor launches the kernel, a CPU tensor takes
-the plain version.
+tested against. Every kernel of the reference's Pallas paths is a
+hand-written CUDA kernel for Hopper (``kernels/csrc``) with a plain
+PyTorch version beside it (``kernels/ref.py``): a CUDA tensor launches the
+kernel, a CPU tensor takes the plain version. The LM's training path, like
+the reference's, reaches none of them.
 
 Entry points take ``device=``. Left as ``None`` it means the card, and a
 host without CUDA raises rather than running on the CPU.

@@ -32,6 +32,13 @@ tile's running max, denominator and f32 accumulator in registers over
 64-key K/V tiles in shared memory, skips the key tiles above the diagonal
 and masks the ragged ends (no padding). ``q_offset`` is the absolute
 position of query row 0 (``layers.attention``; 0 in the prefill).
+
+The kernel computes the forward pass only: its output is written into a
+fresh tensor through ctypes and has no ``grad_fn``. Under grad mode it
+refuses q, k or v that require grad (``RuntimeError``), since a loss
+taken through it would train the projections before attention with no
+gradient from attention at all. Training takes the plain attention
+(``models.transformer.block_forward``); nothing switches to it here.
 """
 from __future__ import annotations
 
@@ -50,8 +57,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q: [B, S, Hq, D]; k, v: [B, T, Hkv, D], Hq % Hkv == 0, D in
     ``HEAD_DIMS``, all CUDA, one dtype (f32 or bf16), the last dimension
     contiguous (bf16: the other strides multiples of 8, data 16-byte
-    aligned; f32: free) -> [B, S, Hq, D] in q's dtype."""
+    aligned; f32: free) -> [B, S, Hq, D] in q's dtype. Under grad mode
+    none of q, k, v may require grad: the kernel has no backward."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward pass, so its "
+            "output would carry no gradient to q, k and v; call it under "
+            "torch.no_grad() / inference_mode(), or train through the plain "
+            "attention (models.layers.attention(..., use_kernel=False))")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")

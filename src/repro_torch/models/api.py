@@ -1,13 +1,14 @@
 """Model API of the port: ``ModelBundle`` binds an architecture config to a
-device and exposes what serving needs.
+device and exposes what training and serving need.
 
 The port of ``repro/models/api.py`` for the dense family:
   param_specs / init / n_params      — params as Specs / tensors
+  loss(params, batch)                — the training objective
   serve_state_shape / serve_step     — decode with a KV cache
   prefill                            — the prompt, with its KV cache
   input_specs / make_inputs          — the inputs of a shape cell
 One card has no mesh, so there are no shardings. The other families (MoE,
-SSM, hybrid, audio, VLM) and the training loss wait for later slices.
+SSM, hybrid, audio, VLM) wait for later slices.
 """
 from __future__ import annotations
 
@@ -66,6 +67,15 @@ class ModelBundle:
     def n_params(self) -> int:
         return common.count_params(self.param_specs())
 
+    # -- train ----------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy over ``batch["mask"]`` (all
+        positions without one) plus 0.01 × the aux loss per layer, which
+        is 0 for the dense family. Differentiable: training takes the plain
+        attention whatever ``use_kernels`` says."""
+        return transformer.loss_fn(self.cfg, params, batch, self.cfg.vocab,
+                                   attn_chunk=self.attn_chunk)
+
     # -- serve ----------------------------------------------------------
     def serve_state_shape(self, shape: ShapeConfig):
         """The zero decode state for ``shape.global_batch`` sequences of
@@ -93,12 +103,14 @@ class ModelBundle:
     # -- inputs ----------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, TensorSpec]:
         B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return {"tokens": TensorSpec((B, S), torch.int32),
+                    "targets": TensorSpec((B, S), torch.int32)}
         if shape.kind == "prefill":
             return {"tokens": TensorSpec((B, S), torch.int32)}
         if shape.kind == "decode":
             return {"token": TensorSpec((B, 1), torch.int32)}
-        raise NotImplementedError(f"{shape.kind!r} inputs: training is not "
-                                  f"ported yet")
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
 
     def make_inputs(self, shape: ShapeConfig, generator: torch.Generator):
         """Random tokens in [0, vocab) for every input of ``shape``, from

@@ -8,7 +8,10 @@ CUDA tensor is one launch of the hand-written flash kernel
 ``use_kernel=False``, it is the reference's chunked exact softmax
 (``_attend_block``). The two compute the same function, except that the
 reference casts the probabilities to v's dtype before the PV product and
-the kernel keeps them in f32 (ROADMAP Queue 3).
+the kernel keeps them in f32 (ROADMAP Queue 3). The kernel has no
+backward and refuses inputs that require grad, so training
+(``models.transformer.block_forward``) asks for the plain version with
+``use_kernel=False``, as the reference trains through its jnp attention.
 
 The KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row of the cache it is given.
@@ -19,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -72,9 +76,14 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """Exact attention. q: [B, Sq, Hq, D]; k, v: [B, T, Hkv, D], Hq % Hkv
     == 0 (GQA). q_offset: absolute position of q[0] (prefill: 0).
 
-    On a CUDA tensor with ``use_kernel``: one flash-kernel launch. Else the
-    reference's path: query chunks of ``chunk`` rows (when Sq is a multiple
-    of it above it), each an exact softmax over all keys."""
+    On a CUDA tensor with ``use_kernel``: one flash-kernel launch, which
+    has no backward and raises ``RuntimeError`` on inputs that require
+    grad under grad mode (it never hands over to the plain version). Else
+    the reference's path: query chunks of ``chunk`` rows (when Sq is a
+    multiple of it above it), each an exact softmax over all keys. Under
+    grad mode each chunk is checkpointed, as the reference wraps it in
+    ``jax.checkpoint(..., nothing_saveable)``: the backward pass recomputes
+    a chunk's [chunk, T] f32 scores instead of keeping every chunk's."""
     if use_kernel and not ops._on_cpu(q):
         return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     B, Sq, Hq, D = q.shape
@@ -84,10 +93,13 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if Sq % chunk != 0 or Sq <= chunk:
         pos = q_offset + torch.arange(Sq, device=q.device)
         return _attend_block(qg, k, v, pos, causal).reshape(B, Sq, Hq, D)
-    out = [_attend_block(qg[:, i:i + chunk], k, v,
-                         q_offset + i + torch.arange(chunk, device=q.device),
-                         causal)
-           for i in range(0, Sq, chunk)]
+    remat = torch.is_grad_enabled()
+    out = []
+    for i in range(0, Sq, chunk):
+        args = (qg[:, i:i + chunk], k, v,
+                q_offset + i + torch.arange(chunk, device=q.device), causal)
+        out.append(checkpoint(_attend_block, *args, use_reentrant=False)
+                   if remat else _attend_block(*args))
     return torch.cat(out, dim=1).reshape(B, Sq, Hq, D)
 
 

@@ -1,17 +1,23 @@
 """Decoder-only transformer, dense family (yi / phi3 / tinyllama / granite):
-param specs, prefill and single-token decode.
+param specs, the training forward pass and loss, prefill and single-token
+decode.
 
 The port of the dense path of ``repro/models/transformer.py``. The params
 keep the reference's layer-stacked layout ([L, ...] per block weight), so
 specs and shapes match it leaf for leaf; the ``lax.scan`` over layers is a
-loop over ``params["blocks"][name][i]``. One card needs no mesh: the
-reference's ``mesh``, ``rules`` and ``constrain`` are dropped, and so is
-``jax.checkpoint`` (serving takes no gradient). Training (``forward_hidden``,
-the loss) and the MoE and VLM branches wait for later slices.
+loop over the layers' views of ``params["blocks"]``. One card needs no
+mesh: the reference's ``mesh``, ``rules`` and ``constrain`` are dropped.
+Its ``jax.checkpoint`` becomes ``torch.utils.checkpoint.checkpoint``
+(non-reentrant), taken under grad mode only: a remat group keeps only its
+input (``forward_hidden``), the loss keeps nothing of a sequence chunk
+(``chunked_ce_loss``). The MoE and VLM (M-RoPE) branches wait for later
+slices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import Spec
@@ -54,9 +60,13 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
     return specs
 
 
-def layer(params, i: int) -> dict:
-    """Layer ``i``'s weights: views into the stacked [L, ...] blocks."""
-    return {k: params["blocks"][k][i] for k in _BLOCK_KEYS}
+def unstack_layers(params) -> list:
+    """Every layer's weights as views of the stacked [L, ...] blocks, one
+    ``unbind`` a weight: the backward pass then stacks the layers'
+    gradients of a weight once, where indexing layer by layer would add
+    each into an [L, ...] zeros."""
+    cols = [params["blocks"][k].unbind(0) for k in _BLOCK_KEYS]
+    return [dict(zip(_BLOCK_KEYS, ws)) for ws in zip(*cols)]
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +81,24 @@ def _positions_for(cfg, batch, B, S, offset=0, device=None):
 
 def _apply_rope(cfg, x, positions):
     return L.apply_rope(x, positions, cfg.rope_theta)
+
+
+def block_forward(cfg, p, x, positions, *, attn_chunk=1024):
+    """One decoder block (full-sequence path). x: [B,S,d]."""
+    B, S, _ = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, Hq, hd)
+    k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = _apply_rope(cfg, q, positions)
+    k = _apply_rope(cfg, k, positions)
+    # the plain attention, as the reference trains through L.attention: the
+    # flash kernel has no backward and refuses inputs that require grad
+    o = L.attention(q, k, v, causal=True, chunk=attn_chunk, use_kernel=False)
+    x = x + o.reshape(B, S, Hq * hd) @ p["wo"]
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def block_decode(cfg, p, x, cache, positions):
@@ -100,11 +128,93 @@ def block_decode(cfg, p, x, cache, positions):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens):
-    return params["embed"][tokens]
+    """The embedding rows of ``tokens``. ``F.embedding``, not indexing,
+    for its backward on CUDA, which sums a token's gradient rows in f32:
+    with a bf16 table, indexing's backward lost most of a frequent token's
+    sum (on an H100 at 4 × 4096 Zipf tokens the embedding gradient lay at
+    a relative L2 distance of 0.40 from the f32 model's; through
+    ``F.embedding``, 3.9e-3, as the other leaves)."""
+    return F.embedding(tokens, params["embed"])
 
 
 def _head_weight(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward_hidden(cfg, params, batch, *, attn_chunk=1024):
+    """Embed + all blocks + final norm. Returns hidden [B,S,d] and the aux
+    loss, 0: the dense family has no router.
+
+    With ``cfg.remat`` and grad mode on, each group of ``cfg.remat_group``
+    layers (single layers when that does not divide ``n_layers``) runs
+    under a checkpoint that keeps only the group's input, the reference's
+    ``save_only_these_names("block_in")``; the backward pass recomputes
+    the rest. ``cfg.remat=False`` keeps every activation."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = batch["embeds"] if "embeds" in batch else embed_tokens(params, tokens)
+    positions = _positions_for(cfg, batch, B, S, device=x.device)
+    layers = unstack_layers(params)
+
+    def group(x, ps):
+        for p in ps:
+            x = block_forward(cfg, p, x, positions, attn_chunk=attn_chunk)
+        return x
+
+    g = max(cfg.remat_group, 1)
+    if cfg.n_layers % g:
+        g = 1
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(0, cfg.n_layers, g):
+        ps = layers[i:i + g]
+        x = (checkpoint(group, x, ps, use_reentrant=False) if remat
+             else group(x, ps))
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), 0.0
+
+
+def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
+                    chunk: int = 512):
+    """Mean cross-entropy over the mask without materializing [B,S,V]: a
+    loop over sequence chunks of ``chunk`` positions (all of S when S is no
+    multiple of it). Logits are f32; head columns at or beyond ``vocab``
+    (the padding) are masked to -1e30. Under grad mode each chunk runs
+    under a checkpoint that keeps nothing, so the backward pass recomputes
+    its [B, chunk, Vp] logits."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    valid = torch.arange(w_head.shape[-1], device=hidden.device) < vocab
+
+    def body(h, t, m):
+        logits = (h @ w_head).float()                     # [B,chunk,Vp]
+        logits = torch.where(valid, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        # gather takes int64 indices
+        tl = logits.gather(-1, t.long()[..., None])[..., 0]
+        return torch.sum((lse - tl) * m), torch.sum(m)
+
+    remat = torch.is_grad_enabled()
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        args = (hidden[:, i:i + chunk], targets[:, i:i + chunk],
+                mask[:, i:i + chunk])
+        loss, n = (checkpoint(body, *args, use_reentrant=False) if remat
+                   else body(*args))
+        tot, cnt = tot + loss, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg, params, batch, vocab: int, *, attn_chunk=1024,
+            aux_weight=0.01):
+    hidden, aux = forward_hidden(cfg, params, batch, attn_chunk=attn_chunk)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
+                          device=hidden.device)
+    ce = chunked_ce_loss(cfg, hidden, _head_weight(cfg, params),
+                         batch["targets"], mask, vocab)
+    return ce + aux_weight * aux / max(cfg.n_layers, 1)
 
 
 def prefill(cfg, params, batch, max_len: int, *, attn_chunk=1024,
@@ -121,8 +231,7 @@ def prefill(cfg, params, batch, max_len: int, *, attn_chunk=1024,
     kc = torch.zeros((cfg.n_layers, B, max_len, Hkv, hd), dtype=x.dtype,
                      device=x.device)
     vc = torch.zeros_like(kc)
-    for i in range(cfg.n_layers):
-        p = layer(params, i)
+    for i, p in enumerate(unstack_layers(params)):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q = (h @ p["wq"]).reshape(B, S, Hq, hd)
         k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
@@ -152,13 +261,13 @@ def decode_step(cfg, params, cache, batch):
     quant = isinstance(cache, L.KVCacheQ)
     positions = _positions_for(cfg, batch, B, 1, offset=pos,
                                device=x.device).expand(B, 1)
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(unstack_layers(params)):
         if quant:
             c = L.KVCacheQ(cache.k[i], cache.v[i], cache.k_scale[i],
                            cache.v_scale[i], pos)
         else:
             c = L.KVCache(cache.k[i], cache.v[i], pos)
-        x, _ = block_decode(cfg, layer(params, i), x, c, positions)
+        x, _ = block_decode(cfg, p, x, c, positions)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
     return logits, cache._replace(length=pos + 1)

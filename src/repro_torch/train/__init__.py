@@ -1,1 +1,2 @@
-"""Training utilities (counterpart of ``repro.train``): the optimizers."""
+"""Training (counterpart of ``repro.train``): the optimizers and the LM
+training loop."""

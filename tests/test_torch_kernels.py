@@ -927,6 +927,31 @@ def test_cuda_flash_attention_bf16_takes_strided_heads(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_refuses_autograd(cuda):
+    """The kernel has no backward: under grad mode q, k or v that require
+    grad raise, and nothing launches; under no_grad the same call runs and
+    matches the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=cuda).manual_seed(14)
+        q, k, v = (torch.randn((1, 128, h, 64), generator=gen, device=cuda)
+                   .to(dtype).requires_grad_() for h in (8, 2, 2))
+        before = fa.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_flash(q, k, v)
+        assert fa.launches == before
+        with torch.no_grad():
+            got = cuda_flash(q, k, v)
+            want = tref.flash_attention_ref(
+                q, k, v, p_dtype=None if dtype == torch.float32 else dtype)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1 and got.grad_fn is None
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_bf16_refuses_unaligned_layouts(cuda):
     """The bf16 route copies 16-byte chunks: a row stride that is not a
     multiple of 8 elements, or data off a 16-byte boundary, raises (no copy,
