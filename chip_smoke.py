@@ -57,6 +57,30 @@ and the script exits non-zero without printing a result:
    run with ``use_kernels=False`` at rtol 1e-3. Last,
    ``quantized_psum`` on a ``LocalRing`` of data 4 over [2485, 1000]
    shards: gather and code_psum give the same bits (4-bit affine and grid).
+6b. ``replay_phase``, the replay cost model (``repro_torch.analysis``) on
+   the same ring: ``calibrate`` a cost table from micro-runs on a
+   ``LocalRing`` of mesh (1, 10) (its solver probe runs ``fused_linear``,
+   ``admm_pgrad``, ``relu_zupdate``, ``fista_zlast``, ``backtrack_resnorm``
+   and ``grid_project``) and print it; record one step of the G ring with
+   overlap off and on, the G-Q ring and the mixed-width ring (widths 4, 8
+   and 16 all in use) on the CPU with shape-only tensors
+   (``trace_step_program``), replay each DAG twice (the same bits,
+   finite and positive), and print its predicted ms beside the measured
+   ms per iteration (the four timed in turns, medians of three) and their
+   ratio; whether the predicted overlap ordering matches the measured one
+   (readings, not gates). Gates: each DAG's shift bytes × links equal the
+   ledger's physical bytes of one iteration of the same run; the
+   recorder's launches of one step equal ``ops.launch_counts()`` over one
+   real step on the card and ``step_program_plan(...).pallas_calls``;
+   ``distributed_train(overlap="replay", cost_table=...)`` runs what
+   ``choose_overlap_for`` says and tracks ``use_kernels=False`` at rtol
+   1e-3; the mixed-width ring under ``BitWidthController(objective=
+   "walltime", cost_model=step_cost_model(...))`` runs every boundary at
+   16 bits (the container's capacity is fixed, so the predicted time is
+   flat) and tracks ``use_kernels=False`` at rtol 1e-3, its logical bytes
+   per iteration printed beside the bytes objective's; the uniform-codec
+   walltime run prints the widths it chose and each candidate's predicted
+   ms.
 7. ``ft_phase``, fault tolerance on the same ring (mesh (1, 10)), with
    checkpoints in a ``tempfile.mkdtemp()`` directory deleted at the end:
    (a) ``distributed_train(health=True)`` and a zero-rate ``FaultPlan``
@@ -261,6 +285,7 @@ STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
                         thresholds=((0.5, 4), (0.1, 8)))
+REPLAY_CAL_ITERS = 10   # calls per timed batch of the replay calibration
 FT_TICKS = 10      # iterations of the chaos and rollback runs
 FT_ZERO_SEED = 7
 FT_CHAOS = dict(seed=3, flip_rate=0.05, drop_rate=0.05)
@@ -1279,20 +1304,24 @@ def ring_problem(X, ds, dev):
     return torch.relu(X @ P0)
 
 
-def ring_ms_per_iter(mesh, L, C, cfg, init, data, n=5, overlap=False):
+def ring_ms_per_iter(mesh, L, C, cfg, init, data, n=5, overlap=False,
+                     wire=None, widths=None):
     """Steady-state ms per ring iteration (host clock around ``n`` steps
     ending in a device sync), from the shard layout of ``init``; returns
-    (ms, step, carry after the run)."""
+    (ms, step, carry after the run). With a padded ``wire`` the step runs
+    at the ``widths`` table."""
     from repro_torch.parallel import stage_parallel as SP
     from repro_torch.parallel.ring import LocalRing
     ring = LocalRing(mesh, init.p.device)
     step, _ = SP.make_distributed_step(mesh, L, C, cfg, overlap=overlap,
-                                       ring=ring)
+                                       wire=wire, ring=ring)
     carry = SP.shard_stack(init, ring)
+    if wire is not None:
+        data = tuple(data) + (widths,)
     if overlap:
         carry = (carry, SP.make_overlap_primer(
             mesh, SP.codec_for_grid(cfg.grid if cfg.quantize_q else None),
-            ring=ring)(carry.q, carry.u))
+            wire=wire, ring=ring)(carry.q, carry.u, *data[3:]))
     carry, _ = step(carry, *data)                              # warm
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1502,6 +1531,266 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
               f"gather == code_psum bitwise; max |sum − exact| {err:.4f}",
               flush=True)
     out["psum"] = psum
+    return out
+
+
+def replay_launches(mesh, L, C, cfg, init, data, overlap=False, wire=None,
+                    widths=None) -> dict:
+    """Launches of ONE real ring step on the card (the counts set to 0
+    after the step is built and its carry primed)."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing
+    ring = LocalRing(mesh, init.p.device)
+    step, _ = SP.make_distributed_step(mesh, L, C, cfg, overlap=overlap,
+                                       wire=wire, ring=ring)
+    carry = SP.shard_stack(init, ring)
+    args = tuple(data) + ((widths,) if wire is not None else ())
+    if overlap:
+        carry = (carry, SP.make_overlap_primer(
+            mesh, SP.codec_for_grid(cfg.grid if cfg.quantize_q else None),
+            wire=wire, ring=ring)(carry.q, carry.u, *args[3:]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    step(carry, *args)
+    torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def ledger_iteration_bytes(led) -> dict:
+    """Physical bytes per edge of iteration 0 (per-stage records summed)."""
+    out = {}
+    for edge, b in led.per_edge_iteration_wire(0).items():
+        base = edge.split("/")[0]
+        out[base] = out.get(base, 0) + b
+    return out
+
+
+def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
+    """The replay cost model on the ring of mesh (1, 10) (see the module
+    docstring, phase 6b): a cost table from micro-runs, each ring variant
+    recorded into its DAG and replayed beside its measured ms, the gates
+    on bits, ledger bytes and launches, ``overlap="replay"`` and the
+    walltime controller."""
+    from repro_torch.analysis.replay import calibrate, extract_step_dag, \
+        replay
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig,
+                                             stage_ring_edges)
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.comm.transport import PaddedWire
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    dev = X.device
+    Xp = ring_problem(X, ds, dev)
+    V, h = Xp.shape
+    L, C = STAGES, ds.n_classes
+    mesh = StageMesh(1, STAGES)
+    links = mesh.size
+    args = (Xp, ds.labels, ds.masks)
+    data = [LocalRing(mesh, dev).to_local(x, "rows")
+            for x in (Xp, ds.labels, ds.masks["train"])]
+    grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
+    wire = PaddedWire.from_grids(grids)
+    # all three widths in use on both edges
+    widths = [[s % 3 for s in range(STAGES)],
+              [(s + 1) % 3 for s in range(STAGES)]]
+    out = {}
+
+    t0 = time.perf_counter()
+    costs = calibrate(LocalRing(mesh, dev), V=V, h=h, n_classes=C,
+                      fista_iters=cfg.fista_iters, iters=REPLAY_CAL_ITERS,
+                      grid=cfg_q.grid)
+    t_cal = time.perf_counter() - t0
+    print(f"replay: cost table calibrated in {t_cal:.2f} s on "
+          f"{costs.meta['device']}, mesh {costs.meta['mesh']}:", flush=True)
+    for k in sorted(costs.entries):
+        print(f"  {k:30s} {costs.entries[k]:.6g}")
+    out["costs"] = {"entries": dict(costs.entries), "meta": costs.meta,
+                    "calibrate_s": t_cal}
+
+    variants = {"G_off": dict(cfg=cfg, overlap=False),
+                "G_on": dict(cfg=cfg, overlap=True),
+                "GQ": dict(cfg=cfg_q, overlap=False),
+                "mixed": dict(cfg=cfg, overlap=False, wire=wire,
+                              widths=widths)}
+    inits = {"G": SP.init_stack(0, Xp, L, cfg),
+             "GQ": SP.init_stack(0, Xp, L, cfg_q)}
+    rows = {}
+    for name, v in variants.items():
+        c, ov = v["cfg"], v["overlap"]
+        w, wd = v.get("wire"), v.get("widths")
+        init = inits["GQ" if c is cfg_q else "G"]
+        t0 = time.perf_counter()
+        prog = SP.trace_step_program(mesh, L, C, c, V=V, h=h, overlap=ov,
+                                     wire=w, widths=wd)
+        t_trace = time.perf_counter() - t0
+        dag = extract_step_dag(prog, n_stages=STAGES, n_rows=1)
+        a = replay(dag, costs, n_workers=1)
+        b = replay(dag, costs, n_workers=1)
+        if (a.step_time_s, a.per_stage_busy_s, a.per_stage_idle_s,
+                a.critical_path) != (b.step_time_s, b.per_stage_busy_s,
+                                     b.per_stage_idle_s, b.critical_path):
+            raise AssertionError(f"replay {name}: two replays differ")
+        if not (math.isfinite(a.step_time_s) and a.step_time_s > 0):
+            raise AssertionError(f"replay {name}: prediction {a.step_time_s}")
+        # the DAG's shift bytes against the ledger of one iteration
+        led = CommLedger()
+        kw = {}
+        if w is not None:
+            kw = dict(mixed_width=True, grids_by_bits=grids,
+                      controller=BitWidthController(
+                          stage_ring_edges(STAGES, V, h),
+                          ControllerConfig(**MIXED_CONTROLLER)))
+        SP.distributed_train(mesh, None, *args, L, C, c, 1, ledger=led,
+                             init=init, overlap=ov, **kw)
+        dag_bytes = {e.edge: e.wire_bytes * links for e in dag.comm_events
+                     if e.prim == "ppermute"}
+        led_bytes = ledger_iteration_bytes(led)
+        if dag_bytes != led_bytes:
+            raise AssertionError(f"replay {name}: DAG bytes {dag_bytes} != "
+                                 f"ledger {led_bytes}")
+        # launches: recorder == one real step == the plan
+        recorded = prog.launch_counts()
+        real = replay_launches(mesh, L, C, c, init, data, overlap=ov,
+                               wire=w, widths=wd)
+        plan = SP.step_program_plan(mesh, L, C, c, V=V, h=h, overlap=ov,
+                                    wire=w, widths=wd, device=dev)
+        if not recorded == real == plan.pallas_calls:
+            raise AssertionError(f"replay {name}: launches recorded "
+                                 f"{recorded}, real {real}, plan "
+                                 f"{plan.pallas_calls}")
+        pp = [e for e in dag.comm_events if e.prim == "ppermute"]
+        rows[name] = {
+            "predicted_ms": a.step_time_ms, "trace_s": t_trace,
+            "events": [(e.edge, e.dtype, e.wire_bytes, e.carried,
+                        e.work_to_consumer) for e in pp],
+            "collectives": dag.counts(), "launches": real,
+            "wire_bytes_per_iter": sum(dag_bytes.values()),
+            "busy_ms": [x * 1e3 for x in a.per_stage_busy_s],
+            "critical_comm": a.critical_comm()[:3]}
+        print(f"  {name}: traced in {t_trace:.2f} s; predicted "
+              f"{a.step_time_ms:.3f} ms; shifts {rows[name]['events']}; "
+              f"collectives {dag.counts()}; ledger bytes {led_bytes} == "
+              f"DAG's; launches {real} == recorded == plan", flush=True)
+
+    # measured ms per iteration, the four in turns, medians of three
+    samples = {name: [] for name in variants}
+    for _ in range(3):
+        for name, v in variants.items():
+            c = v["cfg"]
+            init = inits["GQ" if c is cfg_q else "G"]
+            samples[name].append(ring_ms_per_iter(
+                mesh, L, C, c, init, data, overlap=v["overlap"],
+                wire=v.get("wire"), widths=v.get("widths"))[0])
+    for name, r in rows.items():
+        r["measured_ms"] = float(np.median(samples[name]))
+        r["measured_ms_all"] = samples[name]
+        r["ratio"] = r["predicted_ms"] / r["measured_ms"]
+        print(f"  {name}: predicted {r['predicted_ms']:.3f} ms, measured "
+              f"{r['measured_ms']:.3f} ms ({samples[name]}), ratio "
+              f"{r['ratio']:.3f} (the reference's target: within 0.40)",
+              flush=True)
+    pred_on = rows["G_on"]["predicted_ms"] <= rows["G_off"]["predicted_ms"]
+    meas_on = rows["G_on"]["measured_ms"] <= rows["G_off"]["measured_ms"]
+    print(f"  overlap ordering: predicted on <= off {pred_on}, measured "
+          f"{meas_on}: {'match' if pred_on == meas_on else 'differ'}",
+          flush=True)
+    out["variants"] = rows
+    out["overlap_ordering_match"] = pred_on == meas_on
+
+    # overlap="replay" on the G ring, against use_kernels=False
+    choice = SP.choose_overlap_for(mesh, L, C, cfg, V=V, h=h, costs=costs,
+                                   ring=LocalRing(mesh, dev))
+    _, hist = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                   init=inits["G"], overlap="replay",
+                                   cost_table=costs)
+    if hist["overlap"] != choice:
+        raise AssertionError(f"overlap='replay' ran {hist['overlap']}, "
+                             f"choose_overlap_for says {choice}")
+    _, h_plain = SP.distributed_train(
+        mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
+        epochs, init=inits["G"])
+    np.testing.assert_allclose(hist["objective"], h_plain["objective"],
+                               rtol=TRAJ_RTOL)
+    print(f"  overlap='replay': chose overlap={choice}; objective "
+          f"{hist['objective']} tracks plain {h_plain['objective']}",
+          flush=True)
+    out["overlap_replay"] = {"choice": choice,
+                             "objective": hist["objective"],
+                             "objective_plain": h_plain["objective"]}
+
+    # the mixed-width ring under the walltime controller: the container's
+    # capacity is fixed, so predicted time is flat and every boundary is
+    # promoted to the widest width
+    ring = LocalRing(mesh, dev)
+    cm = SP.step_cost_model(mesh, L, C, cfg, costs, V=V, h=h,
+                            grids_by_bits=grids, mixed_width=True,
+                            ring=ring)
+
+    def walltime_ctl(model):
+        return BitWidthController(
+            stage_ring_edges(STAGES, V, h),
+            ControllerConfig(objective="walltime", **MIXED_CONTROLLER),
+            cost_model=model)
+    led_w = CommLedger()
+    _, hw = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                 controller=walltime_ctl(cm),
+                                 grids_by_bits=grids, ledger=led_w,
+                                 mixed_width=True, init=inits["G"],
+                                 ring=ring)
+    widest = (max(MIXED_CONTROLLER["allowed_bits"]),) * STAGES
+    if any(tuple(sched) != widest for sched in hw["schedules"]):
+        raise AssertionError(f"walltime schedules {hw['schedules']} are not "
+                             f"all {widest}")
+    _, hw_plain = SP.distributed_train(
+        mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
+        epochs, controller=walltime_ctl(cm), grids_by_bits=grids,
+        mixed_width=True, init=inits["G"])
+    np.testing.assert_allclose(hw["objective"], hw_plain["objective"],
+                               rtol=TRAJ_RTOL)
+    led_b = CommLedger()
+    SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                         controller=BitWidthController(
+                             stage_ring_edges(STAGES, V, h),
+                             ControllerConfig(**MIXED_CONTROLLER)),
+                         grids_by_bits=grids, ledger=led_b, mixed_width=True,
+                         init=inits["G"])
+    per_w = led_w.summary()["total_bytes"] / epochs
+    per_b = led_b.summary()["total_bytes"] / epochs
+    print(f"  walltime mixed ring: schedules all {widest}; predicted "
+          f"{cm(widest) * 1e3:.3f} ms; objective {hw['objective']} tracks "
+          f"plain; logical bytes per iteration {per_w:.0f} (bytes "
+          f"objective {per_b:.0f}), physical {led_w.summary()['wire_bytes'] / epochs:.0f}",
+          flush=True)
+    out["walltime_mixed"] = {"schedules": [list(x) for x in hw["schedules"]],
+                             "objective": hw["objective"],
+                             "objective_plain": hw_plain["objective"],
+                             "logical_bytes_per_iter": per_w,
+                             "bytes_objective_logical_per_iter": per_b,
+                             "predicted_ms": cm(widest) * 1e3}
+
+    # the uniform-codec walltime path: one managed edge, the packed payload
+    # grows with the width
+    cu = SP.step_cost_model(mesh, L, C, cfg, costs, V=V, h=h,
+                            grids_by_bits=grids, mixed_width=False,
+                            ring=ring)
+    ctl_u = BitWidthController(
+        [2 * V * h], ControllerConfig(objective="walltime",
+                                      **MIXED_CONTROLLER), cost_model=cu)
+    _, hu = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                                 controller=ctl_u, grids_by_bits=grids,
+                                 init=inits["G"], ring=ring)
+    cand = {b: cu((b,)) * 1e3 for b in sorted(grids)}
+    print(f"  walltime uniform codec: widths {hu['schedules']}; predicted "
+          f"ms per candidate {cand}", flush=True)
+    if not all(math.isfinite(o) for o in hu["objective"]):
+        raise AssertionError(f"walltime uniform: objective {hu['objective']}")
+    out["walltime_uniform"] = {"schedules": [int(b) for b in hu["schedules"]],
+                               "predicted_ms": cand,
+                               "objective": hu["objective"]}
     return out
 
 
@@ -2835,6 +3124,7 @@ def main() -> int:
               f"{r['test_acc']:.4f} (plain {r['test_acc_plain']:.4f})",
               flush=True)
     runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
+    runs["replay"] = replay_phase(X, ds, cfg, cfg_q, EPOCHS)
     runs["ft"] = ft_phase(X, ds, dims, cfg, cfg_q, EPOCHS, runs)
     runs["baselines"] = baseline_phase(X, ds, dims, cfg, runs)
     del X, ds

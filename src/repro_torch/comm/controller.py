@@ -18,8 +18,9 @@ violation.
     the projected per-iteration spend fits the remaining budget.
 
 ``train_adaptive`` is the single-host loop that drives the controller over
-``admm_edges``. ``objective="walltime"`` needs the replay cost model and
-waits for the port's analysis slice.
+``admm_edges``. ``objective="walltime"`` promotes the floor's widths where
+the replay cost model (``analysis.replay.ScheduleCostModel``) predicts no
+cost in time.
 """
 from __future__ import annotations
 
@@ -49,10 +50,15 @@ class ControllerConfig:
     # "at peak" and stays pinned at min_bits, which persists its projection
     # error for the whole run. Global is the accuracy-safe default.
     signal: str = "global"
-    # "bytes": emit the residual-driven accuracy floor directly — the
-    # coarsest schedule the thresholds allow. "walltime" (promote edges
-    # whose finer width the replay cost model predicts to be free in time)
-    # raises until the port has the cost model.
+    # "bytes" (default): emit the residual-driven accuracy floor directly —
+    # the coarsest schedule the thresholds allow. "walltime": treat that
+    # floor as the ACCURACY constraint and spend any bandwidth that is free
+    # in *time*: each edge is promoted to the finest legal width whose
+    # predicted step time (via the replay cost model passed to the
+    # controller) stays within `walltime_slack` of the floor schedule's —
+    # on a padded-container wire the physical payload is schedule-
+    # independent, so precision is free; on a codec wire bigger payloads
+    # cost time and the floor survives. Requires `cost_model`.
     objective: str = "bytes"
     walltime_slack: float = 0.0    # relative predicted-time headroom
 
@@ -77,7 +83,8 @@ class BitWidthController:
     """
 
     def __init__(self, edge_elements: Sequence[int],
-                 config: ControllerConfig = ControllerConfig()):
+                 config: ControllerConfig = ControllerConfig(), *,
+                 cost_model=None):
         if config.byte_budget is not None and not config.total_iters:
             raise ValueError("byte_budget requires total_iters")
         if not [b for b in config.allowed_bits
@@ -87,11 +94,13 @@ class BitWidthController:
                 f"[min_bits={config.min_bits}, max_bits={config.max_bits}]")
         if config.objective not in ("bytes", "walltime"):
             raise ValueError(f"unknown objective {config.objective!r}")
-        if config.objective == "walltime":
-            raise NotImplementedError(
-                "objective='walltime' prices schedules with the replay cost "
-                "model, which comes with the port's analysis slice")
+        if config.objective == "walltime" and cost_model is None:
+            raise ValueError(
+                "objective='walltime' needs a cost_model: a callable "
+                "schedule -> predicted step seconds (see "
+                "repro_torch.analysis.replay.ScheduleCostModel)")
         self.config = config
+        self.cost_model = cost_model
         self.edge_elements = [int(e) for e in edge_elements]
         n = len(self.edge_elements)
         self._bits: List[int] = [config.clamp(config.min_bits)] * n
@@ -173,7 +182,9 @@ class BitWidthController:
             self.n_switches += 1
 
         self._enforce_budget(iteration)
-        self._emitted = tuple(self._bits)
+        self._emitted = (self._walltime_promote(iteration)
+                         if cfg.objective == "walltime"
+                         else tuple(self._bits))
         if iteration < self._cooldown_until:
             # post-rollback cooldown (force_widest): emit the widest legal
             # width on every edge, overriding even the budget — recovering
@@ -219,6 +230,34 @@ class BitWidthController:
         self.n_switches = int(sd["n_switches"])
         self._cooldown_until = int(sd.get("cooldown_until", -1))
 
+    def _walltime_promote(self, iteration: int) -> Tuple[int, ...]:
+        """Promote each edge of the accuracy floor to the finest legal width
+        whose predicted step time stays within ``walltime_slack`` of the
+        floor schedule's, budget permitting. The floor (`self._bits`) keeps
+        evolving under the residual policy with dwell/hysteresis untouched;
+        the emitted schedule is a pure function of it, so it inherits the
+        floor's stability and `n_switches` still counts policy switches
+        only. Promotion only ever ADDS precision, so the residual-driven
+        accuracy guarantee of the floor is preserved."""
+        floor = tuple(self._bits)
+        limit = self.cost_model(floor) * (1.0 + self.config.walltime_slack)
+        per_iter = self._per_iter_budget(iteration)
+        legal = self._legal()
+        bits = list(floor)
+        for i in range(len(bits)):
+            for b in reversed(legal):
+                if b <= bits[i]:
+                    break
+                trial = tuple(bits[:i] + [b] + bits[i + 1:])
+                spend = sum(self._edge_bytes(j, t)
+                            for j, t in enumerate(trial))
+                if per_iter is not None and spend > per_iter:
+                    continue
+                if self.cost_model(trial) <= limit * (1.0 + 1e-9):
+                    bits[i] = b
+                    break
+        return tuple(bits)
+
     def _enforce_budget(self, iteration: int) -> None:
         """Safety net for a shrinking budget (promotions are already
         budget-aware): demote the loosest edges until the projection fits."""
@@ -240,7 +279,8 @@ class BitWidthController:
 
     @property
     def schedule(self) -> Tuple[int, ...]:
-        """The emitted schedule: the residual-driven accuracy floor."""
+        """The emitted schedule: the residual-driven accuracy floor, wall-
+        time-promoted when ``objective='walltime'``."""
         return self._emitted
 
 

@@ -358,6 +358,48 @@ def psum_wire_bytes(codec: WireCodec, shape, world_size: int,
     return PsumWireCost(mode, wire, logical, handshake)
 
 
+@dataclasses.dataclass(frozen=True)
+class PsumProgramPlan:
+    """What one :func:`quantized_psum` call commits to for one (codec,
+    world) point, computed next to the mode rule it follows
+    (:func:`psum_mode`).
+
+      * ``collective``    — the ring collective carrying the payload
+        (``all_gather`` on the gather path, ``psum`` otherwise),
+      * ``operand_dtype`` — that collective's payload dtype (packed uint8
+        container, int32 code sum, or raw fp32),
+      * ``operand_bytes`` — the payload bytes one shard injects, by
+        construction ``psum_wire_bytes(...).wire_bytes``,
+      * ``handshake``     — True iff the affine min/max agreement
+        (``pmin``/``pmax``) runs (a static grid needs none).
+    """
+    mode: str
+    collective: str
+    operand_dtype: str
+    operand_bytes: int
+    handshake: bool
+
+
+def psum_program_plan(codec: WireCodec, shape, world_size: int,
+                      mode: Optional[str] = None) -> PsumProgramPlan:
+    """The program :func:`quantized_psum` runs for this (codec, shape,
+    world) point. Byte accounting defers to :func:`psum_wire_bytes`, so
+    plan and ledger cannot disagree."""
+    cost = psum_wire_bytes(codec, shape, world_size, mode)
+    n = _n_elements(shape)
+    if cost.mode == "psum":
+        return PsumProgramPlan("psum", "psum", "float32", cost.wire_bytes,
+                               False)
+    handshake = isinstance(codec, AffineCodec)
+    if cost.mode == "gather":
+        # the packed container is byte planes whatever the width
+        return PsumProgramPlan("gather", "all_gather", "uint8",
+                               cost.wire_bytes, handshake)
+    assert cost.mode == "code_psum" and cost.wire_bytes == 4 * n
+    return PsumProgramPlan("code_psum", "psum", "int32", cost.wire_bytes,
+                           handshake)
+
+
 def record_psum(ledger, iteration: int, edge: str, codec: WireCodec, shape,
                 world_size: int, mode: Optional[str] = None) -> PsumWireCost:
     """Put one shard's compressed-psum traffic on the ledger: the payload

@@ -82,6 +82,9 @@ def grad_W(p, W, b, z, nu):
 # that passed is never tested again, so τ is the same.
 # ---------------------------------------------------------------------------
 
+MAX_DOUBLINGS = 12    # backtracking rounds (the projected p-update's trials)
+
+
 def _tau0(t0, like):
     """τ0 as f32 (as in the reference) of ``like``'s shape and device. A
     Python number is filled in on the device: a host-to-device copy would
@@ -94,7 +97,7 @@ def _tau0(t0, like):
 
 
 def _backtrack(x0, g, phi_at, phi0, t0, *, grid: Optional[QuantGrid],
-               max_doublings: int = 12):
+               max_doublings: int = MAX_DOUBLINGS):
     """Find τ = t0·2^j with φ(x⁺) <= U(x⁺;τ), x⁺ = proj(x0 - g/τ) (the
     projection only with a grid). One layer; returns (x⁺, τ)."""
     def step(t):
@@ -112,7 +115,7 @@ def _backtrack(x0, g, phi_at, phi0, t0, *, grid: Optional[QuantGrid],
     return step(t), t
 
 
-def _backtrack_scalar(phi0, g_sq, curv, t0, *, max_doublings: int = 12):
+def _backtrack_scalar(phi0, g_sq, curv, t0, *, max_doublings: int = MAX_DOUBLINGS):
     """Matmul-free backtracking:  φ(x0 - g/τ) = φ0 - ||g||²/τ + gᵀHg/(2τ²),
     U(τ) = φ0 - ||g||²/(2τ); τ doubles while φ > U + 1e-6|U|. Every
     input may hold one entry per stacked layer. τ is f32, as in the
@@ -173,7 +176,7 @@ def _zupdate(a, q, z_old, nu, use_kernels: bool):
 
 def update_p(p, W, b, z, q_prev, u_prev, nu, rho, tau0,
              grid: Optional[QuantGrid] = None, r0=None,
-             use_kernels: bool = False, max_doublings: int = 12):
+             use_kernels: bool = False, max_doublings: int = MAX_DOUBLINGS):
     """p-subproblem (Eq. 3 / Eq. 10), matmul-minimal.
 
     Returns ``(p_new, tau_used, r_new)`` with ``r_new = z - p_new W - b``.
@@ -224,7 +227,7 @@ def update_p(p, W, b, z, q_prev, u_prev, nu, rho, tau0,
 
 
 def update_W(p, W, b, z, q_prev, u_prev, nu, rho, theta0, *, first: bool,
-             r0=None, use_kernels: bool = False, max_doublings: int = 12):
+             r0=None, use_kernels: bool = False, max_doublings: int = MAX_DOUBLINGS):
     """W-subproblem (Eq. 4), matmul-minimal.
 
     Returns ``(W_new, theta_used, r_new)`` with ``r_new = z - p W_new - b``.

@@ -6,7 +6,11 @@ mixed-width parts: pdADMM-G-Q trained as a ring of layer-stages
 mesh of ``tiny(V=128)``, with every payload on the ``CommLedger``; the same
 run with the boundary exchange double-buffered (the same bits); and the
 padded-container wire, where a controller gives each ring boundary its own
-width every iteration inside one step.
+width every iteration inside one step. Last, the replay cost model:
+calibrate a cost table from micro-runs on the ring, predict the step's
+time from one recorded step of each overlap variant beside its measured
+time, pick the overlap knob by prediction, and let the walltime objective
+choose the mixed-width schedule.
 
     python -m repro_torch.examples.quantized_comm_demo [--device cpu]
 
@@ -21,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.costs import timed
+from repro_torch.analysis.replay import calibrate, replay
 from repro_torch.comm.codecs import FP32, codec_for_grid
 from repro_torch.comm.controller import (BitWidthController,
                                          ControllerConfig, stage_ring_edges)
@@ -29,7 +35,10 @@ from repro_torch.core.pdadmm import ADMMConfig
 from repro_torch.core.quantize import uniform_grid
 from repro_torch.graph.datasets import tiny
 from repro_torch.parallel import stage_parallel as SP
-from repro_torch.parallel.ring import StageMesh
+from repro_torch.parallel.ring import LocalRing, StageMesh
+
+MIXED = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16, min_dwell=1,
+             hysteresis=0.0, signal="per_edge", thresholds=((0.5, 4), (0.1, 8)))
 
 
 def main(argv=None):
@@ -89,11 +98,8 @@ def main(argv=None):
 
     # per-boundary mixed widths through the padded-container wire
     grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
-    ctl = BitWidthController(
-        stage_ring_edges(mesh.model, V, h),
-        ControllerConfig(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
-                         min_dwell=1, hysteresis=0.0, signal="per_edge",
-                         thresholds=((0.5, 4), (0.1, 8))))
+    ctl = BitWidthController(stage_ring_edges(mesh.model, V, h),
+                             ControllerConfig(**MIXED))
     led_mw = CommLedger()
     _, hist_mw = SP.distributed_train(
         mesh, 0, Xp, ds.labels, ds.masks, L, ds.n_classes,
@@ -106,6 +112,52 @@ def main(argv=None):
     s = led_mw.summary()
     print(f"  ledger: {s['total_bytes']} logical B (active codecs) vs "
           f"{s['wire_bytes']} physical B (padded containers on the link)")
+
+    # the replay cost model: a cost table from micro-runs (never the step
+    # under test), one recorded step per variant as a comm/compute DAG, and
+    # its predicted time beside the measured one
+    ring = LocalRing(mesh, device)
+    costs = calibrate(ring, V=V, h=h, n_classes=ds.n_classes, iters=5)
+    init = SP.shard_stack(SP.init_stack(0, Xp, L, cfg), ring)
+    data = [ring.to_local(x, "rows")
+            for x in (Xp, ds.labels, ds.masks["train"])]
+    print("replay cost model: predicted vs measured step time")
+    for overlap in (False, True):
+        step, _ = SP.make_distributed_step(mesh, L, ds.n_classes, cfg,
+                                           overlap=overlap, ring=ring)
+        carry = init
+        if overlap:
+            primer = SP.make_overlap_primer(mesh, codec_for_grid(g8),
+                                            ring=ring)
+            carry = (init, primer(init.q, init.u))
+        ms = timed(step, carry, *data, iters=5, device=device) * 1e3
+        dag = SP.trace_step_dag(mesh, L, ds.n_classes, cfg, V=V, h=h,
+                                overlap=overlap)
+        pred = replay(dag, costs, n_workers=1).step_time_ms
+        print(f"  overlap={str(overlap):5s}: measured {ms:7.2f} ms   "
+              f"predicted {pred:7.2f} ms")
+    choice = SP.choose_overlap_for(mesh, L, ds.n_classes, cfg, V=V, h=h,
+                                   costs=costs, ring=ring)
+    print(f"  replay-searched choice: overlap={choice}")
+
+    # the same model drives the controller: objective="walltime" keeps the
+    # residual-driven accuracy floor and promotes any boundary whose finer
+    # width the replay predicts to cost no time; on the padded-container
+    # wire every promotion is free (the link carries the capacity either
+    # way), so the schedule rides at the widest legal width
+    cm = SP.step_cost_model(mesh, L, ds.n_classes, cfg, costs, V=V, h=h,
+                            grids_by_bits=grids, mixed_width=True, ring=ring)
+    ctl_wt = BitWidthController(
+        stage_ring_edges(mesh.model, V, h),
+        ControllerConfig(objective="walltime", **MIXED), cost_model=cm)
+    _, hist_wt = SP.distributed_train(
+        mesh, 0, Xp, ds.labels, ds.masks, L, ds.n_classes,
+        ADMMConfig(nu=1e-2, rho=1.0), args.epochs, controller=ctl_wt,
+        grids_by_bits=grids, mixed_width=True)
+    sb, sw = hist_mw["schedules"][-1], hist_wt["schedules"][-1]
+    print(f"walltime objective: bytes floor {tuple(sb)} -> replay-chosen "
+          f"{tuple(sw)} ({cm(sb) * 1e3:.2f} -> {cm(sw) * 1e3:.2f} ms "
+          f"predicted), still 1 step built")
 
 
 if __name__ == "__main__":

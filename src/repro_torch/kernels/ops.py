@@ -7,6 +7,11 @@ is no policy switch and no fallback: on the card, the kernels are the path.
 
 The TPU path's pad-to-tile plan has no counterpart: the CUDA kernels mask
 their ragged edges themselves.
+
+Every dispatch function runs inside :class:`scope`, which a step recorder
+(``analysis.torch_trace``) listens to: one scope is one launch of that
+kernel on the card, whichever version computes it, so a trace on the CPU
+counts the launches the card would make.
 """
 from __future__ import annotations
 
@@ -50,97 +55,145 @@ def reset_launch_counts() -> None:
             mod.launches = 0
 
 
+# the step recorders listening to kernel scopes (innermost last)
+_recorders = []
+
+
+class scope:
+    """One call of kernel ``name`` on ``inputs``; ``launches=False`` where
+    the wrapper returns without a launch (empty inputs, 8-bit codes that
+    are their own container). Costs one list test when nothing records."""
+
+    __slots__ = ("name", "inputs", "launches", "rec")
+
+    def __init__(self, name: str, *inputs, launches: bool = True):
+        self.name, self.inputs, self.launches = name, inputs, launches
+        self.rec = None
+
+    def __enter__(self):
+        if _recorders:
+            self.rec = _recorders[-1]
+            self.rec.enter_kernel(self.name, self.inputs, self.launches)
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec is not None:
+            self.rec.exit_kernel()
+        return False
+
+
 def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
+
+
+def _packs(bits: int) -> bool:
+    """8-bit codes are their own container: no pack/unpack launch."""
+    return not 4 < bits <= 8
 
 
 def fused_linear(p, W, b=None, z=None, *, mode="linear"):
     """p @ W + b (``b=None``: no bias) or z - (p @ W + b); optional leading
     layer axis."""
-    if _on_cpu(p):
-        return ref.fused_linear_ref(p, W, b, z, mode=mode)
-    return _fl.fused_linear(p, W, b, z, mode=mode)
+    with scope("fused_linear", p, W, b, z):
+        if _on_cpu(p):
+            return ref.fused_linear_ref(p, W, b, z, mode=mode)
+        return _fl.fused_linear(p, W, b, z, mode=mode)
 
 
 def admm_pgrad(r, W, u, p, q, *, nu, rho):
     """-ν (r @ Wᵀ) + u + ρ (p - q); optional leading layer axis."""
-    if _on_cpu(r):
-        return ref.admm_pgrad_ref(r, W, u, p, q, nu=nu, rho=rho)
-    return _pg.admm_pgrad(r, W, u, p, q, nu=nu, rho=rho)
+    with scope("admm_pgrad", r, W, u, p, q):
+        if _on_cpu(r):
+            return ref.admm_pgrad_ref(r, W, u, p, q, nu=nu, rho=rho)
+        return _pg.admm_pgrad(r, W, u, p, q, nu=nu, rho=rho)
 
 
 def relu_zupdate(a, q, z_old):
     """Eq.-6 ReLU z-update, elementwise over any shape (the stacked
     [L-1, V, h] block is one launch)."""
-    if _on_cpu(a):
-        return ref.relu_zupdate_ref(a, q, z_old)
-    return _zu.relu_zupdate(a, q, z_old)
+    with scope("relu_zupdate", a, q, z_old):
+        if _on_cpu(a):
+            return ref.relu_zupdate_ref(a, q, z_old)
+        return _zu.relu_zupdate(a, q, z_old)
 
 
 def fista_zlast(a, z_old, labels, label_mask, *, nu, n_iters=15,
                 n_classes=None):
     """z_L solve (Eq. 7): min_z R(z;y) + (ν/2)||z − a||², R the masked CE
     over z[:, :n_classes] (default: the full width)."""
-    if _on_cpu(a):
-        return ref.fista_zlast_ref(a, z_old, labels, label_mask, nu=nu,
-                                   n_iters=n_iters, n_classes=n_classes)
-    C = a.shape[-1] if n_classes is None else int(n_classes)
-    return _fz.fista_zlast(a, z_old, labels, label_mask, nu=float(nu),
-                           n_iters=int(n_iters), n_classes=C)
+    with scope("fista_zlast", a, z_old, labels, label_mask):
+        if _on_cpu(a):
+            return ref.fista_zlast_ref(a, z_old, labels, label_mask, nu=nu,
+                                       n_iters=n_iters, n_classes=n_classes)
+        C = a.shape[-1] if n_classes is None else int(n_classes)
+        return _fz.fista_zlast(a, z_old, labels, label_mask, nu=float(nu),
+                               n_iters=int(n_iters), n_classes=C)
 
 
 def backtrack_resnorm(r0, d, W, active=None):
     """||r0 − d @ W||² per layer (f32 [L] or 0-d); ``active`` (bool or int,
     the leading shape) zeroes and skips the layers whose search stopped."""
-    if _on_cpu(d):
-        return ref.backtrack_resnorm_ref(r0, d, W, active)
-    if active is not None:
-        active = active.to(torch.int32)
-    return _bt.backtrack_resnorm(r0, d, W, active)
+    with scope("backtrack_resnorm", r0, d, W, active):
+        if _on_cpu(d):
+            return ref.backtrack_resnorm_ref(r0, d, W, active)
+        if active is not None:
+            active = active.to(torch.int32)
+        return _bt.backtrack_resnorm(r0, d, W, active)
 
 
 def grid_project(x, grid):
     """Nearest point of ``grid``, elementwise over any shape."""
-    if _on_cpu(x):
-        return ref.grid_project_ref(x, grid)
-    return _qk.grid_project(x, grid)
+    with scope("grid_project", x, launches=x.numel() > 0):
+        if _on_cpu(x):
+            return ref.grid_project_ref(x, grid)
+        return _qk.grid_project(x, grid)
 
 
 def grid_encode(x, grid):
     """Wire codes of x on ``grid`` (uint8 <= 8 bits, uint16 above)."""
-    if _on_cpu(x):
-        return ref.grid_encode_ref(x, grid)
-    return _qk.grid_encode(x, grid)
+    with scope("grid_encode", x, launches=x.numel() > 0):
+        if _on_cpu(x):
+            return ref.grid_encode_ref(x, grid)
+        return _qk.grid_encode(x, grid)
 
 
 def grid_decode(codes, grid, out_dtype=torch.float32):
     """Grid values of wire codes."""
-    if _on_cpu(codes):
-        return ref.grid_decode_ref(codes, grid, out_dtype)
-    return _qk.grid_decode(codes, grid, out_dtype)
+    with scope("grid_decode", codes, launches=codes.numel() > 0):
+        if _on_cpu(codes):
+            return ref.grid_decode_ref(codes, grid, out_dtype)
+        return _qk.grid_decode(codes, grid, out_dtype)
 
 
 def pack_codes(codes, bits: int):
     """Integer codes [n] or [rows, n] -> their uint8 wire container, each
     row on its own (4-bit half-split nibbles, 8-bit identity, 16-bit
     big-endian planes)."""
-    if _on_cpu(codes):
-        return ref.pack_codes_ref(codes, bits)
-    return _pc.pack_codes(codes, bits)
+    with scope("pack_codes", codes,
+               launches=_packs(bits) and codes.numel() > 0):
+        if _on_cpu(codes):
+            return ref.pack_codes_ref(codes, bits)
+        return _pc.pack_codes(codes, bits)
 
 
 def unpack_codes(packed, bits: int, n: int):
     """The first ``n`` codes of each packed row (uint8 <= 8 bits, uint16
     above)."""
-    if _on_cpu(packed):
-        return ref.unpack_codes_ref(packed, bits, n)
-    return _pc.unpack_codes(packed, bits, n)
+    rows = packed.shape[0] if packed.dim() == 2 else 1
+    with scope("unpack_codes", packed,
+               launches=_packs(bits) and rows * n > 0):
+        if _on_cpu(packed):
+            return ref.unpack_codes_ref(packed, bits, n)
+        return _pc.unpack_codes(packed, bits, n)
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0):
     """Exact softmax attention, q [B, S, Hq, D] against k, v [B, T, Hkv, D]
     (GQA by head index), keys j <= i + q_offset when causal."""
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    with scope("flash_attention", q, k, v,
+               launches=q.shape[0] * q.shape[1] > 0):
+        if _on_cpu(q):
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           q_offset=q_offset)
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   q_offset=q_offset)

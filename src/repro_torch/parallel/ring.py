@@ -79,6 +79,15 @@ def _split(n: int, parts: int, what: str) -> int:
     return n // parts
 
 
+def _roll(t, delta: int, dim: int):
+    """``torch.roll`` of any payload: CUDA has no roll for uint16 (16-bit
+    grid codes), so those bits move as int16."""
+    if t.dtype == torch.uint16:
+        return torch.roll(t.view(torch.int16), shifts=delta,
+                          dims=dim).view(torch.uint16)
+    return torch.roll(t, shifts=delta, dims=dim)
+
+
 class LocalRing:
     """Every shard of ``mesh`` in this process: tensors lead with
     ``[data, model]`` at full size, on ``device``."""
@@ -104,7 +113,7 @@ class LocalRing:
         the move is a copy on the device, so it has landed on return."""
         (dim,) = _dims(axis)
         self.shifted_bytes += sum(t.nbytes for t in tensors)
-        return [torch.roll(t, shifts=delta, dims=dim) for t in tensors]
+        return [_roll(t, delta, dim) for t in tensors]
 
     def finish(self, handle) -> List[torch.Tensor]:
         return handle

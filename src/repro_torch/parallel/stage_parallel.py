@@ -30,9 +30,12 @@ last verified one on a failed verdict (``comm.faults``), and
 ``distributed_train`` rolls an unhealthy iteration back to its latest
 checkpoint (``ckpt.manager``).
 
-Not in this slice of the port: the replay cost-model hooks
-``step_program_plan``, ``trace_step_dag``, ``choose_overlap_for``,
-``step_cost_model`` and ``overlap="replay"`` (the analysis slice).
+Replay cost model (``analysis.replay``): :func:`trace_step_dag` records
+one step variant into the replay DAG, :func:`choose_overlap_for` and
+``distributed_train(overlap="replay")`` pick the overlap knob by predicted
+time, :func:`step_cost_model` prices bit-width schedules for the
+controller's ``objective="walltime"``, and :func:`step_program_plan`
+states the collectives and kernel launches a step commits to.
 """
 from __future__ import annotations
 
@@ -42,17 +45,17 @@ import numpy as np
 import torch
 
 from repro_torch.comm import faults as FT
-from repro_torch.comm.codecs import FP32, WireCodec, codec_for_grid
+from repro_torch.comm.codecs import (FP32, AffineCodec, Fp32Codec,
+                                     GridCodec, WireCodec, codec_for_grid)
 from repro_torch.comm.transport import (ContainerExchange, NeighborExchange,
                                         PaddedWire)
 from repro_torch.core import subproblems as sp
 from repro_torch.core.pdadmm import ADMMConfig, _generator, relu, run_chunked
+from repro_torch import resolve_device
 from repro_torch.parallel.ring import LocalRing
 
 # ring-shift tags of the three boundary exchanges (told apart in flight)
 TAG_Q, TAG_U, TAG_P = 0, 1, 2
-
-ANALYSIS_SLICE = "the port's analysis slice (analysis/replay.py)"
 
 
 class StackState(NamedTuple):
@@ -132,10 +135,6 @@ def _fista_last(a, z_old, labels, label_mask, nu, n_classes, n_iters,
                          n_iters, n_classes=n_classes,
                          use_kernels=use_kernels)
     return z.reshape(a.shape)
-
-
-def _not_yet(what: str, where: str):
-    return NotImplementedError(f"{what} comes with {where}")
 
 
 def make_distributed_step(mesh, L: int, n_classes: int,
@@ -702,20 +701,285 @@ def _record_sentinel_headers(ledger, start: int, n: int, mesh,
                            wire_bytes=FT.SENTINEL_HEADER_BYTES * links)
 
 
-def step_program_plan(*args, **kwargs):
-    raise _not_yet("step_program_plan", ANALYSIS_SLICE)
+# ---------------------------------------------------------------------------
+# Replay cost-model hooks: record a step variant into the replay DAG and
+# price schedules and the overlap knob against predicted wall time. They
+# live here because they know how the steps are built.
+# ---------------------------------------------------------------------------
+
+class StepProgramPlan(NamedTuple):
+    """The program one ``make_distributed_step`` configuration commits to,
+    computed next to the step builder that owns it.
+
+      * ``edge_events`` — every ring shift in ISSUE ORDER, as ``(edge,
+        wire_dtype, bytes_per_link)`` (the reference's exactly). Sentinel
+        steps add an ``<edge>.header`` event (int32[2], 8 B) after each
+        payload; payload bytes are ``codec.payload_bytes`` /
+        ``PaddedWire.capacity`` of the boundary slab.
+      * ``n_carried`` — slabs leaving through the carry (2 under overlap:
+        the q/u forward exchange; else 0).
+      * ``min_work_to_consumer`` — matmuls or kernels required between a
+        consumed shift and its first reader (overlap puts the W/b/z solves
+        behind the p shift; 0 is the fused ordering).
+      * ``pallas_calls`` — the reference's name for the per-kernel launch
+        counts of one step, here in ``kernels.ops`` names: what the card
+        launches (``fista_zlast`` once; both routes of a matmul kernel
+        count as that kernel; no launch for 8-bit codes, their own
+        container). Empty with ``use_kernels=False`` or on the CPU, where
+        the plain versions compute.
+      * ``expects_xor`` / ``donate`` / ``takes_widths`` / ``sentinel`` /
+        ``overlap`` — flags for the fault injector, donation, the trailing
+        widths table, headers and the carried exchange.
+    """
+    edge_events: tuple
+    n_carried: int
+    min_work_to_consumer: int
+    pallas_calls: dict
+    expects_xor: bool
+    donate: bool
+    takes_widths: bool
+    sentinel: bool
+    overlap: bool
 
 
-def trace_step_dag(*args, **kwargs):
-    raise _not_yet("trace_step_dag", ANALYSIS_SLICE)
+def _codec_wire_format(codec, slab):
+    """(wire dtype, per-link bytes) of one boundary slab under ``codec``."""
+    if codec.bits >= 32:
+        return "float32", codec.payload_bytes(slab)
+    dtype = "uint8" if codec.bits <= 8 else "uint16"
+    return dtype, codec.payload_bytes(slab)
 
 
-def choose_overlap_for(*args, **kwargs):
-    raise _not_yet("choose_overlap_for", ANALYSIS_SLICE)
+def _widest_widths(wire: PaddedWire, n_stages: int) -> list:
+    """A widths table with every stage at the wire's widest width."""
+    k = len(wire.widths) - 1
+    return [[k] * n_stages, [k] * n_stages]
 
 
-def step_cost_model(*args, **kwargs):
-    raise _not_yet("step_cost_model", ANALYSIS_SLICE)
+def _kernel_launches(config: ADMMConfig, p_codec, q_codec, wire, widths
+                     ) -> dict:
+    """Launches of one ring step on the card."""
+    from repro_torch.kernels.ops import _packs
+    out = {"fused_linear": 3,            # entry residual, gW, pg
+           "admm_pgrad": 1, "relu_zupdate": 1, "fista_zlast": 1}
+
+    def add(name, n=1):
+        out[name] = out.get(name, 0) + n
+
+    if config.quantize_p and config.grid is not None:
+        # one resnorm and one projection per trial, the accepted step's
+        # projection
+        add("backtrack_resnorm", sp.MAX_DOUBLINGS)
+        add("grid_project", sp.MAX_DOUBLINGS + 1)
+    if config.quantize_q and config.grid is not None:
+        add("grid_project")
+    if wire is not None:
+        for sel in widths:               # q then p: encode + decode each
+            for k in sorted(set(sel)):
+                add("grid_encode")
+                add("grid_decode")
+                if _packs(wire.widths[k]):
+                    add("pack_codes")
+                    add("unpack_codes")
+        return out
+    for codec in (q_codec, p_codec):     # u flies fp32
+        if isinstance(codec, Fp32Codec):
+            continue
+        if isinstance(codec, GridCodec):
+            add("grid_encode")
+            add("grid_decode")
+        if isinstance(codec, (GridCodec, AffineCodec)) and codec.bits <= 4:
+            add("pack_codes")
+            add("unpack_codes")
+    return out
+
+
+def step_program_plan(mesh, L: int, n_classes: int, config: ADMMConfig, *,
+                      V: int, h: int, overlap: bool = False,
+                      donate: bool = False,
+                      p_codec: Optional[WireCodec] = None,
+                      q_codec: Optional[WireCodec] = None,
+                      wire: Optional[PaddedWire] = None,
+                      health: bool = False,
+                      faults: Optional[FT.FaultPlan] = None,
+                      widths=None, ring=None, device=None
+                      ) -> StepProgramPlan:
+    """Expected program of this ``make_distributed_step`` kwarg point (its
+    signature plus the ``V``/``h`` problem size, the ``widths`` table a
+    padded wire runs at — default every stage at the widest — and the
+    ``ring`` or ``device`` that sets the kernel policy). Pure bookkeeping:
+    nothing is traced. A sentinel step launches the kernels of the plain
+    one (its checksums, verdicts and flips are PyTorch)."""
+    n_rows = _dp_total(mesh)
+    r0 = shard_rows(V, n_rows)[0]
+    slab = (1, r0, h)
+    if p_codec is None:
+        p_codec = codec_for_grid(config.grid if config.quantize_p else None)
+    if q_codec is None:
+        q_codec = codec_for_grid(config.grid if config.quantize_q else None)
+    sentinel = bool(health) or faults is not None
+
+    if wire is not None:
+        q_fmt = p_fmt = ("uint8", wire.capacity(slab))
+    else:
+        q_fmt = _codec_wire_format(q_codec, slab)
+        p_fmt = _codec_wire_format(p_codec, slab)
+    u_fmt = ("float32", FP32.payload_bytes(slab))
+    fmt = {"q_fwd": q_fmt, "u_fwd": u_fmt, "p_bwd": p_fmt}
+    # issue order: the overlap step STARTS p mid-step and q/u at the tail
+    # (the entry exchange finishes the carry, it issues nothing)
+    order = ("p_bwd", "q_fwd", "u_fwd") if overlap \
+        else ("q_fwd", "u_fwd", "p_bwd")
+    events = []
+    for edge in order:
+        dtype, nbytes = fmt[edge]
+        events.append((edge, dtype, nbytes))
+        if sentinel:
+            events.append((edge + ".header", "int32",
+                           FT.SENTINEL_HEADER_BYTES))
+
+    dev = ring.device if ring is not None else resolve_device(device)
+    pallas = {}
+    if config.use_kernels and dev.type != "cpu":
+        if wire is not None and widths is None:
+            widths = _widest_widths(wire, mesh.shape["model"])
+        pallas = _kernel_launches(config, p_codec, q_codec, wire, widths)
+
+    return StepProgramPlan(
+        edge_events=tuple(events),
+        n_carried=2 if overlap else 0,
+        min_work_to_consumer=2 if overlap else 0,
+        pallas_calls=pallas,
+        expects_xor=faults is not None,
+        donate=donate,
+        takes_widths=wire is not None,
+        sentinel=sentinel,
+        overlap=overlap)
+
+
+def trace_step_program(mesh, L: int, n_classes: int, config: ADMMConfig, *,
+                       V: int, h: int, overlap: bool = False,
+                       p_codec: Optional[WireCodec] = None,
+                       q_codec: Optional[WireCodec] = None,
+                       wire: Optional[PaddedWire] = None, widths=None):
+    """Record one step of this variant (``analysis.torch_trace``) on a
+    ``LocalRing`` of ``mesh``, with shape-only tensors on the CPU
+    (``FakeTensorMode``): nothing computes and nothing is allocated, at
+    any size. The kernels take their plain versions and count the launches
+    the card would make. Returns the ``StepProgram``."""
+    from repro_torch.analysis import torch_trace as tt
+    f32 = torch.float32
+    with tt.fake_mode():
+        inner = LocalRing(mesh, "cpu")
+        rec = tt.StepRecorder(mesh.size)
+        step, _ = make_distributed_step(
+            mesh, L, n_classes, config, overlap=overlap, p_codec=p_codec,
+            q_codec=q_codec, wire=wire, ring=tt.RecordingRing(inner, rec))
+        st = StackState(p=torch.empty((L, V, h), dtype=f32),
+                        W=torch.empty((L, h, h), dtype=f32),
+                        b=torch.empty((L, h), dtype=f32),
+                        z=torch.empty((L, V, h), dtype=f32),
+                        q=torch.empty((L, V, h), dtype=f32),
+                        u=torch.empty((L, V, h), dtype=f32))
+        st = shard_stack(st, inner)
+        args = [inner.to_local(torch.empty((V, h), dtype=f32), "rows"),
+                inner.to_local(torch.empty((V,), dtype=torch.int32), "rows"),
+                inner.to_local(torch.empty((V,), dtype=f32), "rows")]
+        if wire is not None:
+            args.append(widths if widths is not None
+                        else _widest_widths(wire, mesh.shape["model"]))
+        carry = st
+        if overlap:
+            qc = q_codec if q_codec is not None else codec_for_grid(
+                config.grid if config.quantize_q else None)
+            primer = make_overlap_primer(mesh, qc, wire=wire, ring=inner)
+            carry = (st, primer(st.q, st.u, *args[3:]))
+        with rec:
+            step(carry, *args)
+    return rec.program
+
+
+def trace_step_dag(mesh, L: int, n_classes: int, config: ADMMConfig, *,
+                   V: int, h: int, overlap: bool = False,
+                   p_codec: Optional[WireCodec] = None,
+                   q_codec: Optional[WireCodec] = None,
+                   wire: Optional[PaddedWire] = None, widths=None):
+    """Record one step variant (:func:`trace_step_program`) into the replay
+    task DAG (``analysis.replay.extract_step_dag``). The shift events
+    carry their CommLedger edge names in the order each variant issues
+    them: the baseline step q/u at entry and p mid-step, the overlap step p
+    mid-step and q/u at the tail (its entry finishes the carry)."""
+    from repro_torch.analysis import replay as rp
+    program = trace_step_program(mesh, L, n_classes, config, V=V, h=h,
+                                 overlap=overlap, p_codec=p_codec,
+                                 q_codec=q_codec, wire=wire, widths=widths)
+    return rp.extract_step_dag(program, n_stages=mesh.shape["model"],
+                               n_rows=_dp_total(mesh))
+
+
+def _replay_workers(ring, n_workers):
+    """Executor slots of the replay: one for a ``LocalRing`` (one process
+    drives every shard on one stream), else one per device."""
+    if n_workers is not None:
+        return n_workers
+    return 1 if ring is None or isinstance(ring, LocalRing) else None
+
+
+def choose_overlap_for(mesh, L: int, n_classes: int, config: ADMMConfig, *,
+                       V: int, h: int, costs=None, n_workers=None,
+                       ring=None) -> bool:
+    """Replay-search the ``overlap`` knob for this training setup: trace
+    both step variants and keep the predicted-faster one
+    (``analysis.replay.choose_overlap``). With no cost table the hand
+    default (overlap on) comes back without tracing anything."""
+    from repro_torch.analysis import replay as rp
+    if costs is None:
+        return rp.choose_overlap(None, None, None)
+    kw = dict(V=V, h=h)
+    return rp.choose_overlap(
+        trace_step_dag(mesh, L, n_classes, config, overlap=False, **kw),
+        trace_step_dag(mesh, L, n_classes, config, overlap=True, **kw),
+        costs, n_workers=_replay_workers(ring, n_workers))
+
+
+def step_cost_model(mesh, L: int, n_classes: int, config: ADMMConfig,
+                    costs, *, V: int, h: int, grids_by_bits,
+                    mixed_width: bool = True, overlap: bool = False,
+                    n_workers=None, ring=None):
+    """The ``analysis.replay.ScheduleCostModel`` pricing THIS training
+    setup's step: the ``cost_model`` a
+    ``BitWidthController(objective="walltime")`` takes.
+
+    ``mixed_width=True`` prices the padded-container step
+    (``distributed_train(mixed_width=True)``): the shifted payload is the
+    container's fixed capacity whatever the schedule says, so promoting an
+    edge's precision is free in predicted time and the walltime objective
+    spends the whole container. ``mixed_width=False`` prices the
+    uniform-codec path (one managed edge, ``schedule == (bits,)``): the
+    packed payload grows with the width, so a promotion is accepted only
+    when the replay predicts the extra transfer stays hidden."""
+    from repro_torch.analysis import replay as rp
+    r0 = shard_rows(V, _dp_total(mesh))[0]
+    slab = (1, r0, h)
+    u_bytes = FP32.payload_bytes(slab)
+    if mixed_width:
+        wire = PaddedWire.from_grids(grids_by_bits)
+        dag = trace_step_dag(mesh, L, n_classes, config, V=V, h=h,
+                             overlap=overlap, wire=wire)
+        cap = wire.capacity(slab)
+        fixed = {"q_fwd": cap, "p_bwd": cap, "u_fwd": u_bytes}
+        edge_bytes = lambda schedule: fixed             # noqa: E731
+    else:
+        # the DAG's structure does not depend on the width on the codec
+        # path (only the packed payload does): trace once, reprice
+        dag = trace_step_dag(mesh, L, n_classes, config, V=V, h=h,
+                             overlap=overlap)
+
+        def edge_bytes(schedule):
+            b = codec_for_grid(grids_by_bits[schedule[0]]).payload_bytes(slab)
+            return {"q_fwd": b, "p_bwd": b, "u_fwd": u_bytes}
+    return rp.ScheduleCostModel(dag, costs, edge_bytes,
+                                n_workers=_replay_workers(ring, n_workers))
 
 
 _UNSET = object()
@@ -736,9 +1000,9 @@ def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
         if not isinstance(ring, LocalRing):
             raise NotImplementedError(
                 "ckpt= on a ProcessGroupRing (one process per shard) waits "
-                "for the multi-card work (ROADMAP.md, Queue 1 item 8): a "
-                "checkpoint is written by one process that holds every "
-                "shard")
+                "for the multi-card work (ROADMAP.md, Queue 1, \"NCCL "
+                "across several cards\"): a checkpoint is written by one "
+                "process that holds every shard")
         mgr = ckpt if hasattr(ckpt, "save") else CheckpointManager(str(ckpt))
     rec = recovery if recovery is not None else FT.RecoveryConfig()
     n_stages = mesh.shape["model"]
@@ -922,7 +1186,7 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                       faults=None, health: bool = False, ckpt=None,
                       ckpt_every: int = 0, resume: bool = False,
                       recovery=None, ring=None,
-                      init: Optional[StackState] = None):
+                      init: Optional[StackState] = None, cost_table=None):
     """End-to-end stage-parallel training; returns ``(state, hist)`` with
     ``state`` the global stack (:func:`gather_stack`).
 
@@ -978,10 +1242,16 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
     bytes. Not with ``mixed_width=True``; ``ckpt`` not on a
     ``ProcessGroupRing``.
 
-    ``overlap="replay"`` raises: it comes with the analysis slice.
+    ``overlap="replay"`` makes the knob a replay-searched choice: both step
+    variants are traced and the predicted-faster one runs
+    (:func:`choose_overlap_for`, priced by ``cost_table``, a calibrated
+    ``analysis.costs.CostTable``; without one the hand default, overlap
+    on, applies). ``hist["overlap"]`` holds the resolved value.
     """
+    V, h = Xp.shape
     if overlap == "replay":
-        raise _not_yet('overlap="replay"', ANALYSIS_SLICE)
+        overlap = choose_overlap_for(mesh, L, n_classes, config, V=V, h=h,
+                                     costs=cost_table, ring=ring)
     ft_mode = faults is not None or bool(health) or ckpt is not None
     if (resume or ckpt_every) and ckpt is None:
         raise ValueError("resume=/ckpt_every= need ckpt= (a "
@@ -991,7 +1261,6 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
             "mixed_width is not supported with faults/health/ckpt yet: the "
             "fault-tolerant loop drives the uniform-codec step family")
     overlap = bool(overlap)
-    V, h = Xp.shape
     ring = LocalRing(mesh, Xp.device) if ring is None else ring
     state = init_stack(seed, Xp, L, config) if init is None else init
     state = shard_stack(state, ring)

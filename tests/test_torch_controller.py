@@ -94,8 +94,12 @@ def test_invalid_configs_raise_and_walltime_waits():
                                                          max_bits=32))
     with pytest.raises(ValueError, match="objective"):
         tcl.BitWidthController([1], tcl.ControllerConfig(objective="speed"))
-    with pytest.raises(NotImplementedError, match="analysis"):
+    # the walltime objective prices schedules with a replay cost model
+    with pytest.raises(ValueError, match="cost_model"):
         tcl.BitWidthController([1], tcl.ControllerConfig(objective="walltime"))
+    wt = tcl.BitWidthController([1], tcl.ControllerConfig(objective="walltime"),
+                                cost_model=lambda schedule: 1.0)
+    assert wt.assign([1.0], 0) == (16,)
 
 
 # ---------------------------------------------------------------------------

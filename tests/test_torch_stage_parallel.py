@@ -407,10 +407,11 @@ def test_layouts_round_trip_and_data_shard_zero_is_read():
 
 
 def test_unported_options_raise_and_name_their_slice(tmp_path):
-    """What the port still refuses: the replay cost model (the analysis
-    slice), the mixed-width wire under fault tolerance (as the reference
-    refuses it) and checkpoints of a ProcessGroupRing (the multi-card
-    work)."""
+    """What the port still refuses: the mixed-width wire under fault
+    tolerance (as the reference refuses it) and checkpoints of a
+    ProcessGroupRing (the multi-card work). The replay cost model's hooks
+    no longer refuse: ``overlap="replay"`` without a cost table takes the
+    hand default (overlap on), and each hook answers."""
     import torch.distributed as dist
     from repro_torch.comm.faults import FaultPlan
     from repro_torch.parallel.ring import ProcessGroupRing
@@ -418,12 +419,19 @@ def test_unported_options_raise_and_name_their_slice(tmp_path):
     mesh = StageMesh(1, 2)
     cfg = ADMMConfig()
     args = (mesh, 0, Xp, ds.labels, ds.masks, 4, ds.n_classes, cfg, 1)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        SP.distributed_train(*args, overlap="replay")
-    for fn in (SP.step_program_plan, SP.trace_step_dag,
-               SP.choose_overlap_for, SP.step_cost_model):
-        with pytest.raises(NotImplementedError, match="analysis"):
-            fn(mesh, 4, ds.n_classes, cfg)
+    _, hist = SP.distributed_train(*args, overlap="replay",
+                                   ring=LocalRing(mesh, "cpu"))
+    assert hist["overlap"] is True
+    V, h = Xp.shape
+    kw = dict(V=V, h=h)
+    assert SP.step_program_plan(mesh, 4, ds.n_classes, cfg, device="cpu",
+                                **kw).pallas_calls == {}
+    assert SP.trace_step_dag(mesh, 4, ds.n_classes, cfg, **kw).counts()[
+        "ppermute"] == 3
+    assert SP.choose_overlap_for(mesh, 4, ds.n_classes, cfg, **kw) is True
+    assert SP.step_cost_model(mesh, 4, ds.n_classes, cfg, None,
+                              grids_by_bits={4: uniform_grid(4, -2.0, 6.0)},
+                              **kw)((4, 4)) > 0
     grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8)}
     for kw in (dict(health=True), dict(faults=FaultPlan(seed=1)),
                dict(ckpt=str(tmp_path / "ck"))):
@@ -459,6 +467,8 @@ def test_quantized_comm_demo_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "75% saved" in out and "identical trajectory" in out
     assert "1 step built" in out
+    assert "replay-searched choice: overlap=" in out
+    assert "walltime objective" in out and "(16, 16, 16, 16)" in out
 
 
 @pytest.fixture
@@ -469,11 +479,12 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wire", ["grid4", "mixed"])
+@pytest.mark.parametrize("wire", ["grid4", "grid16", "mixed"])
 def test_cuda_ring_with_two_layers_per_stage_matches_plain(cuda, wire):
     """Mesh (2, 2) with L = 4 on the card: two layers per stage (strided
-    boundary slabs), two data shards, the 4-bit packed wire or the mixed
-    containers — through the kernels, against ``use_kernels=False``."""
+    boundary slabs), two data shards, the 4-bit packed wire, the 16-bit
+    codes (uint16 on the ring's shift) or the mixed containers — through
+    the kernels, against ``use_kernels=False``."""
     from repro_torch.kernels import ops
     Xp, ds = _tiny_problem()
     Xp = Xp.to(cuda)
@@ -484,7 +495,7 @@ def test_cuda_ring_with_two_layers_per_stage_matches_plain(cuda, wire):
         cfg = ADMMConfig(nu=1e-2, rho=1.0)
     else:
         cfg = ADMMConfig(nu=1e-2, rho=1.0, quantize_p=True, quantize_q=True,
-                         grid=grids[4])
+                         grid=grids[int(wire[4:])])
     runs = []
     for uk in (True, False):
         if wire == "mixed":
@@ -500,7 +511,10 @@ def test_cuda_ring_with_two_layers_per_stage_matches_plain(cuda, wire):
         counts = ops.launch_counts()
         if uk:
             assert counts["fused_linear"] and counts["fista_zlast"]
-            assert counts["pack_codes"] and counts["unpack_codes"]
+            if wire == "grid16":            # 16-bit codes ship unpacked
+                assert counts["grid_encode"] and counts["grid_decode"]
+            else:
+                assert counts["pack_codes"] and counts["unpack_codes"]
     np.testing.assert_allclose(runs[0][1]["objective"],
                                runs[1][1]["objective"], rtol=1e-3)
 
