@@ -49,7 +49,8 @@ and the script exits non-zero without printing a result:
    bits as ``overlap=False``, the ledger's bytes per iteration equal
    ``wire_bytes_per_iteration`` and the bytes the ring's shifts moved
    (counted from the payload tensors); ms per iteration of the step, and
-   the memory one step allocates without and with ``donate=True``. Then 5
+   the memory one step allocates without and with ``donate=True`` (the
+   donated peak lower). Then 5
    iterations of the mixed-width padded wire (a ``BitWidthController`` over
    ``stage_ring_edges``, widths {4, 8, 16}): one step built, the schedules
    printed, ``pack_codes`` and ``unpack_codes`` launched, the shifts' bytes
@@ -81,6 +82,22 @@ and the script exits non-zero without printing a result:
    per iteration printed beside the bytes objective's; the uniform-codec
    walltime run prints the widths it chose and each candidate's predicted
    ms.
+6c. ``contract_phase``, the program-contract linter
+   (``repro_torch.analysis.contracts``) on the same ring: each of the 11
+   registered step specs widened to mesh (1, 10), V 2485, h 1000, L 10, 7
+   classes, recorded on the card on the ring's data
+   (``check_contracts(..., device="cuda", inputs=...)``) with zero error
+   findings (the table and each spec's seconds printed); the kernel
+   wrappers' counters over one real step equal the recorded launches and
+   ``step_program_plan(...).pallas_calls`` on every spec, and on the
+   ragged V of the ``check_ragged`` specs; the peak memory of one step
+   with ``donate=True`` below the one without (``max_memory_allocated``,
+   reset before each); at full width overlap off on the ``overlap`` spec
+   fires exactly ``schedule.carried`` and ``schedule.work_to_consumer``,
+   and ``use_kernels=False`` on ``baseline`` exactly the dispatch keys;
+   the four psum specs clean on the card; and ``python -m
+   repro_torch.analysis.lint --all --format json`` (the specs' sizes, on
+   the card) exits 0 with no error.
 7. ``ft_phase``, fault tolerance on the same ring (mesh (1, 10)), with
    checkpoints in a ``tempfile.mkdtemp()`` directory deleted at the end:
    (a) ``distributed_train(health=True)`` and a zero-rate ``FaultPlan``
@@ -1332,13 +1349,14 @@ def ring_ms_per_iter(mesh, L, C, cfg, init, data, n=5, overlap=False,
 
 
 def ring_peak_mib(mesh, L, C, cfg, init, data) -> dict:
-    """Device memory one ring step allocates above the state it is given
-    (MiB, ``max_memory_allocated``), without and with ``donate=True``; the
-    donating step must not need more."""
+    """Peak device memory of one ring step without and with
+    ``donate=True``: ``max_memory_allocated`` with the peak counter reset
+    just before each step, absolute and above what was allocated before
+    it (MiB). Gate: the donated peak is lower."""
     from repro_torch.parallel import stage_parallel as SP
     from repro_torch.parallel.ring import LocalRing
     ring = LocalRing(mesh, init.p.device)
-    peak = {}
+    out = {}
     for donate in (False, True):
         step, _ = SP.make_distributed_step(mesh, L, C, cfg, donate=donate,
                                            ring=ring)
@@ -1349,12 +1367,15 @@ def ring_peak_mib(mesh, L, C, cfg, init, data) -> dict:
         torch.cuda.reset_peak_memory_stats()
         st, m = step(st, *data)
         float(m["objective"])
-        peak["donate" if donate else "plain"] = \
-            (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["donate" if donate else "plain"] = {
+            "peak_mib": peak / 2 ** 20, "above_mib": (peak - base) / 2 ** 20,
+            "base_mib": base / 2 ** 20}
         del st, m
-    if peak["donate"] > peak["plain"]:
-        raise AssertionError(f"donate=True needs more memory: {peak}")
-    return peak
+    if not out["donate"]["peak_mib"] < out["plain"]["peak_mib"]:
+        raise AssertionError(f"the donated step's peak is not lower: {out}")
+    return out
 
 
 def dist_phase(X, ds, cfg, cfg_q, epochs):
@@ -1443,7 +1464,8 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
               f"kernels with overlap {ms_overlap:.3f}; ledger bytes per "
               f"iteration {per_iter} = bytes the shifts moved "
               f"{ring.shifted_bytes // epochs}; peak MiB above the state "
-              f"in one step: {peak}", flush=True)
+              f"in one step: plain {peak['plain']['above_mib']}, donated "
+              f"{peak['donate']['above_mib']}", flush=True)
         out[name] = {"launches": counts, "iterations": epochs,
                      "objective": obj.tolist(),
                      "objective_plain": h_plain["objective"],
@@ -1791,6 +1813,132 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
     out["walltime_uniform"] = {"schedules": [int(b) for b in hu["schedules"]],
                                "predicted_ms": cand,
                                "objective": hu["objective"]}
+    return out
+
+
+def contract_phase(X, ds, cfg) -> dict:
+    """The program-contract linter on the ring of mesh (1, 10) (the module
+    docstring, phase 6c): every step spec at full width on the card,
+    clean; the wrappers' counters over one real step equal the plan
+    (ragged views too); the donated step's peak memory below the plain
+    one's; full-width mutations fire their keys; the psum specs and the
+    CLI at the specs' sizes."""
+    from repro_torch.analysis import contracts as CT
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    t_phase = time.perf_counter()
+    dev = X.device
+    Xp = ring_problem(X, ds, dev)
+    V, h = Xp.shape
+    L, C = STAGES, ds.n_classes
+    mesh = StageMesh(1, STAGES)
+    inputs = (Xp, ds.labels, ds.masks["train"])
+    full = {s.name: dataclasses.replace(s, mesh=(1, STAGES), V=V, h=h, L=L,
+                                        n_classes=C)
+            for s in CT.STEP_SPECS}
+    out = {"seconds": {}, "launches": {}}
+
+    findings = []
+    for name, spec in full.items():
+        t0 = time.perf_counter()
+        findings += CT.check_contracts(spec, device=dev, inputs=inputs)
+        out["seconds"][name] = time.perf_counter() - t0
+    print(f"contract: {len(full)} step specs at full width (mesh (1, "
+          f"{STAGES}), V {V}, h {h}, L {L}, C {C}) on the card:", flush=True)
+    print(CT.summary_table(findings, list(full)), flush=True)
+    for f in findings:
+        print(f"  {f.severity.upper():5s} {f.config}: [{f.key}] {f.message}")
+    print("  seconds per spec: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["seconds"].items()), flush=True)
+    out["findings"] = [f.to_dict() for f in findings]
+    errors = [f for f in findings if f.severity == "error"]
+    if errors:
+        raise AssertionError(f"contract: {len(errors)} error finding(s) at "
+                             f"full width: {[f.to_dict() for f in errors]}")
+
+    # the wrappers' own counters over one real step == the plan
+    for name, spec in full.items():
+        view = CT.ProgramView(spec, device=dev, inputs=inputs)
+        want = view.plan.pallas_calls
+        got = {"counted": view.launches, "recorded": view.pallas_counts}
+        if spec.check_ragged:
+            ragged = view.ragged_view()
+            got["ragged_V"] = ragged.spec.V
+            got["ragged_counted"] = ragged.launches
+            if ragged.launches != want:
+                raise AssertionError(f"contract {name}: ragged V "
+                                     f"{ragged.spec.V} counted "
+                                     f"{ragged.launches} != plan {want}")
+        if not view.launches == view.pallas_counts == want:
+            raise AssertionError(f"contract {name}: counted "
+                                 f"{view.launches}, recorded "
+                                 f"{view.pallas_counts}, plan {want}")
+        out["launches"][name] = dict(got, plan=want)
+    print("  launches counted == recorded == plan on every spec; ragged: "
+          + ", ".join(f"{k} V={v['ragged_V']} {v['ragged_counted']}"
+                      for k, v in out["launches"].items()
+                      if "ragged_V" in v), flush=True)
+
+    # peak memory of one step, plain and donated
+    ring = LocalRing(mesh, dev)
+    data = [ring.to_local(x, "rows") for x in inputs]
+    out["peak"] = ring_peak_mib(mesh, L, C, cfg,
+                                SP.init_stack(0, Xp, L, cfg), data)
+    pk = out["peak"]
+    print(f"  peak memory of one step: plain {pk['plain']['peak_mib']:.1f} "
+          f"MiB ({pk['plain']['above_mib']:.1f} above its start), donated "
+          f"{pk['donate']['peak_mib']:.1f} MiB "
+          f"({pk['donate']['above_mib']:.1f} above its start)", flush=True)
+
+    # mutations at full width fire exactly their keys
+    muts = {"overlap_off": (full["overlap"], dict(overrides={"overlap":
+                                                             False})),
+            "use_kernels_off": (full["baseline"], dict(
+                overrides={"use_kernels": False}, families=["dispatch"]))}
+    want_keys = {"overlap_off": ["schedule.carried",
+                                 "schedule.work_to_consumer"],
+                 "use_kernels_off": ["dispatch.pallas_calls",
+                                     "dispatch.ragged_fallback"]}
+    out["mutations"] = {}
+    for k, (spec, kw) in muts.items():
+        fs = CT.check_contracts(spec, device=dev, inputs=inputs, **kw)
+        keys = sorted({f.key for f in fs if f.severity == "error"})
+        out["mutations"][k] = keys
+        if keys != want_keys[k]:
+            raise AssertionError(f"contract mutation {k}: fired {keys}, "
+                                 f"want {want_keys[k]}")
+    print(f"  mutations at full width: {out['mutations']}", flush=True)
+
+    # the psum specs on the card, at their sizes
+    ps = []
+    for spec in CT.PSUM_SPECS:
+        ps += CT.check_contracts(spec, device=dev)
+    if [f for f in ps if f.severity == "error"]:
+        raise AssertionError(f"contract psum: {[f.to_dict() for f in ps]}")
+    print(f"  psum specs clean on the card: "
+          f"{[s.name for s in CT.PSUM_SPECS]}", flush=True)
+
+    # the CLI, every spec at its size, recorded on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis.lint",
+                          "--all", "--format", "json"], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"contract: lint --all exited {res.returncode}:"
+                             f" {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    report = json.loads(res.stdout)
+    if report["device"] != "cuda" or report["counts"]["error"]:
+        raise AssertionError(f"contract: lint report {report['device']} "
+                             f"{report['counts']}")
+    out["cli"] = {"seconds": time.perf_counter() - t0,
+                  "counts": report["counts"],
+                  "device_name": report["device_name"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  lint --all --format json on {report['device_name']}: exit 0, "
+          f"{report['counts']} in {out['cli']['seconds']:.1f} s; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3125,6 +3273,7 @@ def main() -> int:
               flush=True)
     runs.update(dist_phase(X, ds, cfg, cfg_q, EPOCHS))
     runs["replay"] = replay_phase(X, ds, cfg, cfg_q, EPOCHS)
+    runs["contract"] = contract_phase(X, ds, cfg)
     runs["ft"] = ft_phase(X, ds, dims, cfg, cfg_q, EPOCHS, runs)
     runs["baselines"] = baseline_phase(X, ds, dims, cfg, runs)
     del X, ds

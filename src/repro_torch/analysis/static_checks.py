@@ -1,9 +1,10 @@
 """Source-level static passes: examples staleness and dead code.
 
 Counterpart of ``repro.analysis.static_checks``, pointed at the port
-(``src/repro_torch`` and its ``examples/``). Both passes are pure
-``ast`` (the standard library only) and emit :class:`Finding` records in
-the reference's format.
+(``src/repro_torch`` and its ``examples/``). Both passes read source
+with ``ast`` and emit the
+:class:`~repro_torch.analysis.contracts.Finding` records of the trace-level
+contract families, so one report holds both.
 
 * :func:`check_examples` — every ``repro_torch.*`` import in the examples
   must resolve, every keyword argument passed to a resolvable
@@ -16,11 +17,12 @@ the reference's format.
 from __future__ import annotations
 
 import ast
-import dataclasses
 import fnmatch
 import importlib
 import inspect
 import os
+
+from repro_torch.analysis.contracts import Finding
 
 PACKAGE = "repro_torch"
 
@@ -37,25 +39,6 @@ DEADCODE_IGNORE = {
         "architecture tables kept importable for the serving surface even "
         "where no test instantiates them, so unused symbols are expected",
 }
-
-
-@dataclasses.dataclass
-class Finding:
-    """One violation (or informational note) in one file."""
-    key: str                     # "family.name"
-    severity: str                # error | warn | info
-    config: str                  # the file's repo-relative path
-    message: str
-    details: dict = dataclasses.field(default_factory=dict)
-
-    @property
-    def family(self) -> str:
-        return self.key.split(".", 1)[0]
-
-    def to_dict(self) -> dict:
-        return {"key": self.key, "severity": self.severity,
-                "config": self.config, "message": self.message,
-                "details": self.details}
 
 
 def _rel(path: str, root: str) -> str:

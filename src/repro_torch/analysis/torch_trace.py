@@ -19,18 +19,31 @@ once:
   * every collective, through :class:`RecordingRing`, a proxy around the
     step's ring: one record per ``shift`` (prim ``ppermute``), ``psum``,
     ``pmin``, ``pmax`` and ``all_gather``, with the wire dtype, the bytes
-    it moves over all the shards this process holds, and for a shift the
-    CommLedger edge name its tag stands for. The ring's own work inside a
-    collective (a ``LocalRing`` shift is a ``torch.roll``) is the
-    collective, not compute, and is not recorded again.
+    it moves over all the shards this process holds, for a shift the
+    CommLedger edge name its tag stands for, and its ``moves``: one
+    ``(dtype, bytes per shard)`` per tensor it carries. A jaxpr has one
+    ``ppermute`` per leaf, so a sentinel shift (payload and header in one
+    call) is two events of the reference's trace; the walkers below count
+    moves, not calls. The ring's own work inside a collective (a
+    ``LocalRing`` shift is a ``torch.roll``) is the collective, not
+    compute, and is not recorded again.
+
+Each op record also keeps the dtypes it reads and writes (``dtypes``, for
+the no-float64 contract) and, for a ``copy_``, the storage it writes
+(``dest``, for the donation contracts). A kernel record keeps the dtypes
+of its scope's inputs only: what its plain version computes in between is
+not the kernel's program (``core.quantize.mul_add`` widens to float64 on
+the CPU where the kernel rounds one fused f32 multiply-add).
 
 Consumption. The recorder keeps the storages of each collective's outputs
 (``untyped_storage()`` identity, so a view is the same storage; the
 outputs of a shift are what ``finish`` returns). The first later record
-that reads one of them is the event's consumer; ``work_to_consumer``
-counts the matmul and kernel records between issue and consumer, and an
-event whose outputs are never read within the step is ``carried`` — the
-classification of ``jaxpr_tools.collective_profile``. A ``finish`` of a
+that reads a move's output is that move's consumer; its work counts the
+matmul and kernel records between issue and consumer, and a move whose
+output is never read within the step is ``carried`` — the classification
+of ``jaxpr_tools.collective_profile``, which :func:`collective_profile`
+reads per move. A call's ``consumer`` and ``work_to_consumer`` are its
+earliest move's (what ``replay.extract_step_dag`` reads). A ``finish`` of a
 handle the recorder did not issue (an overlapped carry started in the
 previous step) records nothing, as the reference's entry decode of its
 carry is no collective.
@@ -38,11 +51,15 @@ carry is no collective.
 Trace under :func:`fake_mode` (a ``FakeTensorMode``) and nothing computes: a
 full-size step traces on the CPU in a moment, through the plain versions
 of the kernels, which count the same launches.
+
+The walkers :func:`count_primitive`, :func:`count_primitives`,
+:func:`collective_profile` and :func:`ppermute_moves` are the
+counterparts of ``jaxpr_tools``' over a :class:`StepProgram`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -64,21 +81,47 @@ class Record:
     ``kind``: ``"matmul"`` / ``"op"`` (an aten op outside any kernel),
     ``"kernel"`` (one launch; ``flops``/``bytes`` are those of the ops
     inside its scope) or ``"collective"``. Collectives carry ``prim``,
-    ``dtype``, ``wire_bytes`` (over every shard held here), ``edge``,
-    ``delta`` (a shift's ring step), and after the trace ``consumer``
-    (index of the first reading record, ``None`` if carried) and
-    ``work_to_consumer``."""
+    ``wire_bytes`` (over every shard held here), ``edge``, ``delta`` (a
+    shift's ring step), ``moves`` (one ``(dtype, bytes per shard)`` per
+    tensor), ``group`` (the shards it spans), and after the trace, per
+    move, ``move_consumers`` (index of the first reading record, ``None``
+    if carried) and ``move_work``. The call's ``dtype``, ``consumer`` and
+    ``work_to_consumer`` derive from its moves."""
     kind: str
     name: str
     flops: float = 0.0
     bytes: float = 0.0
     prim: Optional[str] = None
-    dtype: Optional[str] = None
     wire_bytes: int = 0
     edge: Optional[str] = None
     delta: int = 0
-    consumer: Optional[int] = None
-    work_to_consumer: int = 0
+    moves: Tuple[Tuple[str, int], ...] = ()   # (dtype, bytes per shard)
+    move_consumers: List[Optional[int]] = dataclasses.field(
+        default_factory=list)
+    move_work: List[int] = dataclasses.field(default_factory=list)
+    group: int = 1                  # shards a collective spans
+    dot_bytes: float = 0.0          # matmul operands and results
+    dtypes: Tuple[str, ...] = ()    # dtypes read and written
+    dest: Optional[int] = None      # storage a copy_ writes
+
+    @property
+    def dtype(self) -> Optional[str]:
+        """The wire dtype of the first tensor moved."""
+        return self.moves[0][0] if self.moves else None
+
+    @property
+    def consumer(self) -> Optional[int]:
+        """The first record that reads any move's output, ``None`` if
+        none does."""
+        read = [c for c in self.move_consumers if c is not None]
+        return min(read) if read else None
+
+    @property
+    def work_to_consumer(self) -> int:
+        """The matmul and kernel records between issue and
+        :attr:`consumer` (0 if carried)."""
+        return min((w for c, w in zip(self.move_consumers, self.move_work)
+                    if c is not None), default=0)
 
     @property
     def carried(self) -> bool:
@@ -105,14 +148,46 @@ class StepProgram:
                 and (prim is None or r.prim == prim)]
 
     def collective_profile(self, prim: str = "ppermute") -> List[dict]:
-        """``jaxpr_tools.collective_profile``'s rows for ``prim``."""
-        return [{"dtype": r.dtype, "carried": r.carried,
-                 "work_to_consumer": r.work_to_consumer}
-                for r in self.collectives(prim)]
+        """``jaxpr_tools.collective_profile``'s rows for ``prim``: one per
+        tensor moved (:func:`collective_profile`)."""
+        return collective_profile(self, prim)
+
+
+def count_primitive(program: StepProgram, name: str) -> int:
+    """Records named ``name``: an aten op (``"bitwise_xor"``), a kernel
+    launch (``"fused_linear"``) or a collective (``"pmin"``)."""
+    return sum(1 for r in program.records if r.name == name)
+
+
+def count_primitives(program: StepProgram, names) -> int:
+    """:func:`count_primitive` over a set of names."""
+    return sum(count_primitive(program, n) for n in names)
+
+
+def collective_profile(program: StepProgram,
+                       prim: str = "ppermute") -> List[dict]:
+    """``jaxpr_tools.collective_profile``'s rows: one per tensor a ``prim``
+    collective moved, in issue order, with its wire ``dtype``, whether no
+    later record reads it within the step (``carried``) and the matmul
+    and kernel records between issue and its first reader
+    (``work_to_consumer``)."""
+    return [{"dtype": dt, "carried": c is None, "work_to_consumer": w}
+            for r in program.collectives(prim)
+            for (dt, _), c, w in zip(r.moves, r.move_consumers, r.move_work)]
+
+
+def ppermute_moves(program: StepProgram) -> List[Tuple[str, int]]:
+    """Every shift's moved tensors in issue order: ``(dtype, bytes per
+    shard)``, the reference's ``_ppermute_moves`` (per device)."""
+    return [m for r in program.collectives("ppermute") for m in r.moves]
 
 
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def _dtype_names(tensors) -> Tuple[str, ...]:
+    return tuple(sorted({_dtype_name(t.dtype) for t in tensors}))
 
 
 def _storage_key(t: torch.Tensor):
@@ -157,7 +232,8 @@ class StepRecorder(TorchDispatchMode):
         self.records: List[Record] = []
         self.n_shards = int(n_shards)
         self.edges = STAGE_EDGES if edges is None else dict(edges)
-        self._pending: Dict[int, List[int]] = {}   # storage -> record indices
+        # storage -> (record index, move) of the collective outputs in it
+        self._pending: Dict[int, List[Tuple[int, int]]] = {}
         self._keep: List[torch.Tensor] = []        # pin tracked storages
         self._kernel: Optional[int] = None         # the open kernel record
         self._depth = 0                            # nested kernel scopes
@@ -180,9 +256,11 @@ class StepRecorder(TorchDispatchMode):
         for r in self.records:
             work.append(work[-1] + (r.kind in WORK_KINDS))
         for i, r in enumerate(self.records):
-            if r.kind == "collective" and r.consumer is not None:
-                # work strictly between issue i and consumer c
-                r.work_to_consumer = work[r.consumer] - work[i + 1]
+            if r.kind != "collective":
+                continue
+            # work strictly between issue i and consumer c
+            r.move_work = [0 if c is None else work[c] - work[i + 1]
+                           for c in r.move_consumers]
         return StepProgram(self.records, self.n_shards)
 
     # -- reads and writes ----------------------------------------------------
@@ -192,13 +270,16 @@ class StepRecorder(TorchDispatchMode):
         if not self._pending:
             return
         for t in tensors:
-            for i in self._pending.pop(_storage_key(t), ()):
-                if self.records[i].consumer is None:
-                    self.records[i].consumer = at
+            for i, k in self._pending.pop(_storage_key(t), ()):
+                r = self.records[i]
+                if r.move_consumers[k] is None:
+                    r.move_consumers[k] = at
 
     def _produced(self, index: int, tensors) -> None:
-        for t in tensors:
-            self._pending.setdefault(_storage_key(t), []).append(index)
+        """Output ``k`` of collective ``index`` is ``tensors[k]`` (one per
+        move; a reduction's one output is its one move)."""
+        for k, t in enumerate(tensors):
+            self._pending.setdefault(_storage_key(t), []).append((index, k))
             self._keep.append(t)
 
     # -- kernel scopes (kernels.ops.scope) -----------------------------------
@@ -208,9 +289,10 @@ class StepRecorder(TorchDispatchMode):
             return                      # inside another kernel: one launch
         if launches:                    # else the ops inside read them
             self._kernel = len(self.records)
-            self.records.append(Record("kernel", name))
-            self._read([t for t in inputs if isinstance(t, torch.Tensor)],
-                       self._kernel)
+            tensors = [t for t in inputs if isinstance(t, torch.Tensor)]
+            self.records.append(Record("kernel", name,
+                                       dtypes=_dtype_names(tensors)))
+            self._read(tensors, self._kernel)
 
     def exit_kernel(self) -> None:
         self._depth -= 1
@@ -225,31 +307,41 @@ class StepRecorder(TorchDispatchMode):
             return out
         name = func.overloadpacket.__name__
         is_mm = name in MATMUL_OPS
+        ins = _tensors((args, kwargs))
         flops = _matmul_flops(name, args) if is_mm else 0.0
         nbytes = 0.0 if is_mm else _out_bytes(out)
+        dot = _out_bytes(ins) + _out_bytes(out) if is_mm else 0.0
         if self._kernel is not None:
             rec = self.records[self._kernel]
             rec.flops += flops
             rec.bytes += nbytes
-            self._read(_tensors((args, kwargs)), self._kernel)
+            rec.dot_bytes += dot
+            self._read(ins, self._kernel)
             return out
-        if self._depth:                 # a scope that makes no launch
-            self._read(_tensors((args, kwargs)), len(self.records))
-            self.records.append(Record("op", name, bytes=nbytes))
-            return out
-        self._read(_tensors((args, kwargs)), len(self.records))
-        self.records.append(Record("matmul" if is_mm else "op", name,
-                                   flops=flops, bytes=nbytes))
+        self._read(ins, len(self.records))
+        kind = "matmul" if is_mm and not self._depth else "op"
+        dest = (_storage_key(args[0]) if name == "copy_"
+                and isinstance(args[0], torch.Tensor) else None)
+        # a scope that makes no launch records its ops as plain ops
+        self.records.append(Record(
+            kind, name, flops=flops if kind == "matmul" else 0.0,
+            bytes=nbytes, dot_bytes=dot if kind == "matmul" else 0.0,
+            dtypes=_dtype_names(ins + _tensors(out)), dest=dest))
         return out
 
     # -- collectives (RecordingRing) ---------------------------------------------
-    def collective(self, prim: str, inputs, dtype, wire_bytes: int,
-                   edge: Optional[str] = None, delta: int = 0) -> int:
+    def collective(self, prim: str, inputs, wire_bytes: int,
+                   edge: Optional[str] = None, delta: int = 0,
+                   group: int = 1) -> int:
+        """Record one collective over ``inputs`` (one move each)."""
         index = len(self.records)
         self._read(inputs, index)
+        moves = tuple((_dtype_name(t.dtype),
+                       t.numel() * t.element_size() // self.n_shards)
+                      for t in inputs)
         self.records.append(Record(
-            "collective", prim, prim=prim, dtype=_dtype_name(dtype),
-            wire_bytes=int(wire_bytes), edge=edge, delta=delta))
+            "collective", prim, prim=prim, wire_bytes=int(wire_bytes), edge=edge, delta=delta, moves=moves,
+            move_consumers=[None] * len(moves), group=int(group)))
         return index
 
 
@@ -271,12 +363,20 @@ class RecordingRing:
         finally:
             self._rec._quiet -= 1
 
+    def _group(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = 1
+        for a in axes:
+            n *= self._ring.axis_size(a)
+        return n
+
     def shift(self, tensors, delta: int, axis: str = "model", tag: int = 0):
         tensors = list(tensors)
         index = self._rec.collective(
-            "ppermute", tensors, tensors[0].dtype,
+            "ppermute", tensors,
             sum(t.numel() * t.element_size() for t in tensors),
-            edge=self._rec.edges.get(tag), delta=delta)
+            edge=self._rec.edges.get(tag), delta=delta,
+            group=self._group(axis))
         return _Handle(self._quietly(self._ring.shift, tensors, delta, axis,
                                      tag), index)
 
@@ -288,8 +388,8 @@ class RecordingRing:
         return out
 
     def _reduce(self, prim: str, x, axes):
-        index = self._rec.collective(prim, [x], x.dtype,
-                                     x.numel() * x.element_size())
+        index = self._rec.collective(prim, [x], x.numel() * x.element_size(),
+                                     group=self._group(axes))
         out = self._quietly(getattr(self._ring, prim), x, axes)
         self._rec._produced(index, [out])
         return out
@@ -305,8 +405,9 @@ class RecordingRing:
 
     def all_gather(self, x, axis: str):
         n = self._ring.axis_size(axis)
-        index = self._rec.collective("all_gather", [x], x.dtype,
-                                     n * x.numel() * x.element_size())
+        index = self._rec.collective("all_gather", [x],
+                                     n * x.numel() * x.element_size(),
+                                     group=n)
         out = self._quietly(self._ring.all_gather, x, axis)
         self._rec._produced(index, [out])
         return out

@@ -120,8 +120,11 @@ class LocalRing:
 
     # -- collectives ---------------------------------------------------------
     def psum(self, x, axes):
-        """Sum over the named shard axes; those axes keep size 1."""
-        return x.sum(dim=_dims(axes), keepdim=True)
+        """Sum over the named shard axes; those axes keep size 1. The sum
+        keeps x's dtype (an int32 psum wraps in int32, as an all-reduce
+        does; ``torch.sum`` alone would widen integers to int64)."""
+        dtype = None if x.dtype == torch.bool else x.dtype
+        return x.sum(dim=_dims(axes), keepdim=True, dtype=dtype)
 
     def pmin(self, x, axes):
         return x.amin(dim=_dims(axes), keepdim=True)

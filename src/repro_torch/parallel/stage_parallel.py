@@ -39,6 +39,7 @@ states the collectives and kernel launches a step commits to.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -857,46 +858,129 @@ def step_program_plan(mesh, L: int, n_classes: int, config: ADMMConfig, *,
         overlap=overlap)
 
 
-def trace_step_program(mesh, L: int, n_classes: int, config: ADMMConfig, *,
-                       V: int, h: int, overlap: bool = False,
-                       p_codec: Optional[WireCodec] = None,
-                       q_codec: Optional[WireCodec] = None,
-                       wire: Optional[PaddedWire] = None, widths=None):
-    """Record one step of this variant (``analysis.torch_trace``) on a
-    ``LocalRing`` of ``mesh``, with shape-only tensors on the CPU
-    (``FakeTensorMode``): nothing computes and nothing is allocated, at
-    any size. The kernels take their plain versions and count the launches
-    the card would make. Returns the ``StepProgram``."""
+class RecordedStep(NamedTuple):
+    """One recorded call of a step (:func:`record_step`): its program, the
+    carry and arguments it was given, what it returned, and on the card the
+    launches the kernel wrappers counted during the call (``{}`` on the
+    CPU, where the plain versions compute)."""
+    program: object
+    carry: object
+    args: tuple
+    out: object
+    launches: dict
+
+
+def _step_inputs(L: int, V: int, h: int, n_classes: int, ring,
+                 shapes_only: bool, config: ADMMConfig, inputs=None):
+    """A stack state and (Xp, labels, label_mask) in the ring's shard
+    layout: empty tensors for a shape-only trace; with ``inputs`` (global
+    Xp, labels, label_mask) those and the forward-consistent
+    ``init_stack`` (seed 0); else random values from seed 0 on the ring's
+    device (labels below ``n_classes``)."""
+    f32, dev = torch.float32, ring.device
+    shapes = StackState(p=(L, V, h), W=(L, h, h), b=(L, h), z=(L, V, h),
+                        q=(L, V, h), u=(L, V, h))
+    if inputs is not None:
+        data = tuple(x.to(dev) for x in inputs)
+        st = init_stack(0, data[0], L, config)
+    elif shapes_only:
+        st = StackState(*(torch.empty(s, dtype=f32) for s in shapes))
+        data = (torch.empty((V, h), dtype=f32),
+                torch.empty((V,), dtype=torch.int32),
+                torch.empty((V,), dtype=f32))
+    else:
+        g = torch.Generator(device=dev).manual_seed(0)
+        st = StackState(*(torch.randn(s, generator=g, device=dev)
+                          for s in shapes))
+        data = (torch.randn((V, h), generator=g, device=dev),
+                torch.randint(0, n_classes, (V,), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.ones((V,), dtype=f32, device=dev))
+    return (shard_stack(st, ring),
+            [ring.to_local(x, "rows") for x in data])
+
+
+def record_step(mesh, L: int, n_classes: int, config: ADMMConfig, *,
+                V: int, h: int, overlap: bool = False, donate: bool = False,
+                p_codec: Optional[WireCodec] = None,
+                q_codec: Optional[WireCodec] = None,
+                wire: Optional[PaddedWire] = None, health: bool = False,
+                faults: Optional[FT.FaultPlan] = None, widths=None,
+                device=None, wrap=None, inputs=None) -> RecordedStep:
+    """Record one call of the ``make_distributed_step`` step of this kwarg
+    point (``analysis.torch_trace``) on a ``LocalRing`` of ``mesh``.
+
+    ``device=None`` and no fault plan: shape-only tensors on the CPU
+    (``FakeTensorMode``); nothing computes and nothing is allocated, at any
+    size. The kernels take their plain versions and count the launches the
+    card would make.
+
+    Otherwise random state and data from seed 0 on ``device`` (default the
+    card, raising without one: a fault plan's controls are data, so a
+    ``faults=`` step always records real tensors), and the step really
+    runs: on the card through the kernels, whose wrappers' counters are
+    read around the call (``RecordedStep.launches``).
+    ``inputs`` (global ``(Xp, labels, label_mask)``) replaces the random
+    data, and the state is ``init_stack(0, Xp, L, config)``.
+
+    Everything the step takes is built as its caller builds it: the
+    padded wire's ``widths`` table (default every stage at the widest),
+    the sentinel step's primed good slabs and its tick-0 controls (the
+    plan's, else the all-clear ones), the overlap step's primed carry.
+    ``wrap`` post-composes onto the step (``wrap(step)`` is recorded)."""
     from repro_torch.analysis import torch_trace as tt
-    f32 = torch.float32
-    with tt.fake_mode():
-        inner = LocalRing(mesh, "cpu")
+    from repro_torch.kernels import ops
+    shapes_only = device is None and faults is None
+    dev = torch.device("cpu") if shapes_only else resolve_device(device)
+    n_stages = mesh.shape["model"]
+    sentinel = bool(health) or faults is not None
+    if p_codec is None:
+        p_codec = codec_for_grid(config.grid if config.quantize_p else None)
+    if q_codec is None:
+        q_codec = codec_for_grid(config.grid if config.quantize_q else None)
+    with (tt.fake_mode() if shapes_only else contextlib.nullcontext()):
+        inner = LocalRing(mesh, dev)
         rec = tt.StepRecorder(mesh.size)
+        codecs = {} if wire is not None else dict(p_codec=p_codec,
+                                                  q_codec=q_codec)
         step, _ = make_distributed_step(
-            mesh, L, n_classes, config, overlap=overlap, p_codec=p_codec,
-            q_codec=q_codec, wire=wire, ring=tt.RecordingRing(inner, rec))
-        st = StackState(p=torch.empty((L, V, h), dtype=f32),
-                        W=torch.empty((L, h, h), dtype=f32),
-                        b=torch.empty((L, h), dtype=f32),
-                        z=torch.empty((L, V, h), dtype=f32),
-                        q=torch.empty((L, V, h), dtype=f32),
-                        u=torch.empty((L, V, h), dtype=f32))
-        st = shard_stack(st, inner)
-        args = [inner.to_local(torch.empty((V, h), dtype=f32), "rows"),
-                inner.to_local(torch.empty((V,), dtype=torch.int32), "rows"),
-                inner.to_local(torch.empty((V,), dtype=f32), "rows")]
+            mesh, L, n_classes, config, overlap=overlap, donate=donate,
+            wire=wire, health=health, faults=faults,
+            ring=tt.RecordingRing(inner, rec), **codecs)
+        st, args = _step_inputs(L, V, h, n_classes, inner, shapes_only,
+                                config, inputs)
+        tail = []
         if wire is not None:
-            args.append(widths if widths is not None
-                        else _widest_widths(wire, mesh.shape["model"]))
+            tail.append(widths if widths is not None
+                        else _widest_widths(wire, n_stages))
         carry = st
+        if sentinel:
+            good = make_sentinel_primer(mesh, p_codec, q_codec, wire=wire,
+                                        ring=inner)(st.q, st.u, st.p, *tail)
+            carry = (st, good)
         if overlap:
-            qc = q_codec if q_codec is not None else codec_for_grid(
-                config.grid if config.quantize_q else None)
-            primer = make_overlap_primer(mesh, qc, wire=wire, ring=inner)
-            carry = (st, primer(st.q, st.u, *args[3:]))
+            primer = make_overlap_primer(mesh, q_codec, wire=wire,
+                                         sentinel=sentinel, ring=inner)
+            fly = primer(st.q, st.u, *tail, *((-1,) if sentinel else ()))
+            carry = (carry, fly)
+        if sentinel:
+            tail.append(faults.controls(0, n_stages, device=dev)
+                        if faults is not None
+                        else FT.null_controls(n_stages, device=dev))
+        args = tuple(args) + tuple(tail)
+        fn = step if wrap is None else wrap(step)
+        before = ops.launch_counts()
         with rec:
-            step(carry, *args)
-    return rec.program
+            out = fn(carry, *args)
+        after = ops.launch_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    return RecordedStep(rec.program, carry, args, out, launches)
+
+
+def trace_step_program(*args, **kwargs):
+    """The ``StepProgram`` of one step: ``record_step(...).program``."""
+    return record_step(*args, **kwargs).program
 
 
 def trace_step_dag(mesh, L: int, n_classes: int, config: ADMMConfig, *,

@@ -469,6 +469,19 @@ def test_quantized_comm_demo_runs_on_the_cpu(capsys):
     assert "1 step built" in out
     assert "replay-searched choice: overlap=" in out
     assert "walltime objective" in out and "(16, 16, 16, 16)" in out
+    # per-device shift payload of one recorded step (the reference's HLO)
+    assert "fp32 wire :      98304 bytes" in out
+    assert "int8 wire :      49152 bytes  (50% saved)" in out
+    # the chaos run: faults caught by the header; a rollback, or why none
+    chaos = [x for x in out.splitlines() if x.startswith("chaos run")]
+    assert len(chaos) == 1 and "faults injected" in chaos[0]
+    assert " 0 rollback(s)" not in chaos[0] or "  no rollback: " in out
+    # the lint table of four configurations
+    assert "program-contract lint" in out
+    for name in ("baseline", "overlap", "int8_wire", "psum_int8_w4"):
+        assert any(x.startswith(name + " ") and x.split()[1:] == ["ok"] * 6
+                   for x in out.splitlines()), name
+    assert "0 error(s) across 4 configs" in out
 
 
 @pytest.fixture
