@@ -157,6 +157,44 @@ and the script exits non-zero without printing a result:
    the 0.02 init), a profile of one prefill and one decode step, and
    ``ServingEngine`` answering 7 requests on 4 slots
    (``examples/serve_lm.py``'s), each with 12 tokens in the vocab.
+9b. ``lm_family_phase``: the MoE and VLM families at their published
+   widths (bf16, seeded random weights), one config at a time with the
+   card's caches freed between them: granite-moe-3b-a800m (32 layers, d
+   1536, 40 experts top-8), qwen3-moe-235b-a22b cut from 94 to 8 layers
+   (d 4096, 128 experts top-8; 94 layers are 470 GB) and qwen2-vl-7b (28
+   layers; 3-D positions: 512 text tokens at t = h = w = index, one image
+   block of 32 × 32 patches at t = 512 with h, w from 512, then 512 text
+   tokens from 544). Each: ``ModelBundle.prefill`` of 4 prompts of 2048
+   tokens with every launch count set to 0 just before
+   (``flash_attention`` exactly once per layer, no other port kernel),
+   finite logits, peak allocated MiB; the plain-attention prefill on the
+   card: max |Δlogit| and relative L2 (reported, not held: a bf16 path's
+   noise flips near-tied routes and grows through the layers), for the
+   MoE per layer the share of (token, k) picks the two paths make (as
+   sets) and the picks dropped at capacity (and those of the last
+   expert); ``lm_vs_f32``'s rule (the kernel path's relative L2 to the
+   f32 plain prefill at most LM_VS_F32 times the plain path's, logits and
+   last layer's K/V, the mask-off and tile-dropped controls breaking it),
+   for the MoE with every bf16 prefill routed to the f32 prefill's
+   experts (``route_log``), and for qwen3-moe at FAMILY_F32_LAYERS (2)
+   layers, since its f32 copy would not fit beside the bf16 weights; ms
+   per prefill (kernels, plain), tokens/s and a profile; 32 greedy
+   tokens at B 4 (ms per token beside two floors: the einsum dispatch's,
+   every weight read once, and the function's own, the experts the steps
+   pick with the other weights; peak MiB, no port kernel launched, agreement with the plain path
+   counted) and a profile of one step. granite-moe also: the prefill at
+   ``moe_impl="gather"``, finite in bf16 with picks dropped (at least one,
+   else the check fails), and in f32 at the f32 einsum prefill's picks
+   within a relative L2 of FAMILY_GATHER_F32_REL (1e-4) of it on the
+   logits and the last layer's K/V; ``ServingEngine`` on 7 requests / 4
+   slots as in phase 9; and three ``Trainer.run`` steps on 4 × 4096
+   tokens in 4 microbatches (adamw 3e-4, remat) at FAMILY_TRAIN_LAYERS
+   (16) of its layers (at 32 its weights, f32 gradient sum and copy and
+   old and new adamw moments need ~95 GB): losses finite, step 0's within
+   [ln V − 0.5, ln V + 1.5], no port kernel, the router kept f32, the aux
+   term, ms per step, tokens/s, peak MiB. qwen2-vl also: t = h = w = index
+   against the same weights with ``mrope_sections=None`` (plain RoPE):
+   the logits within a relative L2 of FAMILY_MROPE_REL (1e-5).
 10. ``lm_train_phase``: the same LM trained, through the port's
    training path (``Trainer``, ``make_accum_train_step``,
    ``ModelBundle.loss``: the plain attention, no port kernel). (a) At full
@@ -202,7 +240,9 @@ proximal columns bitwise; pack_codes / unpack_codes bitwise (the wire
 layout); flash_attention against its plain versions at the prefill's
 shape (B 4, S = T = 2048, Hq 32, Hkv 4, D 64, bf16) causal and not, one
 16384-token row, phi-3-mini's (Hq = Hkv = 32, D 96) and granite-8b's
-(Hq 32, Hkv 8, D 128) heads at B 1, S = T = 2048 causal, and f32 at S 512:
+(Hq 32, Hkv 8, D 128) heads at B 1, S = T = 2048 causal, granite-moe's
+(Hq 24, Hkv 8, D 64), qwen3-moe's (64, 4, 128) and qwen2-vl's (28, 4,
+128) at B 4, S = T = 2048 causal, and f32 at S 512:
 f32 at the JAX test's rtol = atol = 1e-4; bf16 (P rounded to bf16, as the
 model rounds it) by its relative L2 distance to the f32-P plain version,
 at most 1.1 times that of the bf16-P plain version, over the whole output
@@ -275,6 +315,26 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LONG_ROW = 16384          # prefill_32k's sequence, halved for the plain check
 LM_REL_L2 = 2e-2          # last-position logits, kernel vs plain attention
 LM_VS_F32 = 1.05          # kernel path's distance to f32, x the plain path's
+# lm_family_phase: (arch, depth cut or None). qwen3-moe's 94 layers (470 GB
+# in bf16) cannot sit on one card: 8 of them are 39.8 GB with 2.5 GB of
+# embedding and head
+LM_FAMILY = (("granite-moe-3b-a800m", None), ("qwen3-moe-235b-a22b", 8),
+             ("qwen2-vl-7b", None))
+FAMILY_F32_LAYERS = {"qwen3-moe-235b-a22b": 2}   # lm_vs_f32's f32 copy
+FAMILY_GATHER_ARCH = "granite-moe-3b-a800m"   # both dispatches, engine, train
+# gather against einsum in f32 at the same picks: sums in another order
+# (f32 products and a K-term sum against one f32 GEMM), ~1e-6 a layer
+FAMILY_GATHER_F32_REL = 1e-4
+# M-RoPE at t = h = w against RoPE: the same angles on the same path, so
+# the same bits up to the order of a sum (tests/test_torch_vlm.py: rtol 1e-5)
+FAMILY_MROPE_REL = 1e-5
+VLM_IMAGE_GRID = 32       # qwen2-vl's image block: 32 x 32 patches (h, w)
+# granite-moe trained: its config's 8 microbatches do not divide a batch of
+# 4; 16 of its 32 layers, since at full depth the old and new f32 adamw
+# moments (27 GB each), the f32 gradient sum and its scaled copy (13.5 GB
+# each) and the bf16 weights outgrow 80 GB (~95 GB reckoned)
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_MICRO = 3, 4, 4
+FAMILY_TRAIN_LAYERS = 16
 # lm_train_phase: tinyllama-1.1b trained at full width through Trainer.run
 # on one card's share of TRAIN_4K (sequences of 4096, global batch 4), and
 # the checks (c)-(e) at full width with the depth cut to TRAIN_CUT_LAYERS
@@ -980,8 +1040,10 @@ def flash_controls(q, k, v, causal, want, want_p_bf16) -> dict:
 def flash_cases(dev):
     """flash_attention against its plain versions at the prefill's
     per-layer shape (tinyllama: Hq 32, Hkv 4, D 64), causal and not, one
-    long row, phi-3-mini's and granite-8b's heads, and f32, each with
-    controls the check must refuse. The bound counts the (query, key) pairs
+    long row, phi-3-mini's and granite-8b's heads, the per-layer prefills
+    of granite-moe (Hq 24, Hkv 8, D 64: G 3), qwen3-moe (64, 4, 128: G 16)
+    and qwen2-vl (28, 4, 128: G 7), and f32, each with controls the check
+    must refuse. The bound counts the (query, key) pairs
     the mask keeps. bf16's plain version (timed as ``plain_ms``) rounds P
     to bf16 like the kernel."""
     import torch.nn.functional as F
@@ -998,6 +1060,10 @@ def flash_cases(dev):
             (1, LONG_ROW, 32, 4, 64, bf16, True, 5),
             (1, 2048, 32, 32, 96, bf16, True, 20),      # phi-3-mini
             (1, 2048, 32, 8, 128, bf16, True, 20),      # granite-8b
+            # the per-layer prefill of lm_family_phase's three configs
+            (LM_BATCH, LM_PROMPT, 24, 8, 64, bf16, True, 20),   # granite-moe
+            (LM_BATCH, LM_PROMPT, 64, 4, 128, bf16, True, 20),  # qwen3-moe
+            (LM_BATCH, LM_PROMPT, 28, 4, 128, bf16, True, 20),  # qwen2-vl
             (1, 512, 32, 4, 64, torch.float32, True, 20)):
         q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
@@ -2576,28 +2642,59 @@ def timed_ms(fn, n: int) -> float:
     return (time.perf_counter() - t) / n * 1e3
 
 
-def greedy(bundle, params, cache, logits, n: int, start: int):
+def greedy(bundle, params, cache, logits, n: int, start: int,
+           pos_next=None):
     """``n`` greedy tokens with ``serve_step`` from a prefill's cache and
-    logits (the cache is written in place at start, start + 1, ...)."""
+    logits (the cache is written in place at start, start + 1, ...); the
+    VLM's token t at the 3-D positions ``pos_next + t``."""
     vocab = bundle.cfg.vocab
     tok = logits[..., :vocab].argmax(-1).to(torch.int32)
     out = []
     for t in range(n):
-        logits, cache = bundle.serve_step(params, cache, {"token": tok},
+        batch = {"token": tok}
+        if pos_next is not None:
+            batch["positions"] = pos_next + t
+        logits, cache = bundle.serve_step(params, cache, batch,
                                           length=start + t)
         tok = logits[..., :vocab].argmax(-1).to(torch.int32)
         out.append(tok)
     return torch.cat(out, dim=1)
 
 
-def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len) -> dict:
+def engine_run(bundle, params) -> dict:
+    """``ServingEngine`` on 7 requests of 3-token prompts on 4 slots, 12 new
+    tokens each (``examples/serve_lm.py``'s), every token in the vocab."""
+    from repro_torch.serve.engine import Request, ServingEngine
+    engine = ServingEngine(bundle, params, slots=4, max_len=128)
+    reqs = [Request(rid=i, prompt=[10 + i, 20 + i, 30 + i], max_new=12)
+            for i in range(7)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"  engine: 7 requests on 4 slots in {wall:.3f} s: {done}",
+          flush=True)
+    for rid, toks in done.items():
+        if len(toks) != 12 or not all(0 <= x < bundle.cfg.vocab
+                                      for x in toks):
+            raise AssertionError(f"engine: request {rid} got {toks}")
+    return {"wall_s": wall, "requests": 7, "slots": 4,
+            "tokens": {str(k): v for k, v in done.items()}}
+
+
+def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len,
+              pin_routes: bool = False) -> dict:
     """Each bf16 prefill's relative L2 distance to the same prefill in f32
     through the plain attention: of the last-position logits, and of the
     last layer's K and V at every prompt position (which every earlier
     layer's attention at every position feeds). The kernel path may lie no
     farther than LM_VS_F32 times the plain path on either; two wrong
     attentions on the kernel path (without its causal mask; without the
-    last 64-key tile) must break the limit on one."""
+    last 64-key tile) must break the limit on one. ``pin_routes`` (MoE):
+    every bf16 prefill routes each token to the f32 prefill's experts
+    (``route_log``), so that the rule compares continuous noise and not
+    which near-tied picks flipped."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build
     from repro_torch.models.common import tree_map
@@ -2609,8 +2706,9 @@ def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len) -> dict:
                                   cache.v[-1, :, :S].float().flatten()])
 
     params32 = tree_map(lambda t: t.float(), params)
-    ref = readout(*build(cfg, device=dev, dtype=torch.float32,
-                         use_kernels=False).prefill(params32, batch, S))
+    with route_log() as f32_picks:
+        ref = readout(*build(cfg, device=dev, dtype=torch.float32,
+                             use_kernels=False).prefill(params32, batch, S))
     del params32
     real = ops.flash_attention
     wrong = {"mask off": lambda q, k, v, **kw: real(
@@ -2629,7 +2727,8 @@ def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len) -> dict:
         runs[f"control: {name}"] = control
     out = {}
     for name, run in runs.items():
-        got = readout(*run())
+        with route_log(pin=f32_picks if pin_routes else None):
+            got = readout(*run())
         out[name] = {part: float((g - w).norm() / w.norm())
                      for part, g, w in zip(("logits", "last_layer_kv"),
                                            got, ref)}
@@ -2653,7 +2752,6 @@ def lm_phase(dev, cfg):
     ``dev`` (see the module docstring, phase 9)."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build
-    from repro_torch.serve.engine import Request, ServingEngine
 
     bundle = build(cfg, device=dev)
     plain = build(cfg, device=dev, use_kernels=False)
@@ -2736,22 +2834,453 @@ def lm_phase(dev, cfg):
                             "tokens": toks.numel(), "profile": dprof}
         del cache, cache_p, logits_p
 
-    engine = ServingEngine(bundle, params, slots=4, max_len=128)
-    reqs = [Request(rid=i, prompt=[10 + i, 20 + i, 30 + i], max_new=12)
-            for i in range(7)]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    print(f"  engine: 7 requests on 4 slots in {wall:.3f} s: {done}",
-          flush=True)
-    for rid, toks in done.items():
-        if len(toks) != 12 or not all(0 <= x < cfg.vocab for x in toks):
-            raise AssertionError(f"engine: request {rid} got {toks}")
-    out["LM_engine"] = {"wall_s": wall, "requests": 7, "slots": 4,
-                        "tokens": {str(k): v for k, v in done.items()}}
+    out["LM_engine"] = engine_run(bundle, params)
     return out
+
+
+class route_log:
+    """Context manager over ``models.layers._router`` (the MoE's router,
+    called once per MoE layer in order): it records each call's picks in
+    the list it yields; with ``pin`` (such a list) call i takes pin[i]'s
+    picks instead, with the weights and the aux loss its own probabilities
+    give them. A model without a router leaves the list empty."""
+
+    def __init__(self, pin=None):
+        self.pin, self.picks = pin, []
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from repro_torch.models import layers
+        self.real = real = layers._router
+        pinned = iter(self.pin) if self.pin is not None else None
+
+        def router(x, w, k):
+            probs, idx, top, aux = real(x, w, k)
+            if pinned is not None:
+                idx = next(pinned)
+                top = probs.gather(-1, idx)
+                top = top / top.sum(dim=-1, keepdim=True)
+                ce = F.one_hot(idx[..., 0], w.shape[-1]).float().mean(
+                    dim=(0, 1))
+                aux = w.shape[-1] * torch.sum(probs.mean(dim=(0, 1)) * ce)
+            self.picks.append(idx)
+            return probs, idx, top, aux
+        layers._router = router
+        return self.picks
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._router = self.real
+
+
+def route_report(cfg, picks, other=None) -> dict:
+    """Per MoE layer of one prefill (``route_log``'s picks, [groups, g, K]
+    each): the picks dropped at capacity (arrived after C others at their
+    expert), those of the last expert, and with ``other`` (another path's
+    picks of the same prefill) the share of (token, k) picks that both
+    paths made (as sets: a near-tie that swaps order inside the top K
+    changes nothing)."""
+    from repro_torch.models import layers
+    out = {"dropped": [], "dropped_last_expert": [], "agree": []}
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    for i, idx in enumerate(picks):
+        C = layers._capacity(idx.shape[1], K, E, cfg.moe.capacity_factor)
+        _, emask, pos = layers._arrivals(idx, E)
+        dropped = (emask > 0) & (pos >= C)
+        out["dropped"].append(int(dropped.sum()))
+        out["dropped_last_expert"].append(int(dropped[..., E - 1].sum()))
+        if other is not None:
+            same = (idx[..., :, None] == other[i][..., None, :]).any(-1)
+            out["agree"].append(float(same.float().mean()))
+    out["capacity"] = layers._capacity(picks[0].shape[1], K, E,
+                                       cfg.moe.capacity_factor)
+    out["picks_per_layer"] = int(picks[0].numel())
+    return out
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def vlm_positions(B, n_text, grid, device):
+    """[B, 2·n_text + grid², 3] int32 M-RoPE positions (t, h, w): text with
+    t = h = w = its index, one image block of grid × grid patches at t =
+    n_text with h and w from n_text across the grid, then text from
+    n_text + grid (the block's largest position + 1)."""
+    text = torch.arange(n_text, device=device)
+    hh, ww = torch.meshgrid(torch.arange(grid, device=device),
+                            torch.arange(grid, device=device), indexing="ij")
+    image = torch.stack([torch.full((grid * grid,), n_text, device=device),
+                         n_text + hh.flatten(), n_text + ww.flatten()], -1)
+    tail = n_text + grid + text
+    pos = torch.cat([text[:, None].expand(n_text, 3), image,
+                     tail[:, None].expand(n_text, 3)])
+    return pos.to(torch.int32)[None].expand(B, -1, -1).contiguous()
+
+
+def decode_bytes(bundle, picks, n_steps: int) -> tuple:
+    """Bytes a decode step must read, two floors, the embedding row and the
+    KV rows left out: the einsum dispatch's (every block weight and the
+    head: each decode token is its own group of C = 8 slots, so every
+    expert runs), and the function's own (the experts the step's tokens
+    pick in each layer, the other block weights and the head), averaged
+    over ``n_steps`` steps of ``route_log``'s ``picks`` (a layer's call per
+    entry; none for a model without experts, where the two agree)."""
+    from repro_torch.models.common import leaves
+    specs = bundle.param_specs()
+    head = specs.get("head", specs["embed"])
+    total = math.prod(head.shape) * head.dtype.itemsize
+    per_expert, n_experts = 0, 0
+    for key, s in leaves(specs["blocks"]):
+        total += math.prod(s.shape) * s.dtype.itemsize
+        if s.axes[1] == "experts":
+            per_expert += math.prod(s.shape[2:]) * s.dtype.itemsize
+            n_experts = s.shape[0] * s.shape[1]
+    picked = sum(int(torch.unique(idx).numel()) for idx in picks) / n_steps
+    return total, total - (n_experts - picked) * per_expert
+
+
+def family_prefill(dev, cfg, bundle, plain, params, batch, max_len) -> dict:
+    """One config's prefill, its launches, the kernel path against the plain
+    one and against f32, timed and profiled (see the module docstring,
+    phase 9b)."""
+    from repro_torch.kernels import ops
+    moe = cfg.moe is not None
+    n_tok = batch["tokens"].numel()
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with route_log() as picks:
+        logits, cache = bundle.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"  prefill launches {counts}; peak allocated "
+          f"{out['peak_mib']:.1f} MiB", flush=True)
+    if counts["flash_attention"] != cfg.n_layers or any(
+            n for k, n in counts.items() if k != "flash_attention"):
+        raise AssertionError(f"prefill: launches {counts}, not "
+                             f"flash_attention once per layer "
+                             f"({cfg.n_layers})")
+    if logits.shape != (batch["tokens"].shape[0], 1, bundle.vocab_padded) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(logits.shape)} "
+                             f"or not finite")
+    with route_log() as picks_p:
+        logits_p, cache_p = plain.prefill(params, batch, max_len)
+    out["rel_l2_vs_plain"] = rel_l2(logits, logits_p)
+    out["max_abs_dlogit"] = float((logits - logits_p).abs().max())
+    print(f"  vs the plain attention on the card: max |Δlogit| "
+          f"{out['max_abs_dlogit']:.4e}, relative L2 "
+          f"{out['rel_l2_vs_plain']:.4e}", flush=True)
+    if moe:
+        r = route_report(cfg, picks, picks_p)
+        out["routes"] = r
+        print(f"  routes (C {r['capacity']}, {r['picks_per_layer']} picks "
+              f"a layer): kernel and plain paths share "
+              f"{min(r['agree']):.5f}-{max(r['agree']):.5f} of the picks "
+              f"per layer (mean {sum(r['agree']) / len(r['agree']):.5f}); "
+              f"dropped per layer {r['dropped']} (of the last expert "
+              f"{r['dropped_last_expert']})", flush=True)
+    out["launches"] = counts
+    return out, (logits, cache, logits_p, cache_p, picks)
+
+
+def family_decode(dev, cfg, bundle, plain, params, pre, n_prompt,
+                  pos_next=None) -> dict:
+    """LM_DECODE greedy tokens from the prefill's cache on both paths (the
+    VLM at 3-D positions ``pos_next + t``), the kernel path timed, its
+    launches (none), ``decode_bytes``' two floors over the card's memory
+    rate, and a profile of one step."""
+    from repro_torch.kernels import ops
+    logits, cache, logits_p, cache_p = pre
+    vocab = cfg.vocab
+
+    def run(b, c, lg):
+        return greedy(b, params, c, lg, LM_DECODE, n_prompt, pos_next)
+
+    with route_log() as picks:            # warm-up; the timed run repeats it
+        run(bundle, cache, logits)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    toks = run(bundle, cache, logits)
+    torch.cuda.synchronize()
+    ms_tok = (time.perf_counter() - t) / LM_DECODE * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    toks_p = run(plain, cache_p, logits_p)
+    agree = int((toks == toks_p).sum())
+    floor_einsum, floor = (n / PEAK_BYTES_PER_S * 1e3 for n in
+                           decode_bytes(bundle, picks, LM_DECODE))
+    print(f"  decode: {LM_DECODE} greedy tokens at B {toks.shape[0]}, "
+          f"{ms_tok:.3f} ms per token (floors: the einsum dispatch's, every "
+          f"weight read once, {floor_einsum:.3f} ms; the function's own, "
+          f"the experts the steps pick, {floor:.3f} ms); peak {peak:.1f} "
+          f"MiB; launches {counts}; "
+          f"kernel and plain paths agree on {agree} of {toks.numel()} "
+          f"tokens", flush=True)
+    if bool((toks < 0).any()) or bool((toks >= vocab).any()):
+        raise AssertionError("decode: a token outside the vocab")
+    if any(counts.values()):
+        raise AssertionError(f"decode launched a port kernel: {counts}")
+    batch = {"token": toks[:, :1]}
+    if pos_next is not None:
+        batch["positions"] = pos_next
+    prof = profile_phase(f"{cfg.name} decode step", lambda: bundle.serve_step(
+        params, cache, batch, length=n_prompt), ms_tok)
+    return {"ms_per_token": ms_tok, "einsum_floor_ms": floor_einsum,
+            "floor_ms": floor, "peak_mib": peak,
+            "launches": counts, "tokens_agree": agree,
+            "tokens": toks.numel(), "profile": prof}
+
+
+def family_gather(cfg, bundle, params, batch, max_len, picks) -> dict:
+    """The prefill at ``moe_impl="gather"`` against the einsum dispatch's:
+    in bf16 (``picks``: the einsum prefill's) finite under capacity drops,
+    the share of picks the two make, both timed; and in f32, with every
+    token routed to the f32 einsum prefill's experts, the logits and the
+    last layer's K/V within FAMILY_GATHER_F32_REL of it."""
+    from repro_torch.models.api import build
+    from repro_torch.models.common import tree_map
+    gather = build(cfg, device=bundle.device, moe_impl="gather")
+    with route_log() as picks_g:
+        lg, cg = gather.prefill(params, batch, max_len)
+    r = route_report(cfg, picks, picks_g)
+    if not sum(r["dropped"]):
+        raise AssertionError("gather: no pick was dropped, so the repair "
+                             "of a dropped pick is not exercised")
+    if not bool(torch.isfinite(lg).all()) or not bool(
+            torch.isfinite(cg.k).all()):
+        raise AssertionError("gather: the bf16 prefill is not finite")
+    del lg, cg
+    out = {"agree": r["agree"], "dropped": r["dropped"],
+           "dropped_last_expert": r["dropped_last_expert"],
+           "ms": timed_ms(lambda: gather.prefill(params, batch, max_len), 3)}
+    params32 = tree_map(lambda t: t.float(), params)
+    S = batch["tokens"].shape[1]
+    with route_log() as picks32:
+        le, ce = build(cfg, device=bundle.device, dtype=torch.float32
+                       ).prefill(params32, batch, S)
+    with route_log(pin=picks32):
+        lg, cg = build(cfg, device=bundle.device, dtype=torch.float32,
+                       moe_impl="gather").prefill(params32, batch, S)
+    del params32
+    r32 = route_report(cfg, picks32)
+    out.update({
+        "f32_dropped": r32["dropped"],
+        "f32_rel_l2_logits": rel_l2(lg, le),
+        "f32_rel_l2_last_layer_kv": rel_l2(torch.cat([cg.k[-1], cg.v[-1]]),
+                                           torch.cat([ce.k[-1], ce.v[-1]])),
+        "f32_finite": bool(torch.isfinite(lg).all())
+        and bool(torch.isfinite(cg.k).all())})
+    del lg, cg, le, ce
+    print(f"  gather dispatch: bf16 finite with {sum(r['dropped'])} dropped "
+          f"picks ({sum(r['dropped_last_expert'])} of the last expert), "
+          f"sharing {sum(r['agree']) / len(r['agree']):.5f} of einsum's "
+          f"picks, {out['ms']:.3f} ms per prefill; f32 at einsum's picks "
+          f"({sum(r32['dropped'])} dropped): relative L2 logits "
+          f"{out['f32_rel_l2_logits']:.4e}, last layer's K/V "
+          f"{out['f32_rel_l2_last_layer_kv']:.4e}", flush=True)
+    if not out["f32_finite"]:
+        raise AssertionError("gather: the f32 prefill is not finite")
+    for key in ("f32_rel_l2_logits", "f32_rel_l2_last_layer_kv"):
+        if not out[key] <= FAMILY_GATHER_F32_REL:
+            raise AssertionError(f"gather against einsum: {key} "
+                                 f"{out[key]:.3e} > {FAMILY_GATHER_F32_REL}")
+    return out
+
+
+def family_mrope(cfg, params, batch, max_len, dev) -> dict:
+    """qwen2-vl with t = h = w = token index against the same weights with
+    ``mrope_sections=None`` (plain RoPE at the index): the reference's
+    invariant, logits within FAMILY_MROPE_REL (both the kernel path)."""
+    from repro_torch.models.api import build
+    B, S = batch["tokens"].shape
+    pos = torch.arange(S, device=dev, dtype=torch.int32)[None, :, None]
+    lm, cm = build(cfg, device=dev).prefill(
+        params, {**batch, "positions": pos.expand(B, S, 3).contiguous()},
+        max_len)
+    rope = dataclasses.replace(cfg, mrope_sections=None)
+    lr, cr = build(rope, device=dev).prefill(
+        params, {"tokens": batch["tokens"]}, max_len)
+    out = {"rel_l2_logits": rel_l2(lm, lr),
+           "rel_l2_k": rel_l2(cm.k, cr.k), "bitwise": bool(
+               torch.equal(lm, lr) and torch.equal(cm.k, cr.k))}
+    print(f"  M-RoPE at t = h = w against RoPE: relative L2 logits "
+          f"{out['rel_l2_logits']:.4e}, K {out['rel_l2_k']:.4e}, the same "
+          f"bits {out['bitwise']}", flush=True)
+    if not out["rel_l2_logits"] <= FAMILY_MROPE_REL:
+        raise AssertionError(f"M-RoPE: {out}")
+    return out
+
+
+def family_train(dev, cfg) -> dict:
+    """granite-moe trained with ``Trainer.run`` (see the module docstring,
+    phase 9b): FAMILY_TRAIN_STEPS steps of FAMILY_TRAIN_BATCH sequences of
+    TRAIN_SEQ tokens in FAMILY_TRAIN_MICRO microbatches, adamw(TRAIN_LR),
+    remat, the depth cut to FAMILY_TRAIN_LAYERS. The trainer's checkpoint
+    of the last step is skipped (lm_train_phase times a save)."""
+    import tempfile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS)
+    bundle = build(cfg, device=dev)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_SEQ, FAMILY_TRAIN_BATCH, device=dev)
+    n_tok = TRAIN_SEQ * FAMILY_TRAIN_BATCH
+    with torch.no_grad():
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        _, aux = transformer.forward_hidden(
+            cfg, params, {"tokens": pipe.batch(0)["tokens"][:1]})
+        aux = float(aux)
+        del params
+    print(f"LM family train: {cfg.name} at {cfg.n_layers} of its layers, "
+          f"{bundle.n_params():,} parameters, {FAMILY_TRAIN_BATCH} × "
+          f"{TRAIN_SEQ} tokens a step in {FAMILY_TRAIN_MICRO} microbatches, "
+          f"adamw({TRAIN_LR}), remat {cfg.remat}; step 0's aux loss (summed "
+          f"over layers, one sequence) {aux:.5f}, its term in the loss "
+          f"{0.01 * aux / cfg.n_layers:.6f}", flush=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_family_train_")
+    try:
+        tc = TrainerConfig(steps=FAMILY_TRAIN_STEPS, ckpt_every=10 ** 9,
+                           ckpt_dir=ckpt_dir, log_every=1,
+                           microbatches=FAMILY_TRAIN_MICRO)
+        trainer = Trainer(bundle, optim.adamw(TRAIN_LR), pipe, tc)
+        saves = []
+        trainer.ckpt.save = lambda step, tree, extra=None: saves.append(step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        params, state = trainer.run(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        router = params["blocks"]["w_router"].dtype
+        del params, state
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [h["loss"] for h in trainer.history]
+    step_ms = sorted(h["sec"] * 1e3 for h in trainer.history[1:])
+    ms = step_ms[len(step_ms) // 2]
+    lo = math.log(cfg.vocab) - TRAIN_LOSS0_BELOW
+    hi = math.log(cfg.vocab) + TRAIN_LOSS0_ABOVE
+    print(f"  losses {losses}; ms per step (host clock, steps 1-"
+          f"{FAMILY_TRAIN_STEPS - 1}) {[round(x, 3) for x in step_ms]}, "
+          f"median {ms:.3f} ({n_tok / ms * 1e3:.0f} tokens/s); first step "
+          f"{trainer.history[0]['sec'] * 1e3:.3f} ms; peak allocated "
+          f"{peak_mib:.1f} MiB; router {router}; launches {counts}",
+          flush=True)
+    if len(losses) != FAMILY_TRAIN_STEPS or not all(map(math.isfinite,
+                                                        losses)):
+        raise AssertionError(f"family train: losses {losses}")
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"family train: step 0's loss {losses[0]:.4f} "
+                             f"outside [{lo:.4f}, {hi:.4f}]")
+    if any(counts.values()):
+        raise AssertionError(f"family train: a port kernel launched: "
+                             f"{counts}")
+    if router != torch.float32 or saves != [FAMILY_TRAIN_STEPS - 1]:
+        raise AssertionError(f"family train: router {router}, saves {saves}")
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "n_params": bundle.n_params(), "launches": counts,
+            "losses": losses, "aux_step0": aux, "step_ms": step_ms,
+            "ms_per_step": ms, "tokens_per_s": n_tok / ms * 1e3,
+            "first_step_ms": trainer.history[0]["sec"] * 1e3,
+            "peak_mib": peak_mib}
+
+
+def lm_family_phase(dev) -> dict:
+    """The MoE and VLM families served at their published widths, and
+    granite-moe trained (see the module docstring, phase 9b). The card's
+    caches are freed between configs."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.api import build
+
+    out = {}
+    for name, layers_cut in LM_FAMILY:
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        if layers_cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers_cut)
+        bundle = build(cfg, device=dev)
+        plain = build(cfg, device=dev, use_kernels=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = bundle.init(gen)
+        tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": tokens}
+        pos_next = None
+        if cfg.mrope_sections is not None:
+            n_text = (LM_PROMPT - VLM_IMAGE_GRID ** 2) // 2
+            batch["positions"] = vlm_positions(LM_BATCH, n_text,
+                                               VLM_IMAGE_GRID, dev)
+            pos_next = batch["positions"][:, -1:] + 1
+        max_len = LM_PROMPT + LM_DECODE
+        n_tok = LM_BATCH * LM_PROMPT
+        print(f"LM family: {cfg.name} ({cfg.family}) at {cfg.n_layers} "
+              f"layers{' (cut)' if layers_cut else ''}, "
+              f"{bundle.n_params():,} parameters "
+              f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
+              f"card), {LM_BATCH} prompts of {LM_PROMPT} tokens", flush=True)
+        r = {"layers": cfg.n_layers, "layers_published": get_arch(
+            name).n_layers, "n_params": bundle.n_params()}
+        with torch.inference_mode():
+            pre, (logits, cache, logits_p, cache_p, picks) = family_prefill(
+                dev, cfg, bundle, plain, params, batch, max_len)
+            r.update(pre)
+            r["ms"] = timed_ms(lambda: bundle.prefill(params, batch,
+                                                      max_len), 3)
+            r["ms_plain"] = timed_ms(lambda: plain.prefill(params, batch,
+                                                           max_len), 2)
+            r["tokens_per_s"] = n_tok / r["ms"] * 1e3
+            print(f"  ms per prefill: kernels {r['ms']:.3f} "
+                  f"({r['tokens_per_s']:.0f} tokens/s)  plain "
+                  f"{r['ms_plain']:.3f}", flush=True)
+            r["profile"] = profile_phase(f"{cfg.name} prefill",
+                                         lambda: bundle.prefill(
+                                             params, batch, max_len), r["ms"])
+            if cfg.moe is not None and name == FAMILY_GATHER_ARCH:
+                r["gather"] = family_gather(cfg, bundle, params, batch,
+                                            max_len, picks)
+            if cfg.mrope_sections is not None:
+                r["mrope_is_rope"] = family_mrope(cfg, params, batch,
+                                                  max_len, dev)
+            r["decode"] = family_decode(dev, cfg, bundle, plain, params,
+                                        (logits, cache, logits_p, cache_p),
+                                        LM_PROMPT, pos_next)
+            del logits, cache, logits_p, cache_p, picks
+            torch.cuda.empty_cache()
+            f32_layers = FAMILY_F32_LAYERS.get(name)
+            if f32_layers is not None:     # the f32 copy needs a cut
+                params = {**params, "blocks": {
+                    k: v[:f32_layers].clone()
+                    for k, v in params["blocks"].items()}}
+                cfg32 = dataclasses.replace(cfg, n_layers=f32_layers)
+                bundle = build(cfg32, device=dev)
+                plain = build(cfg32, device=dev, use_kernels=False)
+                torch.cuda.empty_cache()
+            else:
+                cfg32 = cfg
+            print(f"  against f32 at {cfg32.n_layers} layers:", flush=True)
+            r["rel_l2_to_f32"] = lm_vs_f32(cfg32, dev, bundle, plain, params,
+                                           batch, max_len,
+                                           pin_routes=cfg.moe is not None)
+            r["f32_layers"] = cfg32.n_layers
+        if name == FAMILY_GATHER_ARCH:
+            r["engine"] = engine_run(bundle, params)
+        out[name] = r
+        del params, bundle, plain
+    torch.cuda.empty_cache()
+    out["train"] = family_train(dev, get_arch(FAMILY_GATHER_ARCH))
+    return {"LM_family": out}
 
 
 def attention_ms(dev, cfg) -> float:
@@ -3280,6 +3809,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs.base import get_arch
     runs.update(lm_phase(device, get_arch(LM_ARCH)))
+    torch.cuda.empty_cache()
+    runs.update(lm_family_phase(device))
     torch.cuda.empty_cache()
     runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
 

@@ -4,8 +4,9 @@ A copy of the reference's ``repro/configs/base.py`` (the port imports
 nothing of the JAX package). Every architecture has one
 ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` with the published
 numbers. ``reduced()`` yields the same-family small config of the CPU
-tests. Only the dense family is served by the port so far, so only the
-dense configs are here (``models.api.build`` raises for the others).
+tests. The port serves the transformer's families (dense, MoE, VLM), so
+their configs are here; the SSM, hybrid and audio configs come with the
+slices that port their models (``models.api.build`` raises for them).
 """
 from __future__ import annotations
 
@@ -188,16 +189,23 @@ class ArchConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# The dense configs, the one LM family the port serves; each other family's
-# config comes with the slice that ports it. "gamlp-paper" is the paper's
-# own GA-MLP, registered (as in the reference) but not an LM arch.
-ARCH_IDS = ("yi-9b", "phi3-mini-3.8b", "tinyllama-1.1b", "granite-8b")
+# The configs of the families the port serves (dense, MoE, VLM), in the
+# reference's order; each other family's config comes with the slice that
+# ports it. "gamlp-paper" is the paper's own GA-MLP, registered (as in the
+# reference) but not an LM arch.
+ARCH_IDS = (
+    "yi-9b", "phi3-mini-3.8b", "tinyllama-1.1b", "granite-8b",
+    "granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "qwen2-vl-7b",
+)
 
 _MODULE_BY_ID = {
     "yi-9b": "yi_9b",
     "phi3-mini-3.8b": "phi3_mini",
     "tinyllama-1.1b": "tinyllama",
     "granite-8b": "granite_8b",
+    "granite-moe-3b-a800m": "granite_moe",
+    "qwen3-moe-235b-a22b": "qwen3_moe",
+    "qwen2-vl-7b": "qwen2_vl",
     "gamlp-paper": "gamlp_paper",
 }
 

@@ -1,7 +1,9 @@
-"""Training launcher: a dense LM at reduced (CPU) or full width.
+"""Training launcher: a dense or MoE LM at reduced (CPU) or full width.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-3b-a800m --reduced --steps 3 --device cpu
 
 The port of ``repro/launch/train.py``: the same flags, plus ``--device``
 (default: the CUDA card). The weights are random, from seed 0 through a
@@ -13,7 +15,10 @@ Shapes: ``--reduced`` keeps the reference's 128 tokens × 4 sequences. At
 full width the default is one card's share of the reference's
 ``TRAIN_4K``: sequences of 4096 tokens, as there, and a global batch of 4.
 The reference's 256 sequences are spread over a 16 × 16 device mesh; one
-card has neither the memory nor the time for them.
+card has neither the memory nor the time for them. ``--microbatches``
+must divide the global batch (granite-moe's config asks for 8). The VLM
+needs 3-D positions in its batches, which ``TokenPipeline`` does not make
+(nor does the reference's).
 """
 from __future__ import annotations
 

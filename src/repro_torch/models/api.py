@@ -1,14 +1,15 @@
 """Model API of the port: ``ModelBundle`` binds an architecture config to a
 device and exposes what training and serving need.
 
-The port of ``repro/models/api.py`` for the dense family:
+The port of ``repro/models/api.py`` for the transformer's families (dense,
+MoE, VLM):
   param_specs / init / n_params      — params as Specs / tensors
   loss(params, batch)                — the training objective
   serve_state_shape / serve_step     — decode with a KV cache
   prefill                            — the prompt, with its KV cache
   input_specs / make_inputs          — the inputs of a shape cell
-One card has no mesh, so there are no shardings. The other families (MoE,
-SSM, hybrid, audio, VLM) wait for later slices.
+One card has no mesh, so there are no shardings. The SSM, hybrid and
+audio families wait for later slices: ``build`` raises for them.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import common, layers, transformer
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "vlm")
 
 
 class TensorSpec(NamedTuple):
@@ -43,6 +44,7 @@ def padded_vocab(cfg: ArchConfig) -> int:
 class ModelBundle:
     cfg: ArchConfig
     device: Optional[torch.device] = None
+    moe_impl: str = "einsum"   # the MoE dispatch: "einsum" or "gather"
     attn_chunk: int = 1024
     dtype: torch.dtype = torch.bfloat16
     use_kernels: bool = True   # False: the plain attention on any device
@@ -70,10 +72,11 @@ class ModelBundle:
     # -- train ----------------------------------------------------------
     def loss(self, params, batch):
         """Mean next-token cross-entropy over ``batch["mask"]`` (all
-        positions without one) plus 0.01 × the aux loss per layer, which
-        is 0 for the dense family. Differentiable: training takes the plain
-        attention whatever ``use_kernels`` says."""
+        positions without one) plus 0.01 × the routers' aux loss per
+        layer (0 for the dense family). Differentiable: training takes the
+        plain attention whatever ``use_kernels`` says."""
         return transformer.loss_fn(self.cfg, params, batch, self.cfg.vocab,
+                                   moe_impl=self.moe_impl,
                                    attn_chunk=self.attn_chunk)
 
     # -- serve ----------------------------------------------------------
@@ -93,32 +96,44 @@ class ModelBundle:
         before it. Returns (logits [B,1,Vp] f32, the state at length + 1)."""
         return transformer.decode_step(self.cfg, params,
                                        state._replace(length=int(length)),
-                                       batch)
+                                       batch, moe_impl=self.moe_impl)
 
     def prefill(self, params, batch, max_len: int):
         return transformer.prefill(self.cfg, params, batch, max_len,
+                                   moe_impl=self.moe_impl,
                                    attn_chunk=self.attn_chunk,
                                    use_kernels=self.use_kernels)
 
     # -- inputs ----------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        """The inputs of ``shape``: tokens (and targets to train), or one
+        token a sequence to decode; the VLM also takes its 3-D (t/h/w)
+        positions, [B, S, 3] or [B, 1, 3]."""
         B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
         if shape.kind == "train":
-            return {"tokens": TensorSpec((B, S), torch.int32),
-                    "targets": TensorSpec((B, S), torch.int32)}
-        if shape.kind == "prefill":
-            return {"tokens": TensorSpec((B, S), torch.int32)}
-        if shape.kind == "decode":
-            return {"token": TensorSpec((B, 1), torch.int32)}
-        raise ValueError(f"unknown shape kind {shape.kind!r}")
+            d = {"tokens": TensorSpec((B, S), i32),
+                 "targets": TensorSpec((B, S), i32)}
+        elif shape.kind == "prefill":
+            d = {"tokens": TensorSpec((B, S), i32)}
+        elif shape.kind == "decode":
+            d = {"token": TensorSpec((B, 1), i32)}
+        else:
+            raise ValueError(f"unknown shape kind {shape.kind!r}")
+        if self.cfg.family == "vlm":
+            d["positions"] = TensorSpec(
+                (B, S, 3) if shape.kind != "decode" else (B, 1, 3), i32)
+        return d
 
     def make_inputs(self, shape: ShapeConfig, generator: torch.Generator):
-        """Random tokens in [0, vocab) for every input of ``shape``, from
-        ``generator`` (on this bundle's device)."""
-        hi = max(self.cfg.vocab, 2)
-        return {k: torch.randint(0, hi, s.shape, generator=generator,
-                                 dtype=s.dtype, device=self.device)
-                for k, s in self.input_specs(shape).items()}
+        """Random inputs of ``shape`` from ``generator`` (on this bundle's
+        device): tokens in [0, vocab), positions in [0, 16)."""
+        out = {}
+        for k, s in self.input_specs(shape).items():
+            hi = self.cfg.vocab if k in ("tokens", "targets", "token") else 16
+            out[k] = torch.randint(0, max(hi, 2), s.shape, generator=generator,
+                                   dtype=s.dtype, device=self.device)
+        return out
 
 
 def build(cfg: ArchConfig, **kw) -> ModelBundle:

@@ -1,8 +1,9 @@
-"""Core neural layers of the dense LM: RMSNorm, RoPE, GQA attention (the
-prefill's, and decode against a KV cache, bf16 or int8), SwiGLU.
+"""Core neural layers of the transformer: RMSNorm, RoPE and M-RoPE, GQA
+attention (the prefill's, and decode against a KV cache, bf16 or int8),
+SwiGLU, and the mixture of experts (router, einsum and gather dispatch).
 
-The port of the dense subset of ``repro/models/layers.py``, with its
-layouts: activations [B, S, d], heads [B, S, H, D]. ``attention`` on a
+The port of the transformer's subset of ``repro/models/layers.py``, with
+its layouts: activations [B, S, d], heads [B, S, H, D]. ``attention`` on a
 CUDA tensor is one launch of the hand-written flash kernel
 (``kernels.ops.flash_attention``); on a CPU tensor, or with
 ``use_kernel=False``, it is the reference's chunked exact softmax
@@ -12,6 +13,10 @@ the kernel keeps them in f32 (ROADMAP Queue 3). The kernel has no
 backward and refuses inputs that require grad, so training
 (``models.transformer.block_forward``) asks for the plain version with
 ``use_kernel=False``, as the reference trains through its jnp attention.
+
+The MoE and M-RoPE are plain PyTorch, as the reference's are plain jnp:
+no Pallas kernel stands behind them. The expert products are
+``torch.einsum`` (cuBLAS on the card).
 
 The KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row of the cache it is given.
@@ -49,6 +54,29 @@ def apply_rope(x, positions, theta: float):
     d2 = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)              # [d2]
     ang = positions[..., None].float() * freqs                    # [..., S, d2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :d2], x[..., d2:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections, theta: float):
+    """Qwen2-VL M-RoPE. x: [..., S, H, D]; positions3: [..., S, 3] (t/h/w);
+    ``sections`` (summing to D/2) say how many of the D/2 frequencies
+    rotate by each of the three positions, in that order."""
+    d2 = x.shape[-1] // 2
+    assert sum(sections) == d2, (sections, d2)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [d2]
+    # [d2] -> stream: jnp.repeat(arange(3), sections), built by comparing
+    # with the sections' ends, which copies nothing between host and card
+    # (a repeat_interleave by a device tensor of counts syncs twice)
+    j = torch.arange(d2, device=x.device)
+    sec_id = ((j >= sections[0]).long()
+              + (j >= sections[0] + sections[1]).long())
+    # gather takes int64 indices
+    pos = positions3.float().gather(
+        -1, sec_id.expand(positions3.shape[:-1] + (d2,)))         # [..., S, d2]
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :d2], x[..., d2:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -208,3 +236,145 @@ def decode_attention(q, cache: KVCache):
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+def _router(x, w_gate, top_k: int):
+    """Return (probs [B,S,E] f32, topk_idx [B,S,K] int64, topk_p [B,S,K],
+    aux). The logits are an f32 product of f32 operands: the package keeps
+    TF32 off, which would flip near-tied routes on the card."""
+    logits = x.float() @ w_gate.float()
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k breaks ties toward the lower index; torch.topk makes no
+    # promise. Exact ties among f32 softmax outputs of distinct logits do
+    # not arise, so the picks agree wherever the probabilities do
+    topk_p, topk_idx = torch.topk(probs, top_k, dim=-1)
+    topk_p = topk_p / topk_p.sum(dim=-1, keepdim=True)
+    # switch-style load-balance loss
+    E = w_gate.shape[-1]
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(topk_idx[..., 0], E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    return probs, topk_idx, topk_p, aux
+
+
+def _capacity(S: int, top_k: int, E: int, factor: float) -> int:
+    c = int(S * top_k * factor) // E
+    return max(8, min(S, ((c + 7) // 8) * 8))
+
+
+def _group(x, group_size: int):
+    """[B, S, ...] -> [B*S/g, g, ...]: bounds the O(g*E*C) dispatch buffers.
+    Routing becomes per-group (Mesh-TF style grouping)."""
+    B, S = x.shape[:2]
+    g = min(group_size, S)
+    if S % g:
+        g = S
+    return x.reshape((B * (S // g), g) + x.shape[2:]), (B, S)
+
+
+def _ungroup(y, bs):
+    B, S = bs
+    return y.reshape((B, S) + y.shape[2:])
+
+
+def _expert_ffn(xe, w_gate_e, w_up_e, w_down_e):
+    """xe: [B,E,C,d]; weights: [E,d,f] / [E,f,d]."""
+    h = F.silu(torch.einsum("becd,edf->becf", xe, w_gate_e))
+    h = h * torch.einsum("becd,edf->becf", xe, w_up_e)
+    return torch.einsum("becf,efd->becd", h, w_down_e)
+
+
+def _arrivals(topk_idx, E: int):
+    """(kmask [B,S,K,E] f32, emask [B,S,E] f32, pos [B,S,E] f32): which
+    experts each token picked, and each token's arrival order at each
+    expert (the count of earlier tokens in the group that picked it)."""
+    kmask = F.one_hot(topk_idx, E).float()
+    emask = kmask.sum(dim=2)
+    return kmask, emask, torch.cumsum(emask, dim=1) - emask
+
+
+def moe_einsum(x, params, top_k: int, capacity_factor: float = 1.0,
+               group_size: int = 512):
+    """Capacity-based one-hot dispatch (Mesh-TF style). x: [B,S,d]. A pick
+    that arrives at its expert after C others is dropped: it adds
+    nothing."""
+    x, bs = _group(x, group_size)
+    B, S, d = x.shape
+    E = params["w_router"].shape[-1]
+    C = _capacity(S, top_k, E, capacity_factor)
+    probs, topk_idx, topk_p, aux = _router(x, params["w_router"], top_k)
+
+    kmask, emask, pos = _arrivals(topk_idx, E)
+    keep = emask * (pos < C)
+    # jax.nn.one_hot gives a zero row for an index >= C where F.one_hot
+    # raises, so the one-hot of the arrival slot is built by comparison
+    slots = torch.arange(C, device=x.device, dtype=pos.dtype)
+    disp = (pos[..., None] == slots).to(x.dtype) \
+        * keep[..., None].to(x.dtype)                             # [B,S,E,C]
+    gate_e = torch.sum(kmask * topk_p[..., None], dim=2)         # [B,S,E]
+    comb = disp * gate_e[..., None].to(x.dtype)
+
+    xe = torch.einsum("bsec,bsd->becd", disp, x)
+    he = _expert_ffn(xe, params["w_gate_e"], params["w_up_e"],
+                     params["w_down_e"])
+    y = torch.einsum("bsec,becd->bsd", comb, he)
+    return _ungroup(y, bs), aux
+
+
+def moe_gather(x, params, top_k: int, capacity_factor: float = 1.0,
+               group_size: int = 512):
+    """Gather/scatter dispatch: no O(S*E*C*d) einsum FLOPs. The same
+    function as ``moe_einsum``; dropped picks contribute zero.
+
+    Two faults of the reference's version are not copied (ROADMAP Queue
+    3): a dropped pick of the last expert indexes past the E*C slots,
+    which JAX fills with NaN (NaN × its zero weight stays NaN), so the
+    slot of a dropped pick is set to 0 here and its weight zeroes it; and
+    a group of fewer than C tokens (every decode step: C is at least 8)
+    fails the reference's reshape, so here the slots past the group's
+    tokens stay empty."""
+    x, bs = _group(x, group_size)
+    B, S, d = x.shape
+    E = params["w_router"].shape[-1]
+    C = _capacity(S, top_k, E, capacity_factor)
+    probs, topk_idx, topk_p, aux = _router(x, params["w_router"], top_k)
+
+    _, emask, pos = _arrivals(topk_idx, E)
+    keep = (emask > 0) & (pos < C)                                # [B,S,E]
+
+    # token index per (expert, slot): sort token ids by (chosen, arrival);
+    # jnp.argsort is stable, torch.argsort only when asked
+    key = torch.where(keep, pos, float(S + 1))
+    order = torch.argsort(key, dim=1, stable=True)[:, :C, :]      # [B,min(S,C),E]
+    tok_idx = order.transpose(1, 2)                               # [B,E,.]
+    slot_valid = keep.transpose(1, 2).gather(2, tok_idx)          # [B,E,.]
+    if tok_idx.shape[2] < C:                  # fewer tokens than slots
+        pad = C - tok_idx.shape[2]
+        tok_idx = F.pad(tok_idx, (0, pad))
+        slot_valid = F.pad(slot_valid, (0, pad))
+    xe = x[:, None].expand(B, E, S, d).gather(
+        2, tok_idx[..., None].expand(B, E, C, d))                 # [B,E,C,d]
+    xe = xe * slot_valid[..., None].to(x.dtype)
+    he = _expert_ffn(xe, params["w_gate_e"], params["w_up_e"],
+                     params["w_down_e"])
+
+    # combine: each token reads its K slots back
+    pos_k = pos.gather(-1, topk_idx)                              # [B,S,K]
+    keep_k = keep.gather(-1, topk_idx)                            # [B,S,K]
+    slot = torch.where(keep_k, topk_idx * C + pos_k.long(), 0)    # in range
+    K = topk_idx.shape[-1]
+    yk = he.reshape(B, E * C, d).gather(
+        1, slot.reshape(B, S * K, 1).expand(B, S * K, d)).reshape(B, S, K, d)
+    w = (topk_p * keep_k).to(x.dtype)[..., None]
+    y = torch.sum(yk * w, dim=2)
+    return _ungroup(y, bs), aux
+
+
+def moe(x, params, top_k: int, capacity_factor: float = 1.0,
+        impl: str = "einsum", group_size: int = 512):
+    fn = moe_einsum if impl == "einsum" else moe_gather
+    return fn(x, params, top_k, capacity_factor, group_size)

@@ -1,8 +1,9 @@
-"""Decoder-only transformer, dense family (yi / phi3 / tinyllama / granite):
-param specs, the training forward pass and loss, prefill and single-token
+"""Decoder-only transformer: dense (yi / phi3 / tinyllama / granite), MoE
+(granite-moe / qwen3-moe) and the VLM backbone (qwen2-vl, M-RoPE): param
+specs, the training forward pass and loss, prefill and single-token
 decode.
 
-The port of the dense path of ``repro/models/transformer.py``. The params
+The port of ``repro/models/transformer.py``. The params
 keep the reference's layer-stacked layout ([L, ...] per block weight), so
 specs and shapes match it leaf for leaf; the ``lax.scan`` over layers is a
 loop over the layers' views of ``params["blocks"]``. One card needs no
@@ -10,8 +11,14 @@ mesh: the reference's ``mesh``, ``rules`` and ``constrain`` are dropped.
 Its ``jax.checkpoint`` becomes ``torch.utils.checkpoint.checkpoint``
 (non-reentrant), taken under grad mode only: a remat group keeps only its
 input (``forward_hidden``), the loss keeps nothing of a sequence chunk
-(``chunked_ce_loss``). The MoE and VLM (M-RoPE) branches wait for later
-slices.
+(``chunked_ce_loss``).
+
+An MoE block holds ``w_router`` (f32 in a bf16 model, as the reference
+keeps it) and stacked experts in place of the SwiGLU weights; its layer
+returns the router's load-balance loss, which ``forward_hidden`` sums over
+the layers. The VLM's positions are the caller's ([B, S, 3] t/h/w in
+``batch["positions"]``): its patch frontend is a stub in the reference
+too, whose precomputed ``embeds`` take the token embeddings' place.
 """
 from __future__ import annotations
 
@@ -22,10 +29,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models.common import Spec
 
-_BLOCK_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-               "w_down")
-
-
 # ---------------------------------------------------------------------------
 # Param specs
 # ---------------------------------------------------------------------------
@@ -33,18 +36,32 @@ _BLOCK_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_up",
 def _layer_specs(cfg, n_layers: int, dtype) -> dict:
     d, hd = cfg.d_model, cfg.hd
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-    Ls, f = n_layers, cfg.d_ff
-    return {
+    Ls = n_layers
+    s = {
         "ln1": Spec((Ls, d), ("layers", None), "ones", dtype=dtype),
         "ln2": Spec((Ls, d), ("layers", None), "ones", dtype=dtype),
         "wq": Spec((Ls, d, Hq * hd), ("layers", "embed", "q_heads"), dtype=dtype),
         "wk": Spec((Ls, d, Hkv * hd), ("layers", "embed", "kv_heads"), dtype=dtype),
         "wv": Spec((Ls, d, Hkv * hd), ("layers", "embed", "kv_heads"), dtype=dtype),
         "wo": Spec((Ls, Hq * hd, d), ("layers", "q_heads", "embed"), dtype=dtype),
-        "w_gate": Spec((Ls, d, f), ("layers", "embed", "ffn"), dtype=dtype),
-        "w_up": Spec((Ls, d, f), ("layers", "embed", "ffn"), dtype=dtype),
-        "w_down": Spec((Ls, f, d), ("layers", "ffn", "embed"), dtype=dtype),
     }
+    if cfg.moe is not None and cfg.moe.every == 1:
+        E, f = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        s.update({
+            "w_router": Spec((Ls, d, E), ("layers", "embed", "experts"),
+                             "small", dtype=torch.float32),
+            "w_gate_e": Spec((Ls, E, d, f), ("layers", "experts", "embed", "ffn_exp"), dtype=dtype),
+            "w_up_e": Spec((Ls, E, d, f), ("layers", "experts", "embed", "ffn_exp"), dtype=dtype),
+            "w_down_e": Spec((Ls, E, f, d), ("layers", "experts", "ffn_exp", "embed"), dtype=dtype),
+        })
+    else:
+        f = cfg.d_ff
+        s.update({
+            "w_gate": Spec((Ls, d, f), ("layers", "embed", "ffn"), dtype=dtype),
+            "w_up": Spec((Ls, d, f), ("layers", "embed", "ffn"), dtype=dtype),
+            "w_down": Spec((Ls, f, d), ("layers", "ffn", "embed"), dtype=dtype),
+        })
+    return s
 
 
 def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
@@ -64,27 +81,42 @@ def unstack_layers(params) -> list:
     """Every layer's weights as views of the stacked [L, ...] blocks, one
     ``unbind`` a weight: the backward pass then stacks the layers'
     gradients of a weight once, where indexing layer by layer would add
-    each into an [L, ...] zeros."""
-    cols = [params["blocks"][k].unbind(0) for k in _BLOCK_KEYS]
-    return [dict(zip(_BLOCK_KEYS, ws)) for ws in zip(*cols)]
+    each into an [L, ...] zeros. The keys are the block's own (a dense
+    block's SwiGLU weights or an MoE block's router and experts)."""
+    keys = list(params["blocks"])
+    cols = [params["blocks"][k].unbind(0) for k in keys]
+    return [dict(zip(keys, ws)) for ws in zip(*cols)]
 
 
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _positions_for(cfg, batch, B, S, offset=0, device=None):
+def _positions_for(cfg, batch, B, S, device=None):
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet")
-    return torch.arange(S, device=device)[None, :] + offset
+        return batch["positions"]  # [B, S, 3]
+    return torch.arange(S, device=device)[None, :]
 
 
 def _apply_rope(cfg, x, positions):
+    if cfg.mrope_sections is not None:
+        return L.apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return L.apply_rope(x, positions, cfg.rope_theta)
 
 
-def block_forward(cfg, p, x, positions, *, attn_chunk=1024):
-    """One decoder block (full-sequence path). x: [B,S,d]."""
+def _mlp(cfg, p, h, moe_impl):
+    """The block's MLP on h: (y, the router's aux loss) for an MoE block,
+    (y, 0.0) for a dense one."""
+    if "w_router" in p:
+        return L.moe(h, p, cfg.moe.top_k, cfg.moe.capacity_factor,
+                     impl=moe_impl)
+    return L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+
+
+def block_forward(cfg, p, x, positions, *, moe_impl="einsum",
+                  attn_chunk=1024):
+    """One decoder block (full-sequence path). x: [B,S,d]. Returns (x, the
+    block's aux loss: the router's, 0.0 for a dense block)."""
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -98,10 +130,11 @@ def block_forward(cfg, p, x, positions, *, attn_chunk=1024):
     o = L.attention(q, k, v, causal=True, chunk=attn_chunk, use_kernel=False)
     x = x + o.reshape(B, S, Hq * hd) @ p["wo"]
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    y, aux = _mlp(cfg, p, h, moe_impl)
+    return x + y, aux
 
 
-def block_decode(cfg, p, x, cache, positions):
+def block_decode(cfg, p, x, cache, positions, *, moe_impl="einsum"):
     """One decoder block, single-token decode. x: [B,1,d]; the cache (this
     layer's) is updated in place."""
     B = x.shape[0]
@@ -120,7 +153,7 @@ def block_decode(cfg, p, x, cache, positions):
         o = L.decode_attention(q, cache)
     x = x + o.reshape(B, 1, Hq * hd) @ p["wo"]
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), cache
+    return x + _mlp(cfg, p, h, moe_impl)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -141,9 +174,11 @@ def _head_weight(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def forward_hidden(cfg, params, batch, *, attn_chunk=1024):
+def forward_hidden(cfg, params, batch, *, moe_impl="einsum",
+                   attn_chunk=1024):
     """Embed + all blocks + final norm. Returns hidden [B,S,d] and the aux
-    loss, 0: the dense family has no router.
+    loss summed over the layers (an f32 scalar; 0.0 for a dense model,
+    which has no router).
 
     With ``cfg.remat`` and grad mode on, each group of ``cfg.remat_group``
     layers (single layers when that does not divide ``n_layers``) runs
@@ -157,19 +192,24 @@ def forward_hidden(cfg, params, batch, *, attn_chunk=1024):
     layers = unstack_layers(params)
 
     def group(x, ps):
+        aux = 0.0
         for p in ps:
-            x = block_forward(cfg, p, x, positions, attn_chunk=attn_chunk)
-        return x
+            x, a = block_forward(cfg, p, x, positions, moe_impl=moe_impl,
+                                 attn_chunk=attn_chunk)
+            aux = aux + a
+        return x, aux
 
     g = max(cfg.remat_group, 1)
     if cfg.n_layers % g:
         g = 1
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     for i in range(0, cfg.n_layers, g):
         ps = layers[i:i + g]
-        x = (checkpoint(group, x, ps, use_reentrant=False) if remat
-             else group(x, ps))
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), 0.0
+        x, a = (checkpoint(group, x, ps, use_reentrant=False) if remat
+                else group(x, ps))
+        aux = aux + a
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
 def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
@@ -205,9 +245,10 @@ def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(cfg, params, batch, vocab: int, *, attn_chunk=1024,
-            aux_weight=0.01):
-    hidden, aux = forward_hidden(cfg, params, batch, attn_chunk=attn_chunk)
+def loss_fn(cfg, params, batch, vocab: int, *, moe_impl="einsum",
+            attn_chunk=1024, aux_weight=0.01):
+    hidden, aux = forward_hidden(cfg, params, batch, moe_impl=moe_impl,
+                                 attn_chunk=attn_chunk)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
@@ -217,8 +258,8 @@ def loss_fn(cfg, params, batch, vocab: int, *, attn_chunk=1024,
     return ce + aux_weight * aux / max(cfg.n_layers, 1)
 
 
-def prefill(cfg, params, batch, max_len: int, *, attn_chunk=1024,
-            use_kernels: bool = True):
+def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
+            attn_chunk=1024, use_kernels: bool = True):
     """Run the full prompt; return (last-token logits [B,1,Vp] f32, KV
     caches [L,B,max_len,Hkv,hd] holding the prompt's keys (after RoPE) and
     values, zero beyond). ``use_kernels=False`` takes the reference's
@@ -242,7 +283,7 @@ def prefill(cfg, params, batch, max_len: int, *, attn_chunk=1024,
                         use_kernel=use_kernels)
         x = x + o.reshape(B, S, Hq * hd) @ p["wo"]
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        x = x + _mlp(cfg, p, h, moe_impl)[0]
         kc[i, :, :S] = k
         vc[i, :, :S] = v
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
@@ -250,24 +291,28 @@ def prefill(cfg, params, batch, max_len: int, *, attn_chunk=1024,
     return logits, L.KVCache(kc, vc, S)
 
 
-def decode_step(cfg, params, cache, batch):
+def decode_step(cfg, params, cache, batch, *, moe_impl="einsum"):
     """One token for every sequence. cache leaves: [L,B,T,Hkv,hd] (a
     ``KVCache`` or ``KVCacheQ``), written in place at ``cache.length``;
-    returns (logits [B,1,Vp] f32, the cache at length + 1)."""
+    returns (logits [B,1,Vp] f32, the cache at length + 1). The VLM reads
+    the token's 3-D positions from ``batch["positions"]`` [B,1,3]."""
     token = batch["token"]                                  # [B,1]
     B = token.shape[0]
     x = embed_tokens(params, token)
     pos = int(cache.length)
     quant = isinstance(cache, L.KVCacheQ)
-    positions = _positions_for(cfg, batch, B, 1, offset=pos,
-                               device=x.device).expand(B, 1)
+    if cfg.mrope_sections is not None:
+        positions = batch["positions"]                       # [B,1,3]
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=x.device)
     for i, p in enumerate(unstack_layers(params)):
         if quant:
             c = L.KVCacheQ(cache.k[i], cache.v[i], cache.k_scale[i],
                            cache.v_scale[i], pos)
         else:
             c = L.KVCache(cache.k[i], cache.v[i], pos)
-        x, _ = block_decode(cfg, p, x, c, positions)
+        x, _ = block_decode(cfg, p, x, c, positions, moe_impl=moe_impl)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
     return logits, cache._replace(length=pos + 1)

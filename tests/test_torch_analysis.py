@@ -32,7 +32,8 @@ from repro_torch.parallel import stage_parallel as SP
 from repro_torch.parallel.ring import LocalRing, StageMesh
 
 V, H, L, C = 64, 32, 4, 4
-ARCHS = ("tinyllama-1.1b", "phi3-mini-3.8b", "granite-8b", "yi-9b")
+ARCHS = ("tinyllama-1.1b", "phi3-mini-3.8b", "granite-8b", "yi-9b",
+         "granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "qwen2-vl-7b")
 SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 

@@ -827,7 +827,9 @@ def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad):
     (1, 4, 2, 1000, 1000, 64, 0),                # ragged S and T
     (2, 4, 1, 100, 300, 64, 200),                # q_offset > 0
     (1, 4, 2, 200, 200, 96, 0), (1, 4, 2, 200, 200, 128, 0),
-    (1, 2, 1, 77, 77, 16, 0)])
+    (1, 2, 1, 77, 77, 16, 0),
+    (1, 24, 8, 130, 130, 64, 0),                 # granite-moe's heads, G 3
+    (1, 28, 4, 130, 130, 128, 0)])               # qwen2-vl's heads, G 7
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_matches_plain(cuda, B, Hq, Hkv, S, T, D,
@@ -900,7 +902,10 @@ def _assert_flash_bf16(got, q, k, v, causal=True, q_offset=0):
     (1, 4, 2, 1000, 1000, 32, 0), (2, 4, 1, 100, 300, 32, 200),
     (2, 32, 4, 256, 256, 64, 0), (1, 4, 2, 130, 450, 64, 320),
     (1, 4, 4, 200, 200, 96, 0), (1, 4, 2, 100, 300, 96, 200),
-    (1, 4, 2, 200, 200, 128, 0), (2, 4, 1, 100, 300, 128, 200)])
+    (1, 4, 2, 200, 200, 128, 0), (2, 4, 1, 100, 300, 128, 200),
+    (2, 24, 8, 200, 200, 64, 0),                 # granite-moe: G 3
+    (1, 28, 4, 200, 200, 128, 0),                # qwen2-vl: G 7
+    (1, 64, 4, 100, 300, 128, 200)])             # qwen3-moe: G 16
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_bf16_tensor_cores(cuda, B, Hq, Hkv, S, T, D,
                                                 q_offset, causal):

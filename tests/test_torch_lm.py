@@ -324,13 +324,27 @@ def _shapes(tree, prefix=()):
         yield prefix, tuple(tree.shape)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _dtypes(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _dtypes(tree[k], prefix + (k,))
+    else:
+        d = tree.dtype
+        yield prefix, (str(d).split(".")[-1] if isinstance(d, torch.dtype)
+                       else np.dtype(d).name)
+
+
+@pytest.mark.parametrize("arch", DENSE + ("granite-moe-3b-a800m",
+                                          "qwen3-moe-235b-a22b",
+                                          "qwen2-vl-7b"))
 def test_param_specs_at_full_width_match_jax(arch):
     jb = japi.build(j_get_arch(arch), make_host_mesh())
     tb = tapi.build(get_arch(arch), device="cpu")
     assert tb.vocab_padded == jb.vocab_padded
     assert list(_shapes(tb.param_specs())) == list(_shapes(jb.param_specs()))
     assert tb.n_params() == jb.n_params()
+    tdt, jdt = dict(_dtypes(tb.param_specs())), dict(_dtypes(jb.param_specs()))
+    assert tdt == jdt           # an MoE router is f32 in both
     for shape in (JShape("p", 4096, 2, "prefill"), JShape("d", 4096, 2,
                                                           "decode")):
         t = tb.input_specs(ShapeConfig(*dataclasses.astuple(shape)))
@@ -347,10 +361,17 @@ def test_tinyllama_is_1_1b_in_bf16():
     assert param_bytes(tb.param_specs()) == 2 * tb.n_params()
 
 
+PORTED = {"moe": "granite-moe-3b-a800m", "vlm": "qwen2-vl-7b"}
+
+
 @pytest.mark.parametrize("family", ["ssm", "moe", "hybrid", "audio", "vlm"])
 def test_build_refuses_families_not_ported(family):
-    """Only the dense configs are copied; every other family of the
-    reference's configs is refused by name."""
+    """The transformer's families build (MoE and VLM at their reduced
+    configs); the SSM, hybrid and audio families are refused by name."""
+    if family in PORTED:
+        tb = tapi.build(get_arch(PORTED[family]).reduced(), device="cpu")
+        assert tb.cfg.family == family and tb.n_params() > 0
+        return
     cfg = dataclasses.replace(get_arch("tinyllama-1.1b").reduced(),
                               family=family)
     with pytest.raises(NotImplementedError, match="not ported yet"):

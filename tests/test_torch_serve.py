@@ -4,7 +4,8 @@ against the JAX reference's, token for token.
 The case is ``tests/test_systems.py``'s: reduced tinyllama, 3 slots,
 ``max_len`` 64, 5 requests of 3-token prompts, ``max_new`` 5, here in f32
 on both sides with the reference's weights (``bundle.init(PRNGKey(0))``)
-handed over through ``lm_params_from_numpy``. The reference's engine
+handed over through ``lm_params_from_numpy``; the same for reduced
+granite-moe-3b-a800m. The reference's engine
 never prefills and decodes every slot at one shared position (ROADMAP
 Queue 3); the port keeps that, and the last tests show it in both.
 """
@@ -34,6 +35,20 @@ def pair():
                     JShape("serve", 64, 3, "decode"), dtype=jnp.float32)
     jp = jb.init(jax.random.PRNGKey(0))
     tb = tapi.build(get_arch("tinyllama-1.1b").reduced(), device="cpu",
+                    dtype=torch.float32)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    return jb, jp, tb, tp
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    """The same for reduced granite-moe-3b-a800m (4 experts top-2; the
+    router f32, as the reference keeps it)."""
+    arch = "granite-moe-3b-a800m"
+    jb = japi.build(j_get_arch(arch).reduced(), make_host_mesh(),
+                    JShape("serve", 64, 3, "decode"), dtype=jnp.float32)
+    jp = jb.init(jax.random.PRNGKey(0))
+    tb = tapi.build(get_arch(arch).reduced(), device="cpu",
                     dtype=torch.float32)
     tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jb, jp, tb, tp
@@ -69,6 +84,17 @@ def test_engine_tokens_equal_the_reference_mixed_lengths(pair):
     want, _ = _run(jeng, jb, jp, prompts, max_new=4)
     got, _ = _run(teng, tb, tp, prompts, max_new=4)
     assert got == want
+
+
+def test_engine_tokens_equal_the_reference_moe(moe_pair):
+    """The MoE family through the engine: every decode step routes each
+    slot's token through the experts (einsum dispatch, one token a group)."""
+    jb, jp, tb, tp = moe_pair
+    prompts = [[1 + i, 2 + i, 3 + i] for i in range(5)]
+    want, _ = _run(jeng, jb, jp, prompts)
+    got, _ = _run(teng, tb, tp, prompts)
+    assert got == want
+    assert all(len(t) == 5 for t in got.values())
 
 
 def test_engine_ignores_all_but_the_last_prompt_token(pair):
