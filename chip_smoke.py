@@ -195,6 +195,44 @@ and the script exits non-zero without printing a result:
    term, ms per step, tokens/s, peak MiB. qwen2-vl also: t = h = w = index
    against the same weights with ``mrope_sections=None`` (plain RoPE):
    the logits within a relative L2 of FAMILY_MROPE_REL (1e-5).
+9c. ``lm_seq_phase``: the SSM, hybrid and audio families at their
+   published widths (bf16, seeded random weights), one config at a time:
+   mamba2-130m (24 layers, d 768, state 128, tied embeddings),
+   jamba-v0.1-52b at 2 of its 4 periods (16 of 32 layers, d 4096, 16
+   experts top-2 on odd layers, NoPE attention at index 4 of 8; one period
+   is ~25.5 GB in bf16) and whisper-tiny in full (4 + 4 layers, d 384, 6
+   heads, 1500 frames, 448 text tokens). Each: ``ModelBundle.prefill``
+   (these families' prefill is the forward pass and the last position's
+   logits, with no state, as the reference's) of 4 × 2048 tokens (whisper:
+   4 × 1500 frames and 4 × 448 tokens) with every launch count set to 0
+   just before (``flash_attention`` 0 times for mamba2, once per period
+   for jamba, 12 times for whisper: 4 encoder, 4 decoder self, 4 cross; no
+   other port kernel), finite logits, peak MiB; the plain-attention prefill
+   beside it (and jamba's picks shared by the two paths); ms per prefill of
+   both, tokens/s, a profile. whisper's encoder alone, timed. jamba's
+   gather dispatch: finite under capacity drops, its picks and ms beside
+   the einsum's, and 8 greedy decode tokens (the reference's gather cannot
+   decode). 32 greedy tokens at B 4 from the state these families decode
+   from (mamba2's and jamba's zero state; whisper's ``precompute_cross``
+   K/V) with no port kernel launched: ms per token beside the floor of
+   reading every weight and touching the state once (jamba also: the
+   experts its tokens pick), peak MiB, a profile of one step. mamba2 and
+   whisper: decode over 64 tokens against the forward pass's logits, in
+   bf16 within the reference test's rtol 5e-2, atol 5e-1 (its argmax
+   agreement reported: at mamba2's full width bf16 near-ties flip), and in
+   f32 (the weights cast) relative L2 1e-4 and agreement 0.99. The engine on
+   7 requests / 4 slots (whisper against zero cross K/V, as the
+   reference's engine serves it). jamba (at one period, new seeded weights:
+   2 periods in f32 would not fit beside bf16) and whisper:
+   ``lm_vs_f32``'s rule on the forward pass (``seq_vs_f32``: the hidden
+   states, every attention's output and its last 64 query rows; every run
+   routed to the kernel path's picks), the mask-off and tile-dropped
+   controls breaking it, and jamba's gather in f32 within 1e-4 of the
+   einsum at the same picks. mamba2 trains 3 steps of ``Trainer.run`` on 4
+   × 4096 tokens, whisper 3 of ``launch.steps.make_train_step`` on
+   ``make_inputs`` batches (frames, tokens, targets) at 4 × 448: losses
+   finite, step 0's within [ln V − 0.5, ln V + 1.5], no port kernel, ms per
+   step, tokens/s, peak MiB.
 10. ``lm_train_phase``: the same LM trained, through the port's
    training path (``Trainer``, ``make_accum_train_step``,
    ``ModelBundle.loss``: the plain attention, no port kernel). (a) At full
@@ -241,8 +279,11 @@ layout); flash_attention against its plain versions at the prefill's
 shape (B 4, S = T = 2048, Hq 32, Hkv 4, D 64, bf16) causal and not, one
 16384-token row, phi-3-mini's (Hq = Hkv = 32, D 96) and granite-8b's
 (Hq 32, Hkv 8, D 128) heads at B 1, S = T = 2048 causal, granite-moe's
-(Hq 24, Hkv 8, D 64), qwen3-moe's (64, 4, 128) and qwen2-vl's (28, 4,
-128) at B 4, S = T = 2048 causal, and f32 at S 512:
+(Hq 24, Hkv 8, D 64), qwen3-moe's (64, 4, 128), qwen2-vl's (28, 4,
+128) and jamba's (32, 8, 128) at B 4, S = T = 2048 causal, whisper's
+encoder (H 6, D 64, S = T = 1500, full: a ragged last key tile), its
+cross-attention (448 queries on 1500 keys, full) and its decoder's
+self-attention (S = T = 448, causal) at B 4, and f32 at S 512:
 f32 at the JAX test's rtol = atol = 1e-4; bf16 (P rounded to bf16, as the
 model rounds it) by its relative L2 distance to the f32-P plain version,
 at most 1.1 times that of the bf16-P plain version, over the whole output
@@ -329,6 +370,22 @@ FAMILY_GATHER_F32_REL = 1e-4
 # the same bits up to the order of a sum (tests/test_torch_vlm.py: rtol 1e-5)
 FAMILY_MROPE_REL = 1e-5
 VLM_IMAGE_GRID = 32       # qwen2-vl's image block: 32 x 32 patches (h, w)
+# lm_seq_phase: (arch, depth cut or None). jamba's 4 periods are ~103 GB in
+# bf16 (one period of 8 layers ~25.5 GB), so it serves at 2 of them; its
+# f32 check runs at one (~53 GB in f32)
+LM_SEQ = (("mamba2-130m", None), ("jamba-v0.1-52b", 16),
+          ("whisper-tiny", None))
+SEQ_F32_LAYERS = {"jamba-v0.1-52b": 8}
+WHISPER_FRAMES, WHISPER_TEXT = 1500, 448   # whisper's audio and text contexts
+# decode against the full forward pass over DVF_TOKENS tokens from the
+# zero state: bf16 within tests/test_model_invariants.py's rtol 5e-2, atol
+# 5e-1, its argmax agreement (above 0.95 there, at 2 layers of d 64)
+# reported: at mamba2-130m's full width bf16 logits tie within the two
+# paths' noise (0.914 measured on an H100); f32 (the same weights cast)
+# the same function up to sums in another order
+DVF_TOKENS = 64
+DVF_F32_REL, DVF_F32_AGREE = 1e-4, 0.99
+SEQ_TRAIN_STEPS = 3
 # granite-moe trained: its config's 8 microbatches do not divide a batch of
 # 4; 16 of its 32 layers, since at full depth the old and new f32 adamw
 # moments (27 GB each), the f32 gradient sum and its scaled copy (13.5 GB
@@ -1041,11 +1098,14 @@ def flash_cases(dev):
     """flash_attention against its plain versions at the prefill's
     per-layer shape (tinyllama: Hq 32, Hkv 4, D 64), causal and not, one
     long row, phi-3-mini's and granite-8b's heads, the per-layer prefills
-    of granite-moe (Hq 24, Hkv 8, D 64: G 3), qwen3-moe (64, 4, 128: G 16)
-    and qwen2-vl (28, 4, 128: G 7), and f32, each with controls the check
-    must refuse. The bound counts the (query, key) pairs
-    the mask keeps. bf16's plain version (timed as ``plain_ms``) rounds P
-    to bf16 like the kernel."""
+    of granite-moe (Hq 24, Hkv 8, D 64: G 3), qwen3-moe (64, 4, 128: G 16),
+    qwen2-vl (28, 4, 128: G 7) and jamba (32, 8, 128: G 4, NoPE), whisper's
+    encoder (S = T = 1500, not a multiple of the 64-key tile, full; H 6, G
+    1, D 64), its cross-attention (448 queries on 1500 keys, full) and its
+    decoder's self-attention (448, causal), and f32, each with controls the
+    check must refuse. The bound counts the (query, key) pairs the mask
+    keeps. bf16's plain version (timed as ``plain_ms``) rounds P to bf16
+    like the kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1054,26 +1114,33 @@ def flash_cases(dev):
     bf16 = torch.bfloat16
     print("flash_attention:", flush=True)
     out = []
-    for B, S, Hq, Hkv, D, dtype, causal, iters in (
-            (LM_BATCH, LM_PROMPT, 32, 4, 64, bf16, True, 20),
-            (LM_BATCH, LM_PROMPT, 32, 4, 64, bf16, False, 20),
-            (1, LONG_ROW, 32, 4, 64, bf16, True, 5),
-            (1, 2048, 32, 32, 96, bf16, True, 20),      # phi-3-mini
-            (1, 2048, 32, 8, 128, bf16, True, 20),      # granite-8b
+    P, W = LM_PROMPT, WHISPER_FRAMES
+    for B, S, T, Hq, Hkv, D, dtype, causal, iters in (
+            (LM_BATCH, P, P, 32, 4, 64, bf16, True, 20),
+            (LM_BATCH, P, P, 32, 4, 64, bf16, False, 20),
+            (1, LONG_ROW, LONG_ROW, 32, 4, 64, bf16, True, 5),
+            (1, 2048, 2048, 32, 32, 96, bf16, True, 20),      # phi-3-mini
+            (1, 2048, 2048, 32, 8, 128, bf16, True, 20),      # granite-8b
             # the per-layer prefill of lm_family_phase's three configs
-            (LM_BATCH, LM_PROMPT, 24, 8, 64, bf16, True, 20),   # granite-moe
-            (LM_BATCH, LM_PROMPT, 64, 4, 128, bf16, True, 20),  # qwen3-moe
-            (LM_BATCH, LM_PROMPT, 28, 4, 128, bf16, True, 20),  # qwen2-vl
-            (1, 512, 32, 4, 64, torch.float32, True, 20)):
+            (LM_BATCH, P, P, 24, 8, 64, bf16, True, 20),      # granite-moe
+            (LM_BATCH, P, P, 64, 4, 128, bf16, True, 20),     # qwen3-moe
+            (LM_BATCH, P, P, 28, 4, 128, bf16, True, 20),     # qwen2-vl
+            # lm_seq_phase's: jamba's attention, whisper's three
+            (LM_BATCH, P, P, 32, 8, 128, bf16, True, 20),     # jamba
+            (LM_BATCH, W, W, 6, 6, 64, bf16, False, 20),      # encoder
+            (LM_BATCH, WHISPER_TEXT, W, 6, 6, 64, bf16, False, 20),  # cross
+            (LM_BATCH, WHISPER_TEXT, WHISPER_TEXT, 6, 6, 64, bf16, True,
+             20),                                              # decoder self
+            (1, 512, 512, 32, 4, 64, torch.float32, True, 20)):
         q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
-        pairs = S * (S + 1) // 2 if causal else S * S
+        k = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+        pairs = S * (S + 1) // 2 if causal else S * T   # causal: S == T
         n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         peak = PEAK_BF16_FLOPS if dtype == bf16 else PEAK_F32_FLOPS
         p_dtype = bf16 if dtype == bf16 else None
-        name = (f"B{B} S=T={S} Hq{Hq} Hkv{Hkv} D{D} "
-                f"{str(dtype).split('.')[-1]} "
+        name = (f"B{B} {f'S=T={S}' if S == T else f'S={S} T={T}'} Hq{Hq} "
+                f"Hkv{Hkv} D{D} {str(dtype).split('.')[-1]} "
                 f"{'causal' if causal else 'full'}")
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         row = case(
@@ -2919,25 +2986,33 @@ def vlm_positions(B, n_text, grid, device):
 
 
 def decode_bytes(bundle, picks, n_steps: int) -> tuple:
-    """Bytes a decode step must read, two floors, the embedding row and the
-    KV rows left out: the einsum dispatch's (every block weight and the
+    """Bytes of weights a decode step must read, two floors, the embedding
+    row and the decode state left out: the einsum dispatch's (every block
+    weight, of whisper's decoder all but the cross K/V projections, and the
     head: each decode token is its own group of C = 8 slots, so every
-    expert runs), and the function's own (the experts the step's tokens
-    pick in each layer, the other block weights and the head), averaged
-    over ``n_steps`` steps of ``route_log``'s ``picks`` (a layer's call per
-    entry; none for a model without experts, where the two agree)."""
+    expert runs), and the function's own
+    (the experts the step's tokens pick in each MoE layer, the other
+    weights and the head), averaged over ``n_steps`` steps of
+    ``route_log``'s ``picks`` (a layer's call per entry; none for a model
+    without experts, where the two agree)."""
     from repro_torch.models.common import leaves
     specs = bundle.param_specs()
     head = specs.get("head", specs["embed"])
     total = math.prod(head.shape) * head.dtype.itemsize
-    per_expert, n_experts = 0, 0
-    for key, s in leaves(specs["blocks"]):
+    expert_bytes, n_experts = 0, 0    # over every (MoE layer, expert)
+    blocks = {k: v for k, v in specs.items() if k in ("blocks", "decoder")}
+    for path, s in leaves(blocks):
+        if path[-1] in ("x_wk", "x_wv"):   # whisper's: the cross K/V's
+            continue
         total += math.prod(s.shape) * s.dtype.itemsize
         if s.axes[1] == "experts":
-            per_expert += math.prod(s.shape[2:]) * s.dtype.itemsize
-            n_experts = s.shape[0] * s.shape[1]
+            expert_bytes += math.prod(s.shape) * s.dtype.itemsize
+            if path[-1] == "w_gate_e":
+                n_experts += s.shape[0] * s.shape[1]
+    if not n_experts:
+        return total, total
     picked = sum(int(torch.unique(idx).numel()) for idx in picks) / n_steps
-    return total, total - (n_experts - picked) * per_expert
+    return total, total - (n_experts - picked) * expert_bytes / n_experts
 
 
 def family_prefill(dev, cfg, bundle, plain, params, batch, max_len) -> dict:
@@ -3281,6 +3356,508 @@ def lm_family_phase(dev) -> dict:
     torch.cuda.empty_cache()
     out["train"] = family_train(dev, get_arch(FAMILY_GATHER_ARCH))
     return {"LM_family": out}
+
+
+def seq_flash_launches(cfg) -> int:
+    """flash_attention launches of one prefill: none for mamba2, one per
+    period for jamba, whisper's encoder layers plus two per decoder layer
+    (self and cross)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
+    return cfg.encoder_layers + 2 * cfg.n_layers
+
+
+def seq_hidden(bundle, params, batch):
+    """(``bundle``'s forward pass as its prefill runs it: the kernel path
+    unless ``use_kernels`` is False, every position's final hidden state in
+    the bundle's dtype, the head), the frames cast to that dtype."""
+    batch = {k: v.to(bundle.dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    hidden, _ = bundle.forward_hidden(params, batch,
+                                      use_kernel=bundle.use_kernels)
+    return hidden, params["head"] if "head" in params else params["embed"].T
+
+
+def seq_readout(bundle, params, batch):
+    """(the last position's logits, every position's final hidden state,
+    every attention's output [B, S, H, D] in call order) of ``seq_hidden``,
+    f32: the attentions' through ``models.layers.attention``, wrapped for
+    the call."""
+    from repro_torch.models import layers
+    real, outs = layers.attention, []
+
+    def attention(*args, **kw):
+        o = real(*args, **kw)
+        outs.append(o.float())
+        return o
+    layers.attention = attention
+    try:
+        hidden, head = seq_hidden(bundle, params, batch)
+    finally:
+        layers.attention = real
+    return (hidden[:, -1:] @ head).float(), hidden.float(), outs
+
+
+# the parts seq_vs_f32 holds each path by; the others are printed
+SEQ_HELD_PARTS = ("hidden", "attention", "attention_last_block")
+
+
+def seq_parts(readout) -> dict:
+    """A readout's parts: every position's hidden state, and the last
+    FLASH_BLOCK positions'; every attention's output, and its last
+    FLASH_BLOCK query rows' (where a dropped last key tile shows: one
+    attention layer among jamba's 8 moves the final hidden state less than
+    the mixers' bf16 noise); the last position's logits (4 rows)."""
+    logits, hidden, attn = readout
+    return {"hidden": hidden, "last_block": hidden[:, -FLASH_BLOCK:],
+            "attention": torch.cat([o.flatten() for o in attn]),
+            "attention_last_block": torch.cat(
+                [o[:, -FLASH_BLOCK:].flatten() for o in attn]),
+            "logits": logits}
+
+
+def to_f32_in_place(tree) -> None:
+    """Every leaf of a nested dict of tensors cast to f32, leaf by leaf, so
+    that each bf16 leaf is freed as its f32 copy is made."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            to_f32_in_place(tree[k])
+        else:
+            tree[k] = tree[k].float()
+
+
+def seq_vs_f32(dev, cfg, bundle, plain, params, batch) -> dict:
+    """``lm_vs_f32``'s rule for a family whose prefill keeps no state, on
+    its forward pass's readouts (``seq_parts``; SEQ_HELD_PARTS: every
+    position's hidden state, every attention's output and its last
+    FLASH_BLOCK query rows): each bf16 path's relative L2 to the same
+    weights in f32 through the plain attention; the kernel path at most
+    LM_VS_F32 times the plain path's on every held part, and two wrong
+    attentions on the kernel path (mask off; last 64-key tile dropped)
+    must break it on one. Every run takes the kernel path's picks
+    (``route_log``); jamba's gather dispatch in f32 at those picks is held
+    to the einsum's within FAMILY_GATHER_F32_REL. The bf16 readouts are
+    taken first; then ``params`` is cast to f32 IN PLACE (each bf16 leaf
+    freed as its copy is made) for the f32 runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build
+
+    real = ops.flash_attention
+    wrong = {"mask off": lambda q, k, v, **kw: real(
+                 q, k, v, **{**kw, "causal": False}),
+             "last key tile dropped": lambda q, k, v, **kw: real(
+                 q, k[:, :-64], v[:, :-64], **kw)}
+    got = {}
+    with route_log() as picks:
+        got["kernels"] = seq_readout(bundle, params, batch)
+    with route_log(pin=picks):
+        got["plain"] = seq_readout(plain, params, batch)
+    for name, fn in wrong.items():
+        ops.flash_attention = fn
+        try:
+            with route_log(pin=picks):
+                got[f"control: {name}"] = seq_readout(bundle, params, batch)
+        finally:
+            ops.flash_attention = real
+    to_f32_in_place(params)
+    torch.cuda.empty_cache()
+    with route_log(pin=picks):
+        ref = seq_parts(seq_readout(build(
+            cfg, device=dev, dtype=torch.float32, use_kernels=False),
+            params, batch))
+    out = {}
+    for name, r in got.items():
+        out[name] = {part: rel_l2(g, ref[part])
+                     for part, g in seq_parts(r).items()}
+        print(f"  relative L2 to the f32 forward (plain attention), {name}: "
+              + ", ".join(f"{k} {v:.4e}" for k, v in out[name].items()),
+              flush=True)
+    limit = {part: LM_VS_F32 * out["plain"][part] for part in SEQ_HELD_PARTS}
+    for name, r in out.items():
+        broken = [part for part in limit if not r[part] <= limit[part]]
+        if name == "kernels" and broken:
+            raise AssertionError(f"{cfg.name}: the kernel path is farther "
+                                 f"from f32 than {LM_VS_F32} x the plain "
+                                 f"path's ({', '.join(broken)}): {r}")
+        if name.startswith("control") and not broken:
+            raise AssertionError(f"{cfg.name}: the check passes the {name}")
+    if cfg.moe is not None:
+        with route_log(pin=picks):
+            g = seq_parts(seq_readout(build(
+                cfg, device=dev, dtype=torch.float32, use_kernels=False,
+                moe_impl="gather"), params, batch))
+        out["gather_f32"] = {part: rel_l2(g[part], ref[part]) for part in g}
+        print(f"  gather against einsum in f32 at the same picks: "
+              + ", ".join(f"{k} {v:.4e}" for k, v in
+                          out["gather_f32"].items()), flush=True)
+        if not all(v <= FAMILY_GATHER_F32_REL
+                   for v in out["gather_f32"].values()):
+            raise AssertionError(f"{cfg.name}: gather against einsum in "
+                                 f"f32 {out['gather_f32']}")
+    return out
+
+
+def seq_prefill(cfg, bundle, plain, params, batch) -> tuple:
+    """One prefill with every launch count set to 0 just before:
+    flash_attention exactly ``seq_flash_launches(cfg)`` times and no other
+    port kernel, finite logits, peak MiB; the plain path's prefill against
+    it (reported) and for jamba the share of picks the two paths make;
+    ms per prefill of both paths, tokens/s and a profile. Returns (that
+    record, the kernel path's logits, its picks)."""
+    from repro_torch.kernels import ops
+    n_tok = batch["tokens"].numel()
+    want = seq_flash_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with route_log() as picks:
+        logits, state = bundle.prefill(params, batch, batch["tokens"].shape[1])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out = {"launches": counts,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(f"  prefill launches {counts}; peak allocated "
+          f"{out['peak_mib']:.1f} MiB", flush=True)
+    if counts["flash_attention"] != want or any(
+            n for k, n in counts.items() if k != "flash_attention"):
+        raise AssertionError(f"prefill: launches {counts}, not "
+                             f"flash_attention {want} times")
+    if state is not None or logits.shape != (
+            batch["tokens"].shape[0], 1, bundle.vocab_padded) or not bool(
+                torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)} not "
+                             f"finite or a state {type(state)}")
+    with route_log() as picks_p:
+        logits_p, _ = plain.prefill(params, batch, batch["tokens"].shape[1])
+    out["rel_l2_vs_plain"] = rel_l2(logits, logits_p)
+    out["max_abs_dlogit"] = float((logits - logits_p).abs().max())
+    print(f"  vs the plain attention on the card: max |Δlogit| "
+          f"{out['max_abs_dlogit']:.4e}, relative L2 "
+          f"{out['rel_l2_vs_plain']:.4e}", flush=True)
+    if cfg.moe is not None:
+        r = route_report(cfg, picks, picks_p)
+        out["routes"] = r
+        print(f"  routes (C {r['capacity']}): kernel and plain paths share "
+              f"{min(r['agree']):.5f}-{max(r['agree']):.5f} of the picks "
+              f"per layer; dropped per layer {r['dropped']}", flush=True)
+    S = batch["tokens"].shape[1]
+    out["ms"] = timed_ms(lambda: bundle.prefill(params, batch, S), 3)
+    out["ms_plain"] = timed_ms(lambda: plain.prefill(params, batch, S), 2)
+    out["tokens_per_s"] = n_tok / out["ms"] * 1e3
+    print(f"  ms per prefill: kernels {out['ms']:.3f} "
+          f"({out['tokens_per_s']:.0f} tokens/s)  plain "
+          f"{out['ms_plain']:.3f}", flush=True)
+    out["profile"] = profile_phase(f"{cfg.name} prefill", lambda: bundle
+                                   .prefill(params, batch, S), out["ms"])
+    return out, logits, picks
+
+
+def decode_state_bytes(state, start: int, n_steps: int) -> float:
+    """Bytes of the decode state a step must touch, averaged over
+    ``n_steps`` steps from position ``start``: an SSM state read and
+    written whole; a self K/V cache's rows before and at the step's
+    position read; whisper's cross K/V read whole."""
+    from repro_torch.models.mamba2 import SSMState
+    rows = start + (n_steps + 1) / 2
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    if isinstance(state, SSMState):
+        return 2.0 * sum(nbytes(t) for t in state)
+    total = 0.0
+    for key, part in state.items():
+        if isinstance(part, SSMState):
+            total += 2.0 * sum(nbytes(t) for t in part)
+        elif key.startswith("cross"):
+            total += nbytes(part)
+        else:                                   # (k, v) or self_k / self_v
+            for t in (part if isinstance(part, tuple) else (part,)):
+                total += nbytes(t) * min(rows / t.shape[-3], 1.0)
+    return total
+
+
+def seq_state(bundle, params, batch, max_len: int):
+    """The decode state a family without a prefill state decodes from: the
+    zero state of LM_BATCH sequences of ``max_len``, whisper's with the
+    cross K/V of ``batch["frames"]`` (``precompute_cross``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import whisper
+    state = bundle.serve_state_shape(ShapeConfig("decode", max_len,
+                                                 LM_BATCH, "decode"))
+    if bundle.cfg.family == "audio":
+        state["cross_k"], state["cross_v"] = whisper.precompute_cross(
+            bundle.cfg, params, batch["frames"].to(bundle.dtype),
+            use_kernel=bundle.use_kernels)
+    return state
+
+
+def seq_decode(cfg, bundle, params, make_state, logits) -> dict:
+    """LM_DECODE greedy tokens at B 4 from ``make_state()`` (these families'
+    prefill keeps no state, as the reference's: mamba2 and jamba decode
+    from the zero state, whisper against ``precompute_cross``'s K/V), the
+    first fed the prefill's greedy token, with every launch count set to
+    0 just before (no port kernel); ms per token beside its floors (every
+    weight read once, the einsum dispatch's; the experts the steps pick;
+    each with the state a step reads and writes), peak MiB and a profile
+    of one step."""
+    from repro_torch.kernels import ops
+    with route_log() as picks:            # warm-up; the timed run repeats it
+        greedy(bundle, params, make_state(), logits, LM_DECODE, 0)
+    state = make_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    toks = greedy(bundle, params, state, logits, LM_DECODE, 0)
+    torch.cuda.synchronize()
+    ms_tok = (time.perf_counter() - t) / LM_DECODE * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    sbytes = decode_state_bytes(state, 0, LM_DECODE)
+    floor_einsum, floor = ((n + sbytes) / PEAK_BYTES_PER_S * 1e3 for n in
+                           decode_bytes(bundle, picks, LM_DECODE))
+    print(f"  decode: {LM_DECODE} greedy tokens at B {toks.shape[0]}, "
+          f"{ms_tok:.3f} ms per token (floors with {sbytes / 1e6:.1f} MB of "
+          f"state a step: every weight read once {floor_einsum:.3f} ms; the "
+          f"experts the steps pick {floor:.3f} ms); peak {peak:.1f} MiB; "
+          f"launches {counts}", flush=True)
+    if bool((toks < 0).any()) or bool((toks >= cfg.vocab).any()):
+        raise AssertionError("decode: a token outside the vocab")
+    if any(counts.values()):
+        raise AssertionError(f"decode launched a port kernel: {counts}")
+    prof = profile_phase(f"{cfg.name} decode step", lambda: bundle.serve_step(
+        params, state, {"token": toks[:, :1]}, length=LM_DECODE), ms_tok)
+    return {"ms_per_token": ms_tok, "einsum_floor_ms": floor_einsum,
+            "floor_ms": floor, "state_bytes": sbytes, "peak_mib": peak,
+            "launches": counts, "tokens": toks.numel(), "profile": prof}
+
+
+def decode_vs_forward(dev, cfg, bundle, params, batch) -> dict:
+    """Decode over the first DVF_TOKENS tokens of ``batch`` from
+    ``seq_state`` against the full forward pass over them (the logits at
+    every position): in bf16 within the reference's own rtol 5e-2, atol
+    5e-1 (``tests/test_model_invariants.py``; its argmax agreement is
+    reported), and with the weights cast to f32 the same function
+    (relative L2 at most DVF_F32_REL, agreement at least
+    DVF_F32_AGREE)."""
+    from repro_torch.models.api import build
+    from repro_torch.models.common import tree_map
+    n = DVF_TOKENS
+    sub = {**batch, "tokens": batch["tokens"][:, :n]}
+    out = {}
+    for label, b, p in (("bf16", bundle, params),
+                        ("f32", build(cfg, device=dev, dtype=torch.float32),
+                         tree_map(lambda t: t.float(), params))):
+        full, head = seq_hidden(b, p, sub)
+        full = (full @ head).float()
+        state = seq_state(b, p, sub, n)
+        dec = torch.cat([b.serve_step(p, state, {"token": sub["tokens"][
+            :, t:t + 1]}, length=t)[0] for t in range(n)], dim=1)
+        agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+        r = {"rel_l2": rel_l2(dec, full), "agree": agree,
+             "max_abs": float((dec - full).abs().max())}
+        if label == "bf16":
+            r["within_rule"] = bool(torch.isclose(
+                dec, full, rtol=5e-2, atol=5e-1).all())
+            ok = r["within_rule"]
+        else:
+            ok = r["rel_l2"] <= DVF_F32_REL and agree >= DVF_F32_AGREE
+        print(f"  decode against the forward pass over {n} tokens, {label}: "
+              f"relative L2 {r['rel_l2']:.4e}, max |Δ| {r['max_abs']:.4e}, "
+              f"argmax agreement {agree:.4f}", flush=True)
+        out[label] = r
+        if not ok:
+            raise AssertionError(f"{cfg.name}: decode against the forward "
+                                 f"pass, {label}: {r}")
+        del full, dec, state
+    return out
+
+
+def seq_train(dev, cfg) -> dict:
+    """SEQ_TRAIN_STEPS training steps (see the module docstring, phase 9c):
+    mamba2 through ``Trainer.run`` on ``TokenPipeline``'s 4 ×
+    4096 tokens; whisper through ``launch.steps.make_train_step`` on
+    ``make_inputs`` batches (frames, tokens, targets) at 4 × 448 (the
+    pipeline makes no frames). adamw(TRAIN_LR), remat; losses finite, step
+    0's within [ln V − 0.5, ln V + 1.5], no port kernel; ms per step
+    (median of steps 1-2, host clock), tokens/s, peak MiB."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    bundle = build(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if cfg.family == "audio":
+        seq, gen = WHISPER_TEXT, torch.Generator(device=dev).manual_seed(3)
+        opt = optim.adamw(TRAIN_LR)
+        params = bundle.init(gen)
+        state = opt.init(params)
+        step = steps.make_train_step(bundle, opt)
+        shape = ShapeConfig("train", seq, TRAIN_BATCH, "train")
+        losses, secs = [], []
+        for _ in range(SEQ_TRAIN_STEPS):
+            batch = bundle.make_inputs(shape, gen)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, loss = step(params, state, batch)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t)
+        del params, state
+    else:
+        seq = TRAIN_SEQ
+        ckpt_dir = tempfile.mkdtemp(prefix="lm_seq_train_")
+        try:
+            trainer = Trainer(
+                bundle, optim.adamw(TRAIN_LR),
+                TokenPipeline(cfg.vocab, seq, TRAIN_BATCH, device=dev),
+                TrainerConfig(steps=SEQ_TRAIN_STEPS, ckpt_every=10 ** 9,
+                              ckpt_dir=ckpt_dir, log_every=1,
+                              microbatches=cfg.microbatches))
+            trainer.ckpt.save = lambda step, tree, extra=None: None
+            params, state = trainer.run(
+                torch.Generator(device=dev).manual_seed(0))
+            del params, state
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        losses = [h["loss"] for h in trainer.history]
+        secs = [h["sec"] for h in trainer.history]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    step_ms = sorted(x * 1e3 for x in secs[1:])
+    ms = step_ms[len(step_ms) // 2]
+    n_tok = seq * TRAIN_BATCH
+    lo = math.log(cfg.vocab) - TRAIN_LOSS0_BELOW
+    hi = math.log(cfg.vocab) + TRAIN_LOSS0_ABOVE
+    print(f"  train: {SEQ_TRAIN_STEPS} steps of {TRAIN_BATCH} × {seq} tokens "
+          f"(remat {cfg.remat}): losses {losses}; ms per step {step_ms} "
+          f"(first {secs[0] * 1e3:.3f}), {n_tok / ms * 1e3:.0f} tokens/s; "
+          f"peak {peak:.1f} MiB; launches {counts}", flush=True)
+    if len(losses) != SEQ_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name} train: losses {losses}")
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"{cfg.name} train: step 0's loss "
+                             f"{losses[0]:.4f} outside [{lo:.4f}, {hi:.4f}]")
+    if any(counts.values()):
+        raise AssertionError(f"{cfg.name} train: a port kernel launched: "
+                             f"{counts}")
+    return {"losses": losses, "step_ms": step_ms, "ms_per_step": ms,
+            "first_step_ms": secs[0] * 1e3, "tokens_per_s": n_tok / ms * 1e3,
+            "peak_mib": peak, "tokens_per_step": n_tok, "launches": counts}
+
+
+def lm_seq_phase(dev) -> dict:
+    """The SSM, hybrid and audio families at their published widths (see
+    the module docstring, phase 9c). The card's caches are freed between
+    configs."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.models import whisper
+    from repro_torch.models.api import build
+
+    out = {}
+    for name, layers_cut in LM_SEQ:
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        if layers_cut is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers_cut)
+        bundle = build(cfg, device=dev)
+        plain = build(cfg, device=dev, use_kernels=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = bundle.init(gen)
+        audio = cfg.family == "audio"
+        S = WHISPER_TEXT if audio else LM_PROMPT
+        batch = bundle.make_inputs(ShapeConfig("prefill", S, LM_BATCH,
+                                               "prefill"), gen)
+        print(f"LM seq: {cfg.name} ({cfg.family}) at {cfg.n_layers} layers"
+              f"{' (cut)' if layers_cut else ''}, {bundle.n_params():,} "
+              f"parameters ({torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              f"GiB on the card), {LM_BATCH} × {S} tokens"
+              f"{f', {cfg.encoder_seq} frames' if audio else ''}", flush=True)
+        r = {"layers": cfg.n_layers, "layers_published": get_arch(
+            name).n_layers, "n_params": bundle.n_params()}
+
+        max_len = WHISPER_TEXT if audio else S + LM_DECODE
+        with torch.inference_mode():
+            pre, logits, picks = seq_prefill(cfg, bundle, plain, params,
+                                             batch)
+            r["prefill"] = pre
+            if audio:
+                from repro_torch.kernels import ops
+                ops.reset_launch_counts()
+                r["encoder_ms"] = timed_ms(lambda: whisper.encode(
+                    cfg, params, batch["frames"], use_kernel=True), 3)
+                torch.cuda.synchronize()
+                r["encoder_launches"] = ops.launch_counts()["flash_attention"]
+                print(f"  encoder alone on {LM_BATCH} × {cfg.encoder_seq} "
+                      f"frames: {r['encoder_ms']:.3f} ms", flush=True)
+            if cfg.moe is not None:
+                gather = build(cfg, device=dev, moe_impl="gather")
+                with route_log() as picks_g:
+                    lg, _ = gather.prefill(params, batch, S)
+                rg = route_report(cfg, picks, picks_g)
+                if not sum(rg["dropped"]) or not bool(
+                        torch.isfinite(lg).all()):
+                    raise AssertionError(f"gather: dropped {rg['dropped']} "
+                                         f"or not finite")
+                r["gather"] = {"agree": rg["agree"], "dropped": rg["dropped"],
+                               "ms": timed_ms(lambda: gather.prefill(
+                                   params, batch, S), 3)}
+                del lg
+                print(f"  gather dispatch: finite with {sum(rg['dropped'])} "
+                      f"dropped picks, sharing "
+                      f"{sum(rg['agree']) / len(rg['agree']):.5f} of "
+                      f"einsum's picks, {r['gather']['ms']:.3f} ms per "
+                      f"prefill", flush=True)
+            r["decode"] = seq_decode(cfg, bundle, params, lambda: seq_state(
+                bundle, params, batch, max_len), logits)
+            if cfg.moe is not None:
+                toks_e = greedy(bundle, params, seq_state(
+                    bundle, params, batch, max_len), logits, 8, 0)
+                toks_g = greedy(gather, params, seq_state(
+                    gather, params, batch, max_len), logits, 8, 0)
+                r["gather"]["decode_tokens_agree"] = int(
+                    (toks_e == toks_g).sum())
+                print(f"  gather decode: 8 greedy tokens at B {LM_BATCH}, "
+                      f"{r['gather']['decode_tokens_agree']} of "
+                      f"{toks_e.numel()} equal to einsum's", flush=True)
+                del gather
+            if cfg.family in ("ssm", "audio"):
+                r["decode_vs_forward"] = decode_vs_forward(
+                    dev, cfg, bundle, params, batch)
+            del logits, picks
+        r["engine"] = engine_run(bundle, params)
+        torch.cuda.empty_cache()
+        f32_layers = SEQ_F32_LAYERS.get(name)
+        if f32_layers is not None:       # the f32 copy needs a cut: new weights
+            del params
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, n_layers=f32_layers)
+            bundle = build(cfg, device=dev)
+            plain = build(cfg, device=dev, use_kernels=False)
+            params = bundle.init(torch.Generator(device=dev).manual_seed(1))
+        if seq_flash_launches(cfg):      # mamba2: no attention, no kernel
+            print(f"  against f32 at {cfg.n_layers} layers:", flush=True)
+            with torch.inference_mode():
+                r["rel_l2_to_f32"] = seq_vs_f32(dev, cfg, bundle, plain,
+                                                params, batch)
+            r["f32_layers"] = cfg.n_layers
+        del params, bundle, plain, batch
+        torch.cuda.empty_cache()
+        if cfg.family in ("ssm", "audio"):
+            r["train"] = seq_train(dev, get_arch(name))
+        out[name] = r
+    torch.cuda.empty_cache()
+    return {"LM_seq": out}
 
 
 def attention_ms(dev, cfg) -> float:
@@ -3811,6 +4388,8 @@ def main() -> int:
     runs.update(lm_phase(device, get_arch(LM_ARCH)))
     torch.cuda.empty_cache()
     runs.update(lm_family_phase(device))
+    torch.cuda.empty_cache()
+    runs.update(lm_seq_phase(device))
     torch.cuda.empty_cache()
     runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
 

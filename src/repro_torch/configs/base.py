@@ -4,9 +4,8 @@ A copy of the reference's ``repro/configs/base.py`` (the port imports
 nothing of the JAX package). Every architecture has one
 ``repro_torch/configs/<id>.py`` exporting ``CONFIG`` with the published
 numbers. ``reduced()`` yields the same-family small config of the CPU
-tests. The port serves the transformer's families (dense, MoE, VLM), so
-their configs are here; the SSM, hybrid and audio configs come with the
-slices that port their models (``models.api.build`` raises for them).
+tests. The port builds every family of the reference (dense, MoE, VLM,
+SSM, hybrid, audio), so all ten LM configs are here.
 """
 from __future__ import annotations
 
@@ -189,13 +188,12 @@ class ArchConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# The configs of the families the port serves (dense, MoE, VLM), in the
-# reference's order; each other family's config comes with the slice that
-# ports it. "gamlp-paper" is the paper's own GA-MLP, registered (as in the
-# reference) but not an LM arch.
+# The reference's ten LM configs, in its order. "gamlp-paper" is the
+# paper's own GA-MLP, registered (as in the reference) but not an LM arch.
 ARCH_IDS = (
-    "yi-9b", "phi3-mini-3.8b", "tinyllama-1.1b", "granite-8b",
-    "granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "qwen2-vl-7b",
+    "yi-9b", "phi3-mini-3.8b", "tinyllama-1.1b", "granite-8b", "mamba2-130m",
+    "whisper-tiny", "granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+    "jamba-v0.1-52b", "qwen2-vl-7b",
 )
 
 _MODULE_BY_ID = {
@@ -203,8 +201,11 @@ _MODULE_BY_ID = {
     "phi3-mini-3.8b": "phi3_mini",
     "tinyllama-1.1b": "tinyllama",
     "granite-8b": "granite_8b",
+    "mamba2-130m": "mamba2_130m",
+    "whisper-tiny": "whisper_tiny",
     "granite-moe-3b-a800m": "granite_moe",
     "qwen3-moe-235b-a22b": "qwen3_moe",
+    "jamba-v0.1-52b": "jamba",
     "qwen2-vl-7b": "qwen2_vl",
     "gamlp-paper": "gamlp_paper",
 }

@@ -1,12 +1,16 @@
-"""Serve a dense LM with batched requests through the continuous-batching
+"""Serve an LM with batched requests through the continuous-batching
 engine: 7 requests on 4 slots.
 
-    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--device cpu] [--full]
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch ID] [--device cpu] [--full]
 
-The port of ``examples/serve_lm.py``. It runs tinyllama-1.1b's reduced
-config (2 layers, d 64) unless ``--full`` asks for the published width
-(22 layers, d 2048, 1.1 B parameters in bf16), on the CUDA card unless
-``--device`` names another. The weights are random, from seed 0 through a
+The port of ``examples/serve_lm.py``. It runs ``--arch``'s reduced config
+(default tinyllama-1.1b: 2 layers, d 64) unless ``--full`` asks for the
+published width (tinyllama: 22 layers, d 2048, 1.1 B parameters in
+bf16), on the CUDA card unless ``--device`` names another. Any of
+``configs.base.ARCH_IDS`` serves: mamba2-130m decodes from its SSM state,
+jamba-v0.1-52b from its KV caches and SSM states, whisper-tiny against
+zero cross K/V (the engine, like the reference's, never runs the
+encoder). The weights are random, from seed 0 through a
 ``torch.Generator`` (not the reference's ``jax.random`` numbers).
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.serve.engine import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--full", action="store_true",
@@ -30,7 +35,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = get_arch("tinyllama-1.1b")
+    cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
     bundle = build(cfg, device=device)

@@ -1,9 +1,12 @@
-"""Training launcher: a dense or MoE LM at reduced (CPU) or full width.
+"""Training launcher: a dense, MoE, SSM or hybrid LM at reduced (CPU) or
+full width.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 50 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-3b-a800m --reduced --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
+      --steps 3
 
 The port of ``repro/launch/train.py``: the same flags, plus ``--device``
 (default: the CUDA card). The weights are random, from seed 0 through a
@@ -16,9 +19,10 @@ full width the default is one card's share of the reference's
 ``TRAIN_4K``: sequences of 4096 tokens, as there, and a global batch of 4.
 The reference's 256 sequences are spread over a 16 × 16 device mesh; one
 card has neither the memory nor the time for them. ``--microbatches``
-must divide the global batch (granite-moe's config asks for 8). The VLM
-needs 3-D positions in its batches, which ``TokenPipeline`` does not make
-(nor does the reference's).
+must divide the global batch (granite-moe's config asks for 8, jamba's
+8). The VLM needs 3-D positions and the audio model frame embeddings in
+their batches, which ``TokenPipeline`` does not make (nor does the
+reference's): the launcher refuses both families.
 """
 from __future__ import annotations
 
@@ -52,6 +56,10 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        ap.error(f"--arch {args.arch}: TokenPipeline makes no "
+                 f"{'positions' if cfg.family == 'vlm' else 'frames'} for "
+                 f"the {cfg.family} family")
     if args.reduced:
         cfg = cfg.reduced()
         shape = ShapeConfig("train", args.seq_len or 128, args.batch or 4,

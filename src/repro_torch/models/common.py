@@ -44,6 +44,24 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def unstack(tree) -> list:
+    """A nested dict of stacked [n, ...] leaves as n nested dicts of views
+    (entry i: every leaf's [i]), one ``unbind`` a leaf: the backward pass
+    then stacks the n gradients of a leaf once, where indexing entry by
+    entry would add each into an [n, ...] zeros."""
+    paths, ts = zip(*leaves(tree))
+    out = []
+    for ws in zip(*(t.unbind(0) for t in ts)):
+        d = {}
+        for path, w in zip(paths, ws):
+            node = d
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = w
+        out.append(d)
+    return out
+
+
 def _init_one(spec: Spec, generator: torch.Generator, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)

@@ -24,8 +24,12 @@ def _leaf(x, device, dtype):
 
 
 def lm_params_from_numpy(tree, *, device, dtype=None):
-    """The reference's params (``{"embed", "ln_f", "head", "blocks": {...}}``,
-    layer-stacked [L, ...] block weights, numpy leaves) as the port's, key
-    for key. Floating leaves become ``dtype`` (default: kept) on
+    """The reference's params (a nested dict of numpy leaves: the
+    transformer's and mamba2's ``{"embed", "ln_f", "head", "blocks"}`` with
+    layer-stacked [L, ...] block weights, jamba's ``blocks["pos{i}"]``
+    dicts of period-stacked attention, mamba, MLP or MoE weights, whisper's
+    ``encoder`` and ``decoder``) as the port's, key for key. Floating
+    leaves become ``dtype`` (default: each keeps its own, so the f32
+    routers, dt_bias, A_log and D stay f32 among bf16 weights) on
     ``device``."""
     return tree_map(lambda x: _leaf(x, device, dtype), tree)

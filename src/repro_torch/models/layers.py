@@ -1,21 +1,21 @@
-"""Core neural layers of the transformer: RMSNorm, RoPE and M-RoPE, GQA
-attention (the prefill's, and decode against a KV cache, bf16 or int8),
-SwiGLU, and the mixture of experts (router, einsum and gather dispatch).
+"""Core neural layers of the LMs: RMSNorm and LayerNorm, RoPE and M-RoPE,
+GQA attention (the prefill's, and decode against a KV cache, bf16 or
+int8), SwiGLU and the GELU MLP, the mixture of experts (router, einsum
+and gather dispatch), and the causal depthwise conv of the Mamba front.
 
-The port of the transformer's subset of ``repro/models/layers.py``, with
-its layouts: activations [B, S, d], heads [B, S, H, D]. ``attention`` on a
-CUDA tensor is one launch of the hand-written flash kernel
-(``kernels.ops.flash_attention``); on a CPU tensor, or with
-``use_kernel=False``, it is the reference's chunked exact softmax
-(``_attend_block``). The two compute the same function, except that the
-reference casts the probabilities to v's dtype before the PV product and
-the kernel keeps them in f32 (ROADMAP Queue 3). The kernel has no
-backward and refuses inputs that require grad, so training
-(``models.transformer.block_forward``) asks for the plain version with
+The port of ``repro/models/layers.py``, with its layouts: activations
+[B, S, d], heads [B, S, H, D]. ``attention`` on a CUDA tensor is one
+launch of the hand-written flash kernel (``kernels.ops.flash_attention``);
+on a CPU tensor, or with ``use_kernel=False``, it is the reference's
+chunked exact softmax (``_attend_block``). The two compute the same
+function, except that the reference casts the probabilities to v's dtype
+before the PV product and the kernel keeps them in f32 (ROADMAP Queue 3).
+The kernel has no backward and refuses inputs that require grad, so
+every training forward pass asks for the plain version with
 ``use_kernel=False``, as the reference trains through its jnp attention.
 
-The MoE and M-RoPE are plain PyTorch, as the reference's are plain jnp:
-no Pallas kernel stands behind them. The expert products are
+Everything but the attention is plain PyTorch, as the reference's is
+plain jnp: no Pallas kernel stands behind it. The expert products are
 ``torch.einsum`` (cuBLAS on the card).
 
 The KV caches are updated in place (the reference returns new arrays): a
@@ -36,6 +36,16 @@ def rms_norm(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """Statistics in f32 (the biased variance, as ``jnp.var``), the
+    normalized x cast back to x's dtype before the scale and bias."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +248,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    """GELU MLP with biases; the tanh approximation, as the reference's
+    ``jax.nn.gelu(..., approximate=True)``."""
+    return F.gelu(x @ w_up + b_up, approximate="tanh") @ w_down + b_down
+
+
 # ---------------------------------------------------------------------------
 # Mixture of Experts
 # ---------------------------------------------------------------------------
@@ -378,3 +394,28 @@ def moe(x, params, top_k: int, capacity_factor: float = 1.0,
         impl: str = "einsum", group_size: int = 512):
     fn = moe_einsum if impl == "einsum" else moe_gather
     return fn(x, params, top_k, capacity_factor, group_size)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (the Mamba front)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w):
+    """x: [B,S,D]; w: [K,D] depthwise. Causal: output[t] uses x[t-K+1..t].
+    The reference's K-term loop in x's dtype, in its order (in bf16 each
+    product and partial sum rounds; ``F.conv1d`` sums in another order)."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out
+
+
+def causal_conv1d_update(state, x_new, w):
+    """Decode step. state: [B,K-1,D]; x_new: [B,1,D] -> (new_state, out
+    [B,1,D]). Returns a new state (the caller writes it where it keeps
+    it)."""
+    window = torch.cat([state, x_new], dim=1)                   # [B,K,D]
+    out = torch.einsum("bkd,kd->bd", window, w)[:, None]
+    return window[:, 1:], out

@@ -1,7 +1,8 @@
 """Decoder-only transformer: dense (yi / phi3 / tinyllama / granite), MoE
 (granite-moe / qwen3-moe) and the VLM backbone (qwen2-vl, M-RoPE): param
-specs, the training forward pass and loss, prefill and single-token
-decode.
+specs, the training forward pass and the chunked cross-entropy (which
+``ModelBundle.loss`` combines for every family), prefill and
+single-token decode.
 
 The port of ``repro/models/transformer.py``. The params
 keep the reference's layer-stacked layout ([L, ...] per block weight), so
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import Spec
+from repro_torch.models.common import Spec, unstack
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -75,17 +76,6 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
         specs["head"] = Spec((d, vocab_padded), ("embed", "vocab"), "small",
                              dtype=dtype)
     return specs
-
-
-def unstack_layers(params) -> list:
-    """Every layer's weights as views of the stacked [L, ...] blocks, one
-    ``unbind`` a weight: the backward pass then stacks the layers'
-    gradients of a weight once, where indexing layer by layer would add
-    each into an [L, ...] zeros. The keys are the block's own (a dense
-    block's SwiGLU weights or an MoE block's router and experts)."""
-    keys = list(params["blocks"])
-    cols = [params["blocks"][k].unbind(0) for k in keys]
-    return [dict(zip(keys, ws)) for ws in zip(*cols)]
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +179,7 @@ def forward_hidden(cfg, params, batch, *, moe_impl="einsum",
     B, S = tokens.shape
     x = batch["embeds"] if "embeds" in batch else embed_tokens(params, tokens)
     positions = _positions_for(cfg, batch, B, S, device=x.device)
-    layers = unstack_layers(params)
+    layers = unstack(params["blocks"])
 
     def group(x, ps):
         aux = 0.0
@@ -245,19 +235,6 @@ def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def loss_fn(cfg, params, batch, vocab: int, *, moe_impl="einsum",
-            attn_chunk=1024, aux_weight=0.01):
-    hidden, aux = forward_hidden(cfg, params, batch, moe_impl=moe_impl,
-                                 attn_chunk=attn_chunk)
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
-                          device=hidden.device)
-    ce = chunked_ce_loss(cfg, hidden, _head_weight(cfg, params),
-                         batch["targets"], mask, vocab)
-    return ce + aux_weight * aux / max(cfg.n_layers, 1)
-
-
 def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
             attn_chunk=1024, use_kernels: bool = True):
     """Run the full prompt; return (last-token logits [B,1,Vp] f32, KV
@@ -272,7 +249,7 @@ def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
     kc = torch.zeros((cfg.n_layers, B, max_len, Hkv, hd), dtype=x.dtype,
                      device=x.device)
     vc = torch.zeros_like(kc)
-    for i, p in enumerate(unstack_layers(params)):
+    for i, p in enumerate(unstack(params["blocks"])):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q = (h @ p["wq"]).reshape(B, S, Hq, hd)
         k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
@@ -306,7 +283,7 @@ def decode_step(cfg, params, cache, batch, *, moe_impl="einsum"):
     else:
         positions = torch.full((B, 1), pos, dtype=torch.int64,
                                device=x.device)
-    for i, p in enumerate(unstack_layers(params)):
+    for i, p in enumerate(unstack(params["blocks"])):
         if quant:
             c = L.KVCacheQ(cache.k[i], cache.v[i], cache.k_scale[i],
                            cache.v_scale[i], pos)

@@ -361,21 +361,36 @@ def test_tinyllama_is_1_1b_in_bf16():
     assert param_bytes(tb.param_specs()) == 2 * tb.n_params()
 
 
-PORTED = {"moe": "granite-moe-3b-a800m", "vlm": "qwen2-vl-7b"}
+PORTED = {"ssm": "mamba2-130m", "moe": "granite-moe-3b-a800m",
+          "hybrid": "jamba-v0.1-52b", "audio": "whisper-tiny",
+          "vlm": "qwen2-vl-7b"}
 
 
 @pytest.mark.parametrize("family", ["ssm", "moe", "hybrid", "audio", "vlm"])
 def test_build_refuses_families_not_ported(family):
-    """The transformer's families build (MoE and VLM at their reduced
-    configs); the SSM, hybrid and audio families are refused by name."""
-    if family in PORTED:
-        tb = tapi.build(get_arch(PORTED[family]).reduced(), device="cpu")
-        assert tb.cfg.family == family and tb.n_params() > 0
-        return
+    """Every family of the reference builds at its reduced config (the
+    port has all six); a family the reference has no model for is refused
+    by name, as the reference refuses it."""
+    tb = tapi.build(get_arch(PORTED[family]).reduced(), device="cpu")
+    assert tb.cfg.family == family and tb.n_params() > 0
+    assert family in tapi.PORTED_FAMILIES
     cfg = dataclasses.replace(get_arch("tinyllama-1.1b").reduced(),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+                              family=f"not-{family}")
+    with pytest.raises(ValueError, match="no LM model for family"):
         tapi.build(cfg, device="cpu")
+
+
+def test_every_reference_arch_builds_in_its_order():
+    """The port registers the reference's ten LM archs in its order, and
+    each builds at its published width on the CPU (specs only, nothing
+    allocated) with the reference's parameter count."""
+    from repro.configs.base import ARCH_IDS as J_ARCH_IDS
+    from repro_torch.configs.base import ARCH_IDS
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in ARCH_IDS:
+        tb = tapi.build(get_arch(arch), device="cpu")
+        jb = japi.build(j_get_arch(arch), make_host_mesh())
+        assert tb.n_params() == jb.n_params(), arch
 
 
 def test_flash_ref_gqa_equals_expanded_kv():
