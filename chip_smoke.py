@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out FILE.json]
     python3 chip_smoke.py --fista-parent OTHER_TREE/.../csrc/fista_zlast.cu
+    python3 chip_smoke.py --decode-ab OTHER_TREE/src [--out FILE.json]
 
 Run from the repository root on a host with a CUDA card, the CUDA toolkit
 (``nvcc``) and PyTorch built for CUDA. Phases, in order; any failure raises
@@ -256,6 +257,22 @@ and the script exits non-zero without printing a result:
    checkpoint every 2 steps, then a resume: the restored leaves equal the
    saved ones bit for bit, the resumed losses within rtol 1e-2 of an
    uninterrupted run.
+10b. ``mesh_phase``, the mesh tools (``launch.mesh``, ``parallel.sharding``,
+   ``launch.dryrun``) in a subprocess of this script (one process holds
+   one default process group): (a) the port's dry run on this host,
+   tinyllama-1.1b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
+   (16, 16) production mesh (a fake world of 256 ranks) and the
+   stage-parallel ``stage_v1m_b32`` and ``stage_v1m_b8`` cells:
+   per-device flops, peak live bytes and moved bytes, each finite and
+   above 0, and the trace seconds; then (b)
+   tinyllama-1.1b at its published width through ``build(cfg,
+   mesh=make_host_mesh(), shape)``, a 1×1 mesh over an NCCL world of one:
+   a prefill of 4 × 2048 (``flash_attention`` 22 times, through
+   ``local_map``) and 32 greedy tokens at batch 4, logits, K/V and tokens
+   bitwise equal to the plain bundle's (else within an f32 relative L2 of
+   1e-6), ms per prefill and per token beside the plain path's in turns,
+   and one adamw step at 2 layers against the plain step. The phase must
+   take at most 90 s.
 11. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
@@ -265,6 +282,12 @@ With ``--fista-parent`` the script builds that file alone (another tree's
 only times it against this tree's kernel at phase 2's six ``fista_zlast``
 shapes, in turns (parent, this, this, parent), by device time and by
 events, after checking the two against each other.
+
+With ``--decode-ab`` the script only times the plain (meshless)
+tinyllama-1.1b bundle's greedy decode at B 4 after a 4 × 2048 prefill,
+with another tree's ``src`` (e.g. a ``git archive`` of the parent commit)
+and with this tree's, each in a process of its own, in turns (parent,
+this, this, parent, twice), four runs of 8 tokens a process.
 
 Tolerances (f32 on both sides, sums in another order): matmul kernels
 max|kernel − plain| ≤ 1e-5·max|plain|; backtrack_resnorm within rtol 1e-5
@@ -392,6 +415,22 @@ SEQ_TRAIN_STEPS = 3
 # each) and the bf16 weights outgrow 80 GB (~95 GB reckoned)
 FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_MICRO = 3, 4, 4
 FAMILY_TRAIN_LAYERS = 16
+# mesh_phase: the port's dry run of tinyllama-1.1b on the single production
+# mesh (16, 16) traced in a fake world on the host, and the paper's
+# stage-parallel cells; then tinyllama-1.1b served and trained on a 1×1
+# DeviceMesh over an NCCL world of one against the plain (meshless) bundle
+MESH_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# the bundle's attention chunk (the dry run's CLI takes the reference's
+# 256): the same flops in a quarter of the recorded ops, to keep the phase
+# in its budget
+MESH_ATTN_CHUNK = 1024
+MESH_ADMM_BITS = (0, 8)
+MESH_PHASE_S = 90              # the phase's wall-time budget (subprocess)
+MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1024, 2
+MESH_REL_L2 = 1e-6             # f32 relative L2 where the bits differ
+MESH_TIMED_TOKENS = 8          # greedy tokens per timed decode run
+DECODE_AB_RUNS = 4             # timed decode runs per --decode-ab process
+DECODE_AB_ORDER = ("parent", "this", "this", "parent") * 2
 # lm_train_phase: tinyllama-1.1b trained at full width through Trainer.run
 # on one card's share of TRAIN_4K (sequences of 4096, global batch 4), and
 # the checks (c)-(e) at full width with the depth cut to TRAIN_CUT_LAYERS
@@ -4295,6 +4334,318 @@ def sass_report(lib_path) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# mesh_phase: the mesh tools (launch/mesh, parallel/sharding, launch/dryrun)
+# ---------------------------------------------------------------------------
+
+def mesh_dryrun() -> dict:
+    """(a) ``launch.dryrun`` on this host: tinyllama-1.1b's MESH_CELLS on
+    the single production mesh (a fake world of 256 ranks; attention
+    chunks of MESH_ATTN_CHUNK queries) and the stage-parallel cells
+    (StageMesh(16, 16), V 1,048,576, h 4096, L 16, 64 classes) with an
+    fp32 and an 8-bit wire. Per device: flops, peak live bytes, the
+    collectives' moved bytes; each finite and above 0."""
+    from repro_torch.launch import dryrun as D
+    cells = [(shape, lambda shape=shape: D.trace_cell(
+        LM_ARCH, shape, False, attn_chunk=MESH_ATTN_CHUNK))
+             for shape in MESH_CELLS]
+    cells += [(f"stage_v1m_b{bits or 32}",
+               lambda bits=bits: D.lower_admm_cell(False, bits=bits))
+              for bits in MESH_ADMM_BITS]
+    out = {}
+    for name, trace in cells:
+        program, meta = trace()
+        st = D.cell_stats(program, meta, meta["n_devices"])
+        r = {"flops_per_device": st["flops_per_device"],
+             "peak_live_bytes": st["memory"]["peak_live_bytes"],
+             "argument_bytes": st["memory"]["argument_bytes"],
+             "moved_bytes": st["collectives"]["total"]["moved_bytes"],
+             "collectives": st["collectives"]["by_kind"],
+             "trace_s": st["trace_s"], "records": st["hlo_chars"]}
+        print(f"  dry run {name}: flops/dev {r['flops_per_device']:.4e}, "
+              f"peak bytes/dev {r['peak_live_bytes']:.4e}, moved bytes/dev "
+              f"{r['moved_bytes']:.4e}, trace {r['trace_s']} s "
+              f"({r['records']} records)", flush=True)
+        for k in ("flops_per_device", "peak_live_bytes", "moved_bytes"):
+            if not (math.isfinite(r[k]) and r[k] > 0):
+                raise AssertionError(f"dry run {name}: {k} = {r[k]}")
+        out[name] = r
+    return out
+
+
+def mesh_greedy(bundle, params, cache, logits, n: int, start: int,
+                shape) -> torch.Tensor:
+    """``n`` greedy tokens from a prefill's cache and logits; on a mesh the
+    logits are gathered whole and each token goes back as the decode
+    shape's input DTensor."""
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    vocab = bundle.cfg.vocab
+    tok = whole(logits)[..., :vocab].argmax(-1).to(torch.int32)
+    out = []
+    for t in range(n):
+        batch = {"token": tok}
+        if bundle.on_mesh:
+            batch = bundle.distribute(batch, bundle.input_pspecs(shape))
+        logits, cache = bundle.serve_step(params, cache, batch,
+                                          length=start + t)
+        tok = whole(logits)[..., :vocab].argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1), logits
+
+
+def mesh_same(label, got, want) -> dict:
+    """Bitwise equality of two tensors (a DTensor gathered whole), else
+    their f32 relative L2 distance, which must be at most MESH_REL_L2."""
+    if hasattr(got, "full_tensor"):
+        got = got.full_tensor()
+    same = bool(torch.equal(got, want))
+    rel = 0.0 if same else float((got.float() - want.float()).norm()
+                                 / want.float().norm())
+    if not rel <= MESH_REL_L2:
+        raise AssertionError(f"1x1 mesh: {label} differs from the plain "
+                             f"path (relative L2 {rel:.3e})")
+    return {"bitwise": same, "rel_l2": rel}
+
+
+def mesh_host(dev, cfg, batch_size: int = LM_BATCH, prompt: int = LM_PROMPT,
+              n_decode: int = LM_DECODE, train_seq: int = MESH_TRAIN_SEQ,
+              train_batch: int = MESH_TRAIN_BATCH) -> dict:
+    """(b) ``cfg`` through ``build(cfg, mesh=make_host_mesh(), shape)``: a
+    1×1 DeviceMesh over a world of one on ``dev``. Prefill and greedy
+    decode against the plain bundle on the same weights (logits, K/V and
+    tokens bitwise, else within MESH_REL_L2); the prefill's flash launches
+    equal the layers; ms per prefill and per token in turns (plain, mesh,
+    mesh, plain); one adamw training step at TRAIN_CUT_LAYERS layers
+    against the plain step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import make_accum_train_step
+
+    mesh = make_host_mesh(dev)
+    max_len = prompt + n_decode
+    shape = ShapeConfig("serve", max_len, batch_size, "decode")
+    on_mesh = build(cfg, mesh, shape)
+    plain = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = plain.init(gen)
+    mparams = on_mesh.distribute(params, on_mesh.param_pspecs())
+    tokens = torch.randint(0, cfg.vocab, (batch_size, prompt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pshape = ShapeConfig("serve", max_len, batch_size, "prefill")
+    mbatch = on_mesh.distribute({"tokens": tokens},
+                                on_mesh.input_pspecs(pshape))
+    out = {"mesh": str(mesh)}
+    # no_grad, not inference_mode: DTensor's views (the layers' unbind) set
+    # a version counter, which an inference tensor refuses
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        logits, cache = on_mesh.prefill(mparams, mbatch, max_len)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        flash = ops.launch_counts().get("flash_attention", 0)
+        want = cfg.n_layers if dev.type == "cuda" else 0
+        print(f"  1x1 mesh prefill: flash_attention launched {flash} times",
+              flush=True)
+        if flash != want:
+            raise AssertionError(f"1x1 mesh prefill: flash_attention "
+                                 f"launched {flash} times, not {want}")
+        logits_p, cache_p = plain.prefill(params, {"tokens": tokens},
+                                          max_len)
+        out["prefill"] = {"logits": mesh_same("prefill logits", logits,
+                                              logits_p),
+                          "k": mesh_same("prefill K", cache.k, cache_p.k),
+                          "v": mesh_same("prefill V", cache.v, cache_p.v),
+                          "flash_launches": flash}
+        toks, last = mesh_greedy(on_mesh, mparams, cache, logits, n_decode,
+                                 prompt, shape)
+        toks_p, last_p = mesh_greedy(plain, params, cache_p, logits_p,
+                                     n_decode, prompt, shape)
+        if not torch.equal(toks, toks_p):
+            raise AssertionError("1x1 mesh: greedy tokens differ from the "
+                                 "plain path's")
+        out["decode"] = {"tokens_equal": True, "tokens": toks.numel(),
+                         "last_logits": mesh_same("decode logits", last,
+                                                  last_p),
+                         "k": mesh_same("decode K", cache.k, cache_p.k)}
+        print(f"  1x1 mesh: prefill and {n_decode} greedy tokens at B "
+              f"{batch_size} equal the plain path's: {out['prefill']} "
+              f"{out['decode']}", flush=True)
+        n_t = min(MESH_TIMED_TOKENS, n_decode)
+        runs = {"plain": (plain, params, {"tokens": tokens}),
+                "mesh": (on_mesh, mparams, mbatch)}
+        ms = {"prefill": {"plain": [], "mesh": []},
+              "token": {"plain": [], "mesh": []}}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            b, p, batch = runs[name]
+            ms["prefill"][name].append(timed_ms(
+                lambda: b.prefill(p, batch, max_len), 2))
+            lg, c = b.prefill(p, batch, max_len)
+            ms["token"][name].append(timed_ms(
+                lambda: mesh_greedy(b, p, c, lg, n_t, prompt, shape),
+                1) / n_t)
+        for what in ms:
+            for name in ms[what]:
+                ms[what][name] = min(ms[what][name])
+        out["ms"] = ms
+        print(f"  1x1 mesh ms per prefill ({batch_size} x {prompt}): mesh "
+              f"{ms['prefill']['mesh']:.3f}, plain {ms['prefill']['plain']:.3f};"
+              f" ms per token (B {batch_size}): mesh {ms['token']['mesh']:.3f}"
+              f", plain {ms['token']['plain']:.3f} (best of two, in turns)",
+              flush=True)
+        del cache, cache_p, logits, logits_p, mparams, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    tshape = ShapeConfig("train", train_seq, train_batch, "train")
+    m2 = build(cfg2, mesh, tshape)
+    p2 = build(cfg2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = p2.init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (train_batch, train_seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
+    opt = optim.adamw(3e-4)
+    new_p, _, loss_p = make_accum_train_step(p2, opt, 1)(
+        params, opt.init(params), batch)
+    mparams = m2.distribute(params, m2.param_pspecs())
+    new_m, _, loss_m = make_accum_train_step(m2, opt, 1)(
+        mparams, opt.init(mparams), m2.distribute(
+            batch, m2.input_pspecs(tshape)))
+    leaves = {"loss": mesh_same("train loss", loss_m, loss_p)}
+    from repro_torch.models.common import leaves as tree_leaves
+    for (path, a), (_, b) in zip(tree_leaves(new_m), tree_leaves(new_p)):
+        leaves["/".join(path)] = mesh_same("/".join(path), a, b)
+    n_bits = sum(r["bitwise"] for r in leaves.values())
+    print(f"  1x1 mesh train step ({TRAIN_CUT_LAYERS} layers, "
+          f"{train_batch} x {train_seq}): loss {float(loss_p):.6f}; "
+          f"{n_bits} of {len(leaves)} results bitwise equal to the plain "
+          f"step's, max relative L2 "
+          f"{max(r['rel_l2'] for r in leaves.values()):.3e}", flush=True)
+    out["train"] = leaves
+    return out
+
+
+def mesh_child(path: str) -> int:
+    """The mesh phase's subprocess: one process holds one default process
+    group, so the fake worlds of the dry run and the card's world of one
+    live here, apart from the rest of the script."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    t0 = time.perf_counter()
+    res = {"dryrun": mesh_dryrun()}
+    t1 = time.perf_counter()
+    res["host"] = mesh_host(torch.device("cuda"), get_arch(LM_ARCH))
+    t2 = time.perf_counter()
+    res["dryrun_s"], res["host_s"] = t1 - t0, t2 - t1
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    write_record(path, res)
+    return 0
+
+
+def mesh_phase() -> dict:
+    """Run ``mesh_child`` in a subprocess of this script and read its
+    record; the subprocess's wall time must stay within MESH_PHASE_S."""
+    import tempfile
+    d = tempfile.mkdtemp()
+    path = os.path.join(d, "mesh.json")
+    t = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--mesh-phase", path], timeout=600)
+        wall = time.perf_counter() - t
+        if res.returncode != 0:
+            raise AssertionError(f"mesh phase: exit {res.returncode}")
+        with open(path) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["wall_s"] = wall
+    print(f"mesh phase: {wall:.1f} s (dry run {out['dryrun_s']:.1f} s, 1x1 "
+          f"mesh {out['host_s']:.1f} s)", flush=True)
+    if wall > MESH_PHASE_S:
+        raise AssertionError(f"mesh phase took {wall:.1f} s > "
+                             f"{MESH_PHASE_S} s")
+    return out
+
+
+def plain_decode_child(src: str, path: str) -> int:
+    """``--plain-decode``: ms per greedy token (MESH_TIMED_TOKENS a run,
+    DECODE_AB_RUNS runs, each after its own prefill) of the plain bundle of
+    LM_ARCH at its published width, B LM_BATCH after an LM_PROMPT-token
+    prefill, with the ``repro_torch`` package under ``src``."""
+    src = os.path.abspath(src)
+    sys.path.insert(0, src)
+    import repro_torch
+    if not os.path.abspath(repro_torch.__file__).startswith(src + os.sep):
+        raise AssertionError(f"repro_torch came from {repro_torch.__file__}"
+                             f", not {src}")
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.api import build
+    kbuild.build()
+    kbuild.library()
+    dev = torch.device("cuda")
+    cfg = get_arch(LM_ARCH)
+    bundle = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    n = MESH_TIMED_TOKENS
+    ms = []
+    with torch.no_grad():
+        for _ in range(DECODE_AB_RUNS):
+            logits, cache = bundle.prefill(params, {"tokens": tokens},
+                                           LM_PROMPT + n)
+            ms.append(timed_ms(lambda: greedy(bundle, params, cache, logits,
+                                              n, LM_PROMPT), 1) / n)
+    write_record(path, {"src": src, "ms_per_token": ms})
+    return 0
+
+
+def decode_ab(parent_src: str) -> dict:
+    """``--decode-ab``: the plain bundle's decode ms per token with another
+    tree's package (``parent_src``, e.g. a ``git archive`` of the parent
+    commit's ``src``) and with this tree's, each in a process of its own,
+    in turns (DECODE_AB_ORDER)."""
+    import tempfile
+    d = tempfile.mkdtemp()
+    out = {"parent": [], "this": []}
+    try:
+        for i, name in enumerate(DECODE_AB_ORDER):
+            src = parent_src if name == "parent" else os.path.join(ROOT, "src")
+            path = os.path.join(d, f"{i}.json")
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--plain-decode", path, "--src", src],
+                                 timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"plain decode ({name}): exit "
+                                     f"{res.returncode}")
+            with open(path) as f:
+                ms = json.load(f)["ms_per_token"]
+            print(f"  plain decode ms per token ({name}): {ms}", flush=True)
+            out[name].append(ms)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    best = {k: min(min(r) for r in v) for k, v in out.items()}
+    median = {k: float(np.median(sum(v, []))) for k, v in out.items()}
+    n = DECODE_AB_ORDER.count("this") * DECODE_AB_RUNS
+    print(f"plain decode ms per token (B {LM_BATCH}, {n} runs of "
+          f"{MESH_TIMED_TOKENS} tokens each): best parent "
+          f"{best['parent']:.3f}, this tree {best['this']:.3f}; median parent "
+          f"{median['parent']:.3f}, this tree {median['this']:.3f}",
+          flush=True)
+    return {"runs": out, "best": best, "median": median}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4314,11 +4665,30 @@ def main() -> int:
     ap.add_argument("--fista-parent", default=None, metavar="FISTA_ZLAST_CU",
                     help="only time another tree's fista_zlast.cu against "
                          "this one's, in turns, at the kernel phase's shapes")
+    ap.add_argument("--mesh-phase", default=None, metavar="OUT_JSON",
+                    help=argparse.SUPPRESS)   # mesh_phase's subprocess
+    ap.add_argument("--decode-ab", default=None, metavar="OTHER_SRC",
+                    help="only time the plain bundle's decode with another "
+                         "tree's src/ against this one's, in turns")
+    ap.add_argument("--plain-decode", default=None, metavar="OUT_JSON",
+                    help=argparse.SUPPRESS)   # decode_ab's subprocess
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help=argparse.SUPPRESS)   # its package's tree
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
+    if args.mesh_phase:
+        return mesh_child(args.mesh_phase)
+    if args.plain_decode:
+        return plain_decode_child(args.src, args.plain_decode)
+    if args.decode_ab:
+        record = {"card": card_line(), "decode_ab": decode_ab(args.decode_ab)}
+        print(record["card"])
+        if args.out:
+            write_record(args.out, record)
+        return 0
 
     from repro_torch.core.pdadmm import ADMMConfig
     from repro_torch.core.quantize import uniform_grid
@@ -4392,6 +4762,8 @@ def main() -> int:
     runs.update(lm_seq_phase(device))
     torch.cuda.empty_cache()
     runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
+    torch.cuda.empty_cache()
+    runs["mesh"] = mesh_phase()
 
     # each kernel's launches come from the run whose path needs it
     run_of = dict.fromkeys(BASE_KERNELS, "G")

@@ -25,7 +25,16 @@ count (``StepProgram.n_shards``), as HLO's per-device module is.
   * ``collectives`` — one :class:`Collective` per tensor a collective
     moved, under HLO's kind names (:data:`HLO_KINDS`), with its payload
     bytes per device (the result's, as HLO reports: an all-gather's is
-    the gathered tensor) and its group size.
+    the gathered tensor, a reduce-scatter's the scattered piece) and its
+    group size: the ring's collectives and the ``_c10d_functional`` ones
+    DTensor issues on a mesh.
+
+:func:`memory_analysis` gives a recorded step the reference's
+``compiled.memory_analysis()`` keys from the recorder's live-bytes
+high-water mark (``StepRecorder(memory=True)``). That mark counts the
+storages PyTorch objects hold, in bytes as asked: it leaves out the
+caching allocator's rounding and reserve, the communicator's own buffers,
+and any kernel's workspace (cuBLAS, the flash kernel's scratch).
 """
 from __future__ import annotations
 
@@ -35,7 +44,17 @@ from typing import List
 
 HLO_KINDS = {"ppermute": "collective-permute", "psum": "all-reduce",
              "pmin": "all-reduce", "pmax": "all-reduce",
-             "all_gather": "all-gather"}
+             "all_gather": "all-gather",
+             # DTensor's (torch.ops._c10d_functional)
+             "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+             "all_reduce_coalesced": "all-reduce",
+             "all_reduce_coalesced_": "all-reduce",
+             "all_gather_into_tensor": "all-gather",
+             "all_gather_into_tensor_out": "all-gather",
+             "all_gather_into_tensor_coalesced": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "reduce_scatter_tensor_coalesced": "reduce-scatter",
+             "all_to_all_single": "all-to-all"}
 
 
 @dataclasses.dataclass
@@ -56,6 +75,10 @@ class Collective:
         if self.kind == "all-reduce":
             return 2.0 * (n - 1) / n * b
         if self.kind == "all-gather":
+            return (n - 1) / n * b
+        if self.kind == "reduce-scatter":
+            return float(n - 1) * b
+        if self.kind == "all-to-all":
             return (n - 1) / n * b
         return float(b)
 
@@ -104,3 +127,24 @@ def analyze_collectives(program):
     """``(collectives, coll_summary)`` of a recorded step."""
     st = analyze(program)
     return st.collectives, st.coll_summary()
+
+
+def memory_analysis(program, output_bytes: int, made_output_bytes: int,
+                    alias_bytes: int) -> dict:
+    """The reference's memory keys for one recorded step (``program`` from
+    a ``StepRecorder(memory=True)`` that held the step's arguments).
+
+    ``argument_bytes`` are the arguments' storages, ``output_bytes`` the
+    outputs', of which ``made_output_bytes`` were made by the step (an
+    output written in place into an argument was not). ``temp_bytes`` is
+    the high-water mark of what the step made, less the outputs it made;
+    ``alias_bytes`` (outputs in donated or written-in-place arguments) is
+    the caller's; ``peak_live_bytes`` is the reference's
+    argument + output + temp − alias."""
+    mem = program.memory
+    made_peak = mem["peak_bytes"] - mem["arg_bytes"]
+    temp = max(made_peak - made_output_bytes, 0)
+    return {"argument_bytes": mem["arg_bytes"], "output_bytes": output_bytes,
+            "alias_bytes": alias_bytes, "temp_bytes": temp,
+            "peak_live_bytes": (mem["arg_bytes"] + output_bytes + temp
+                                - alias_bytes)}

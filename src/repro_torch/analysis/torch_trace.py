@@ -52,13 +52,41 @@ Trace under :func:`fake_mode` (a ``FakeTensorMode``) and nothing computes: a
 full-size step traces on the CPU in a moment, through the plain versions
 of the kernels, which count the same launches.
 
+DTensors. A step on a ``DeviceMesh`` runs on DTensors, and the recorder
+sees what one rank runs: an op whose arguments are DTensors is handed to
+DTensor first (the mode returns ``NotImplemented``), which redistributes
+its inputs and runs the op on the local shards, and those local ops and
+``_c10d_functional`` collectives come back here as plain tensors. So
+matmul flops are counted on local shards, and each collective DTensor
+issues (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single`` and their coalesced and
+in-place forms) is one record with its group size and, per tensor, the
+bytes of its result on this rank (an all-reduce's operand, an
+all-gather's gathered tensor, a reduce-scatter's scattered piece). The
+ops DTensor runs on global shapes to infer an output's shape are not the
+rank's work and are skipped: from the first DTensor it sees, the recorder
+runs DTensor's sharding propagation inside
+:func:`sharding_propagation_apart`, which counts the propagations in
+flight. A recorder that sees no DTensor (the stage ring's) leaves DTensor
+as it is.
+
+Memory. With ``memory=True`` the recorder keeps a live-bytes high-water
+mark: every storage an op makes (and every storage :meth:`StepRecorder.
+hold` is given: the step's arguments) counts from its first sight until a
+weakref finalizer sees it freed. The recorder then pins no collective
+output (it would keep each alive to the end); a freed output that nothing
+read is carried. :attr:`StepProgram.memory` holds
+``arg_bytes`` and ``peak_bytes`` (arguments included).
+
 The walkers :func:`count_primitive`, :func:`count_primitives`,
 :func:`collective_profile` and :func:`ppermute_moves` are the
 counterparts of ``jaxpr_tools``' over a :class:`StepProgram`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -69,6 +97,13 @@ from repro_torch.kernels import ops
 
 MATMUL_OPS = ("mm", "bmm", "addmm", "baddbmm", "mv", "dot", "addmv")
 WORK_KINDS = ("matmul", "kernel")
+# DTensor's collectives (torch.ops._c10d_functional), by overload packet
+C10D_COLLECTIVES = ("all_reduce", "all_reduce_", "all_reduce_coalesced",
+                    "all_reduce_coalesced_", "all_gather_into_tensor",
+                    "all_gather_into_tensor_out",
+                    "all_gather_into_tensor_coalesced",
+                    "reduce_scatter_tensor", "reduce_scatter_tensor_coalesced",
+                    "all_to_all_single")
 
 # ring-shift tags of the stage step -> the CommLedger's edge names
 STAGE_EDGES = {0: "q_fwd", 1: "u_fwd", 2: "p_bwd"}
@@ -131,9 +166,11 @@ class Record:
 @dataclasses.dataclass
 class StepProgram:
     """The recorded step: its records and the shards the ring holds (the
-    unit ``replay.extract_step_dag`` divides flops and bytes by)."""
+    unit ``replay.extract_step_dag`` divides flops and bytes by); with a
+    memory-tracking recorder, ``memory`` (``arg_bytes``, ``peak_bytes``)."""
     records: List[Record]
     n_shards: int = 1
+    memory: Optional[dict] = None
 
     def launch_counts(self) -> Dict[str, int]:
         """Kernel name -> launches one call of the step makes."""
@@ -210,6 +247,68 @@ def _matmul_flops(name: str, args) -> float:
     return 2.0 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
 
 
+_DTENSOR = []      # the DTensor class, imported at first use
+
+
+def _has_dtensor(types) -> bool:
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.append(DTensor)
+    return any(issubclass(t, _DTENSOR[0]) for t in types)
+
+
+_PROPAGATION = {"depth": 0, "users": 0, "saved": None}
+
+
+def propagating() -> bool:
+    """Whether DTensor's sharding propagation is running (inside
+    :func:`sharding_propagation_apart`)."""
+    return _PROPAGATION["depth"] > 0
+
+
+@contextlib.contextmanager
+def sharding_propagation_apart():
+    """DTensor's sharding propagation run with any fake mode set aside and
+    counted in :func:`propagating`; re-entrant.
+
+    Its strategy costs compute with real tensors: under a
+    ``FakeTensorMode`` a strided shard's size is data it cannot read. Both
+    of the propagator's entries are wrapped, each around itself: the
+    cached one and the uncached one, which DTensor takes for every op
+    whose cache key its C++ fast path cannot compute (most of a step's:
+    with only the cached entry wrapped, the mini dry-run cells count 2.7
+    to 3.6 times the flops). The entries are restored after the last
+    user leaves."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    st = _PROPAGATION
+
+    def apart(entry):
+        def propagate(schema):
+            st["depth"] += 1
+            try:
+                with unset_fake_temporarily():
+                    return entry(schema)
+            finally:
+                st["depth"] -= 1
+        return propagate
+
+    if st["users"] == 0:
+        st["saved"] = (prop.propagate_op_sharding,
+                       prop.propagate_op_sharding_non_cached)
+        prop.propagate_op_sharding = apart(st["saved"][0])
+        prop.propagate_op_sharding_non_cached = apart(st["saved"][1])
+    st["users"] += 1
+    try:
+        yield
+    finally:
+        st["users"] -= 1
+        if st["users"] == 0:
+            (prop.propagate_op_sharding,
+             prop.propagate_op_sharding_non_cached) = st["saved"]
+
+
 def _out_bytes(out) -> float:
     return float(sum(t.numel() * t.element_size() for t in _tensors(out)))
 
@@ -227,8 +326,14 @@ class StepRecorder(TorchDispatchMode):
     """Record one step (see the module docstring). Use as a context
     manager around the call; :attr:`program` holds the result."""
 
-    def __init__(self, n_shards: int = 1, edges: Optional[dict] = None):
+    def __init__(self, n_shards: int = 1, edges: Optional[dict] = None,
+                 memory: bool = False):
         super().__init__()
+        self._memory = memory
+        self._live: Dict[int, int] = {}            # storage -> bytes
+        self.arg_bytes = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
         self.records: List[Record] = []
         self.n_shards = int(n_shards)
         self.edges = STAGE_EDGES if edges is None else dict(edges)
@@ -241,6 +346,7 @@ class StepRecorder(TorchDispatchMode):
 
     # -- lifetime ------------------------------------------------------------
     def __enter__(self):
+        self._apart = None          # entered at the first DTensor seen
         ops._recorders.append(self)
         return super().__enter__()
 
@@ -249,6 +355,35 @@ class StepRecorder(TorchDispatchMode):
             return super().__exit__(*exc)
         finally:
             ops._recorders.remove(self)
+            if self._apart is not None:
+                self._apart.__exit__(None, None, None)
+
+    # -- memory ----------------------------------------------------------------
+    def _track(self, tensors) -> int:
+        """Count the storages of ``tensors`` not yet live (a DTensor's
+        local shard); returns the bytes added."""
+        added = 0
+        for t in tensors:
+            t = getattr(t, "_local_tensor", t)
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._live:
+                continue
+            self._live[key] = st.nbytes()
+            added += st.nbytes()
+            weakref.finalize(st, self._free, key)
+        self.live_bytes += added
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        return added
+
+    def _free(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key, 0)
+        self._pending.pop(key, None)    # never read: carried
+
+    def hold(self, tree) -> None:
+        """Count the storages of ``tree``'s tensors (the step's arguments)
+        as live from now on, as ``arg_bytes``."""
+        self.arg_bytes += self._track(_tensors(tree))
 
     @property
     def program(self) -> StepProgram:
@@ -261,7 +396,9 @@ class StepRecorder(TorchDispatchMode):
             # work strictly between issue i and consumer c
             r.move_work = [0 if c is None else work[c] - work[i + 1]
                            for c in r.move_consumers]
-        return StepProgram(self.records, self.n_shards)
+        memory = ({"arg_bytes": self.arg_bytes, "peak_bytes": self.peak_bytes}
+                  if self._memory else None)
+        return StepProgram(self.records, self.n_shards, memory)
 
     # -- reads and writes ----------------------------------------------------
     def _read(self, tensors, at: int) -> None:
@@ -280,7 +417,8 @@ class StepRecorder(TorchDispatchMode):
         move; a reduction's one output is its one move)."""
         for k, t in enumerate(tensors):
             self._pending.setdefault(_storage_key(t), []).append((index, k))
-            self._keep.append(t)
+            if not self._memory:      # else a freed storage drops its entry
+                self._keep.append(t)
 
     # -- kernel scopes (kernels.ops.scope) -----------------------------------
     def enter_kernel(self, name: str, inputs, launches: bool) -> None:
@@ -302,10 +440,21 @@ class StepRecorder(TorchDispatchMode):
     # -- aten ops --------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _has_dtensor(types):
+            if self._apart is None:
+                self._apart = sharding_propagation_apart()
+                self._apart.__enter__()
+            return NotImplemented     # DTensor runs it on the local shards
         out = func(*args, **kwargs)
-        if self._quiet:
-            return out
+        if self._quiet or func.namespace == "prim" or propagating():
+            return out                # prim: metadata (.device), no work
+        if self._memory:
+            self._track(_tensors(out))
         name = func.overloadpacket.__name__
+        if func.namespace == "_c10d_functional":
+            if name in C10D_COLLECTIVES:
+                self._c10d(name, args, out)
+            return out
         is_mm = name in MATMUL_OPS
         ins = _tensors((args, kwargs))
         flops = _matmul_flops(name, args) if is_mm else 0.0
@@ -328,6 +477,23 @@ class StepRecorder(TorchDispatchMode):
             bytes=nbytes, dot_bytes=dot if kind == "matmul" else 0.0,
             dtypes=_dtype_names(ins + _tensors(out)), dest=dest))
         return out
+
+    def _c10d(self, name: str, args, out) -> None:
+        """One DTensor collective: its group from the op's group name, one
+        move per result tensor (an all-reduce's result is its operand)."""
+        import torch.distributed.distributed_c10d as c10d
+        group = c10d._resolve_process_group(args[-1]).size()
+        outs = _tensors(out)
+        index = len(self.records)
+        self._read(_tensors(args), index)
+        moves = tuple((_dtype_name(t.dtype), t.numel() * t.element_size())
+                      for t in outs)
+        self.records.append(Record(
+            "collective", name, prim=name,
+            wire_bytes=sum(b for _, b in moves), moves=moves,
+            move_consumers=[None] * len(moves), group=int(group),
+            dtypes=_dtype_names(outs)))
+        self._produced(index, outs)
 
     # -- collectives (RecordingRing) ---------------------------------------------
     def collective(self, prim: str, inputs, wire_bytes: int,

@@ -1,6 +1,16 @@
 """Train and serve steps of one (arch x shape) cell: the port of
 ``repro/launch/steps.py``. PyTorch runs eagerly, so a step is a closure
 over the bundle (the reference returns functions to ``jax.jit``).
+
+On a mesh the params, batch and state are DTensors and the steps run on
+them as they stand: there are no in/out shardings to hand to a compiler.
+``shardings_for_train`` gives the params' and optimizer state's PSpecs
+and ``to_named`` turns a PSpec tree into DTensor placements (the
+reference's ``NamedSharding`` tree). A gradient leaves the backward pass
+as DTensor lays it out (a replicated weight's is a partial sum over the
+data shards); ``on_param_placements`` brings it to its param's
+placements, which is the data-parallel all-reduce (or, for an FSDP
+weight, reduce-scatter).
 """
 from __future__ import annotations
 
@@ -8,7 +18,10 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import common
 from repro_torch.models.api import ModelBundle
+from repro_torch.parallel import sharding as sh
+from repro_torch.train import optim
 
 
 def value_and_grad(bundle: ModelBundle, params, batch):
@@ -33,6 +46,7 @@ def make_train_step(bundle: ModelBundle, opt):
 
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(bundle, params, batch)
+        grads = on_param_placements(grads, params)
         with torch.no_grad():
             params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss
@@ -55,3 +69,32 @@ def make_prefill_step(bundle: ModelBundle, shape: ShapeConfig):
         return bundle.prefill(params, batch, max_len=shape.seq_len)
 
     return prefill_step
+
+
+def on_param_placements(grads, params):
+    """Each DTensor gradient redistributed to its param's placements (the
+    gradient all-reduce over the data shards); plain tensors as they
+    are."""
+    return pytree.tree_map(
+        lambda g, p: (g.redistribute(p.device_mesh, p.placements)
+                      if sh._is_dtensor(g) else g), grads, params)
+
+
+def shardings_for_train(bundle: ModelBundle, opt: optim.Optimizer):
+    """(param PSpecs, optimizer-state PSpecs) of a train step: the state's
+    shapes from ``opt.init`` on meta params, matched to the params'
+    (``optim.make_opt_pspecs``)."""
+    p_ps = bundle.param_pspecs()
+    params_shape = common.abstract_params(bundle.param_specs())
+    opt_shape = opt.init(params_shape)
+    o_ps = optim.make_opt_pspecs(opt_shape, p_ps, params_shape)
+    return p_ps, o_ps
+
+
+def to_named(mesh, tree):
+    """A tree of PSpecs as a tree of DTensor placements on ``mesh`` (the
+    reference's ``NamedSharding``s); a spec's rank is its entry count, so
+    a placement names no dim past it."""
+    return pytree.tree_map(
+        lambda ps: sh.placements(mesh, ps, len(ps)), tree,
+        is_leaf=lambda x: isinstance(x, sh.PSpec))

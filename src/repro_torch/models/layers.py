@@ -20,6 +20,16 @@ plain jnp: no Pallas kernel stands behind it. The expert products are
 
 The KV caches are updated in place (the reference returns new arrays): a
 decode step writes one row of the cache it is given.
+
+On a mesh (``parallel.sharding``) the tensors are DTensors and the same
+functions run on them. A tensor made here (RoPE's frequencies, a mask's
+positions) joins its operand's mesh through ``on_mesh_of``. Attention is
+per head and per sequence, so ``attention`` and ``decode_attention`` run
+on each rank's local heads and rows under ``local_map`` (the flash kernel
+sees local tensors), with the kv heads its local q heads read. A cache row
+is written into the shard that holds it (``_write_at``);
+``decode_attention``'s softmax over a sequence-sharded cache is DTensor's
+(it gathers the scores).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import _is_dtensor, on_mesh_of
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -62,7 +73,8 @@ def apply_rope(x, positions, theta: float):
     """x: [..., S, H, D]; positions: broadcastable to [..., S]. The rotation
     is f32 (x · cos promotes, as in the reference) and cast back."""
     d2 = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [d2]
+    freqs = on_mesh_of(rope_freqs(x.shape[-1], theta, x.device),
+                       positions)                                 # [d2]
     ang = positions[..., None].float() * freqs                    # [..., S, d2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :d2], x[..., d2:]
@@ -122,6 +134,11 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     grad mode each chunk is checkpointed, as the reference wraps it in
     ``jax.checkpoint(..., nothing_saveable)``: the backward pass recomputes
     a chunk's [chunk, T] f32 scores instead of keeping every chunk's."""
+    if _is_dtensor(q):
+        return _per_head_on_mesh(
+            lambda ql, kl, vl: attention(ql, kl, vl, causal=causal,
+                                         q_offset=q_offset, chunk=chunk,
+                                         use_kernel=use_kernel), q, k, v)
     if use_kernel and not ops._on_cpu(q):
         return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     B, Sq, Hq, D = q.shape
@@ -141,6 +158,70 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return torch.cat(out, dim=1).reshape(B, Sq, Hq, D)
 
 
+def _offset(t, dim: int) -> int:
+    """The global index of this rank's first element of a DTensor along
+    ``dim``."""
+    from repro_torch.parallel.sharding import local_shape_and_offset
+    return local_shape_and_offset(t.shape, t.device_mesh, t.placements)[1][dim]
+
+
+def select_kv_heads(k, v, q_lo: int, n_q: int, kv_lo: int, group: int):
+    """The kv heads that q heads [q_lo, q_lo + n_q) read, q head i reading
+    kv head i // ``group`` (GQA), out of local k, v [B, T, h, D] whose
+    first head is global head ``kv_lo``. Equal runs of q heads on one kv
+    head keep a slice (a GQA of the local heads); otherwise each q head
+    gets its own kv head (group 1)."""
+    want = [(q_lo + j) // group - kv_lo for j in range(n_q)]
+    lo, n = want[0], want[-1] - want[0] + 1
+    if n_q % n == 0 and want == [lo + j // (n_q // n) for j in range(n_q)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _per_head_on_mesh(fn, q, k, v):
+    """``fn(q, k, v)`` of DTensors, for an ``fn`` that works head by head
+    and sequence by sequence (attention): q [B, S, Hq, D] sharded by batch
+    and heads (or replicated), k and v [B, T, Hkv, D] brought to q's batch
+    shards and to its head shards where Hkv divides them (replicated
+    otherwise). Each rank runs ``fn`` on its local tensors under
+    ``local_map``, its q heads against the kv heads they read
+    (``select_kv_heads``); the output is laid out as q. The gradient of a
+    replicated k or v is a partial sum over the q-head shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    kv_pl, kv_grad_pl = [], []
+    for p, n in zip(q.placements, mesh.shape):
+        if p == Shard(0) or isinstance(p, Replicate):
+            kv_pl.append(p)
+            kv_grad_pl.append(p)
+        elif p == Shard(2):
+            kv_pl.append(p if Hkv % n == 0 else Replicate())
+            # a replicated kv head read by this rank's q heads only: its
+            # gradient here is this rank's part of the sum
+            kv_grad_pl.append(p if Hkv % n == 0 else Partial())
+        else:
+            raise ValueError("attention on a mesh takes q sharded by batch "
+                             f"and heads, not {q.placements}")
+    k = k.redistribute(mesh, kv_pl)
+    v = v.redistribute(mesh, kv_pl)
+    q_lo, kv_lo = _offset(q, 2), _offset(k, 2)
+
+    def local(ql, kl, vl):
+        kl, vl = select_kv_heads(kl, vl, q_lo, ql.shape[2], kv_lo,
+                                 Hq // Hkv)
+        return fn(ql, kl, vl)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, tuple(kv_pl),
+                                    tuple(kv_pl)),
+                     in_grad_placements=(q.placements, tuple(kv_grad_pl),
+                                         tuple(kv_grad_pl)),
+                     device_mesh=mesh)(q, k, v)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # [..., B, T, Hkv, D]
     v: torch.Tensor
@@ -158,10 +239,24 @@ class KVCache(NamedTuple):
 
 def _write_at(buf, new, idx: int):
     """buf[:, idx:idx+n] = new, in place, with the start clamped into range
-    as ``lax.dynamic_update_slice`` clamps it."""
+    as ``lax.dynamic_update_slice`` clamps it. A DTensor ``buf`` sharded
+    along dim 1 (a sequence-sharded cache) is written in the shard that
+    holds the rows; ``new`` comes to ``buf``'s other shards first."""
     n = new.shape[1]
     start = min(max(int(idx), 0), buf.shape[1] - n)
-    buf[:, start:start + n] = new.to(buf.dtype)
+    if not _is_dtensor(buf):
+        buf[:, start:start + n] = new.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in buf.placements]
+    new = new.redistribute(mesh, pl).to_local()
+    local, off = buf.to_local(), _offset(buf, 1)
+    lo = max(start, off)
+    hi = min(start + n, off + local.shape[1])
+    if lo < hi:
+        local[:, lo - off:hi - off] = new[:, lo - start:hi - start].to(
+            local.dtype)
 
 
 def cache_update(cache: KVCache, k_new, v_new) -> KVCache:
@@ -227,17 +322,39 @@ def decode_attention_q(q, cache: KVCacheQ, dtype=torch.bfloat16):
 
 
 def decode_attention(q, cache: KVCache):
-    """q: [B,1,Hq,D] against a cache of T entries (masked beyond length)."""
+    """q: [B,1,Hq,D] against a cache of T entries (masked beyond length).
+    On a mesh: per rank on its heads and rows (``_per_head_on_mesh``),
+    unless the cache is sharded along the sequence; then as DTensor runs
+    the ops, q's heads replicated where they do not split into whole kv
+    groups and the softmax over the sequence shards DTensor's (it gathers
+    the scores)."""
     B, _, Hq, D = q.shape
     Hkv = cache.k.shape[2]
+    if _is_dtensor(q):
+        from torch.distributed.tensor import Shard
+        if Shard(1) not in cache.k.placements:     # local heads and rows
+            return _per_head_on_mesh(
+                lambda ql, kl, vl: decode_attention(
+                    ql, KVCache(kl, vl, cache.length)), q, cache.k, cache.v)
+        q = _groupable_heads(q, Hkv)
     qg = q.reshape(B, 1, Hkv, Hq // Hkv, D)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg.float() * D ** -0.5,
                      cache.k.float())
-    t_pos = torch.arange(cache.k.shape[1], device=q.device)
+    t_pos = on_mesh_of(torch.arange(cache.k.shape[1], device=q.device), s)
     s = torch.where(t_pos < cache.length, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p.to(cache.v.dtype), cache.v)
     return o.reshape(B, 1, Hq, D)
+
+
+def _groupable_heads(q, n_kv: int):
+    """A DTensor q [B, 1, Hq, D] replicated over every mesh dim whose head
+    shards do not split into whole kv groups (Hkv not divisible by it), so
+    that the [Hkv, G] reshape is even."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if p == Shard(2) and n_kv % n else p
+          for p, n in zip(q.placements, q.device_mesh.shape)]
+    return q.redistribute(q.device_mesh, pl)
 
 
 # ---------------------------------------------------------------------------

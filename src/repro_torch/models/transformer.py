@@ -7,8 +7,23 @@ single-token decode.
 The port of ``repro/models/transformer.py``. The params
 keep the reference's layer-stacked layout ([L, ...] per block weight), so
 specs and shapes match it leaf for leaf; the ``lax.scan`` over layers is a
-loop over the layers' views of ``params["blocks"]``. One card needs no
-mesh: the reference's ``mesh``, ``rules`` and ``constrain`` are dropped.
+loop over the layers' views of ``params["blocks"]``. The reference's
+``constrain`` sites are kept (``parallel.sharding.constrain``, by the
+bundle's ``rules``): a no-op on plain tensors, a ``redistribute`` of
+DTensors on a mesh. There the port needs one more after each embedding
+lookup, whose vocab-sharded result is a partial sum that the next norm
+cannot read (XLA places that all-reduce by itself), one after each
+attention's residual (the tensor-parallel all-reduce: left to choose,
+DTensor may scatter that partial sum along the sequence into a strided
+shard that the MLP's matmul then has to gather), and in decode at each
+block's end as in the full-sequence block. The full-sequence k and v
+projections go through ``project``, which splits their contraction over a
+model axis that their heads do not divide (as XLA does) rather than
+repeat them on every rank; decode's, one token a sequence, stay whole (as
+XLA leaves them: the all-reduce would cost more than it saves). The tensors the model makes (positions, the CE's vocab mask
+and sums, the prefill's cache) join the mesh of what they meet
+(``on_mesh_of``, ``zeros_like_cache``). On a mesh the CE takes the
+target's logit as a masked sum over the sharded vocab, not a gather.
 Its ``jax.checkpoint`` becomes ``torch.utils.checkpoint.checkpoint``
 (non-reentrant), taken under grad mode only: a remat group keeps only its
 input (``forward_hidden``), the loss keeps nothing of a sequence chunk
@@ -29,6 +44,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import Spec, unstack
+from repro_torch.parallel.sharding import (_is_dtensor, constrain, gathered,
+                                          on_mesh_of, project, settle)
+
+ACT = ("batch", "act_seq", "act_embed")
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -82,10 +101,10 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _positions_for(cfg, batch, B, S, device=None):
+def _positions_for(cfg, batch, B, S, like):
     if cfg.mrope_sections is not None:
         return batch["positions"]  # [B, S, 3]
-    return torch.arange(S, device=device)[None, :]
+    return on_mesh_of(torch.arange(S, device=like.device)[None, :], like)
 
 
 def _apply_rope(cfg, x, positions):
@@ -104,27 +123,30 @@ def _mlp(cfg, p, h, moe_impl):
 
 
 def block_forward(cfg, p, x, positions, *, moe_impl="einsum",
-                  attn_chunk=1024):
+                  attn_chunk=1024, rules=None):
     """One decoder block (full-sequence path). x: [B,S,d]. Returns (x, the
     block's aux loss: the router's, 0.0 for a dense block)."""
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-    k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+    k = project(h, p["wk"]).reshape(B, S, Hkv, hd)
+    v = project(h, p["wv"]).reshape(B, S, Hkv, hd)
     q = _apply_rope(cfg, q, positions)
     k = _apply_rope(cfg, k, positions)
+    q = constrain(q, None, ("batch", "act_seq", "act_heads", None), rules)
+    k = constrain(k, None, ("batch", "act_seq", "act_kv_heads", None), rules)
     # the plain attention, as the reference trains through L.attention: the
     # flash kernel has no backward and refuses inputs that require grad
     o = L.attention(q, k, v, causal=True, chunk=attn_chunk, use_kernel=False)
-    x = x + o.reshape(B, S, Hq * hd) @ p["wo"]
+    x = constrain(x + o.reshape(B, S, Hq * hd) @ p["wo"], None, ACT, rules)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _mlp(cfg, p, h, moe_impl)
-    return x + y, aux
+    return constrain(x + y, None, ACT, rules), aux
 
 
-def block_decode(cfg, p, x, cache, positions, *, moe_impl="einsum"):
+def block_decode(cfg, p, x, cache, positions, *, moe_impl="einsum",
+                 rules=None):
     """One decoder block, single-token decode. x: [B,1,d]; the cache (this
     layer's) is updated in place."""
     B = x.shape[0]
@@ -141,9 +163,10 @@ def block_decode(cfg, p, x, cache, positions, *, moe_impl="einsum"):
     else:
         cache = L.cache_update(cache, k, v)
         o = L.decode_attention(q, cache)
-    x = x + o.reshape(B, 1, Hq * hd) @ p["wo"]
+    x = constrain(x + o.reshape(B, 1, Hq * hd) @ p["wo"], None, ACT, rules)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _mlp(cfg, p, h, moe_impl)[0], cache
+    return constrain(x + _mlp(cfg, p, h, moe_impl)[0], None, ACT,
+                     rules), cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +179,13 @@ def embed_tokens(params, tokens):
     with a bf16 table, indexing's backward lost most of a frequent token's
     sum (on an H100 at 4 × 4096 Zipf tokens the embedding gradient lay at
     a relative L2 distance of 0.40 from the f32 model's; through
-    ``F.embedding``, 3.9e-3, as the other leaves)."""
-    return F.embedding(tokens, params["embed"])
+    ``F.embedding``, 3.9e-3, as the other leaves). On a mesh the rows of
+    a vocab-sharded table come back as a masked partial sum, which
+    ``settle`` reduces. Under FSDP rules the table's embed dim is sharded
+    over the data axes too, and is gathered first: DTensor's lookup into
+    a table sharded on the mesh dim that shards the tokens makes a mask
+    of the tokens' local shape for rows of another (an ``IndexError``)."""
+    return settle(F.embedding(tokens, gathered(params["embed"], 1)))
 
 
 def _head_weight(cfg, params):
@@ -165,7 +193,7 @@ def _head_weight(cfg, params):
 
 
 def forward_hidden(cfg, params, batch, *, moe_impl="einsum",
-                   attn_chunk=1024):
+                   attn_chunk=1024, rules=None):
     """Embed + all blocks + final norm. Returns hidden [B,S,d] and the aux
     loss summed over the layers (an f32 scalar; 0.0 for a dense model,
     which has no router).
@@ -178,14 +206,15 @@ def forward_hidden(cfg, params, batch, *, moe_impl="einsum",
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = batch["embeds"] if "embeds" in batch else embed_tokens(params, tokens)
-    positions = _positions_for(cfg, batch, B, S, device=x.device)
+    x = constrain(x, None, ACT, rules)
+    positions = _positions_for(cfg, batch, B, S, x)
     layers = unstack(params["blocks"])
 
     def group(x, ps):
         aux = 0.0
         for p in ps:
             x, a = block_forward(cfg, p, x, positions, moe_impl=moe_impl,
-                                 attn_chunk=attn_chunk)
+                                 attn_chunk=attn_chunk, rules=rules)
             aux = aux + a
         return x, aux
 
@@ -214,18 +243,29 @@ def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
-    valid = torch.arange(w_head.shape[-1], device=hidden.device) < vocab
+    ids = on_mesh_of(torch.arange(w_head.shape[-1], device=hidden.device),
+                     hidden)
+    valid = ids < vocab
 
     def body(h, t, m):
         logits = (h @ w_head).float()                     # [B,chunk,Vp]
         logits = torch.where(valid, logits, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
-        # gather takes int64 indices
-        tl = logits.gather(-1, t.long()[..., None])[..., 0]
+        if _is_dtensor(logits):
+            # the target's logit as a masked sum over the vocab, which stays
+            # sharded with it: DTensor's gather backward builds a zero
+            # [B, chunk, Vp] on every rank (16.8 GB a rank at train_4k).
+            # One term is nonzero: the same value as the gather
+            tl = settle(torch.where(ids == t.long()[..., None], logits,
+                                    0.0).sum(-1))
+        else:
+            # gather takes int64 indices
+            tl = logits.gather(-1, t.long()[..., None])[..., 0]
         return torch.sum((lse - tl) * m), torch.sum(m)
 
     remat = torch.is_grad_enabled()
-    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot = cnt = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                       device=hidden.device), hidden)
     for i in range(0, S, chunk):
         args = (hidden[:, i:i + chunk], targets[:, i:i + chunk],
                 mask[:, i:i + chunk])
@@ -235,8 +275,35 @@ def chunked_ce_loss(cfg, hidden, w_head, targets, mask, vocab: int,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def zeros_like_cache(shape, like, rules):
+    """Zeros of a stacked cache ``shape`` [L, B, T, Hkv, hd] in ``like``'s
+    dtype and device: on a mesh, a DTensor laid out as the rules lay out
+    the kv heads' projections (batch by "batch", heads by "kv_heads")."""
+    if not _is_dtensor(like):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    from repro_torch.models import common
+    from repro_torch.parallel import sharding as sh
+    spec = sh.pspec(("layers", "batch", None, "kv_heads", None), rules)
+    mesh = like.device_mesh
+    local = torch.zeros(sh.shard_shape(shape, spec, mesh), dtype=like.dtype,
+                        device=like.device)
+    return common.placed(local, shape, spec, mesh)
+
+
+def _store(cache, i: int, x):
+    """cache[i, :, :S] = x, in place: on a mesh into this rank's shard, x
+    brought to the cache's placements first."""
+    if _is_dtensor(cache):
+        from torch.distributed.tensor import Shard
+        pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+              for p in cache.placements]
+        x = x.redistribute(cache.device_mesh, pl).to_local()
+        cache = cache.to_local()
+    cache[i, :, :x.shape[1]] = x
+
+
 def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
-            attn_chunk=1024, use_kernels: bool = True):
+            attn_chunk=1024, use_kernels: bool = True, rules=None):
     """Run the full prompt; return (last-token logits [B,1,Vp] f32, KV
     caches [L,B,max_len,Hkv,hd] holding the prompt's keys (after RoPE) and
     values, zero beyond). ``use_kernels=False`` takes the reference's
@@ -244,52 +311,55 @@ def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = batch["embeds"] if "embeds" in batch else embed_tokens(params, tokens)
-    positions = _positions_for(cfg, batch, B, S, device=x.device)
+    x = constrain(x, None, ACT, rules)
+    positions = _positions_for(cfg, batch, B, S, x)
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    kc = torch.zeros((cfg.n_layers, B, max_len, Hkv, hd), dtype=x.dtype,
-                     device=x.device)
+    kc = zeros_like_cache((cfg.n_layers, B, max_len, Hkv, hd), x, rules)
     vc = torch.zeros_like(kc)
     for i, p in enumerate(unstack(params["blocks"])):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-        k = (h @ p["wk"]).reshape(B, S, Hkv, hd)
-        v = (h @ p["wv"]).reshape(B, S, Hkv, hd)
+        k = project(h, p["wk"]).reshape(B, S, Hkv, hd)
+        v = project(h, p["wv"]).reshape(B, S, Hkv, hd)
         q = _apply_rope(cfg, q, positions)
         k = _apply_rope(cfg, k, positions)
         o = L.attention(q, k, v, causal=True, chunk=attn_chunk,
                         use_kernel=use_kernels)
-        x = x + o.reshape(B, S, Hq * hd) @ p["wo"]
+        x = constrain(x + o.reshape(B, S, Hq * hd) @ p["wo"], None, ACT,
+                      rules)
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + _mlp(cfg, p, h, moe_impl)[0]
-        kc[i, :, :S] = k
-        vc[i, :, :S] = v
+        x = constrain(x + _mlp(cfg, p, h, moe_impl)[0], None, ACT, rules)
+        _store(kc, i, k)
+        _store(vc, i, v)
     x = L.rms_norm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
     return logits, L.KVCache(kc, vc, S)
 
 
-def decode_step(cfg, params, cache, batch, *, moe_impl="einsum"):
+def decode_step(cfg, params, cache, batch, *, moe_impl="einsum",
+                rules=None):
     """One token for every sequence. cache leaves: [L,B,T,Hkv,hd] (a
     ``KVCache`` or ``KVCacheQ``), written in place at ``cache.length``;
     returns (logits [B,1,Vp] f32, the cache at length + 1). The VLM reads
     the token's 3-D positions from ``batch["positions"]`` [B,1,3]."""
     token = batch["token"]                                  # [B,1]
     B = token.shape[0]
-    x = embed_tokens(params, token)
+    x = constrain(embed_tokens(params, token), None, ACT, rules)
     pos = int(cache.length)
     quant = isinstance(cache, L.KVCacheQ)
     if cfg.mrope_sections is not None:
         positions = batch["positions"]                       # [B,1,3]
     else:
-        positions = torch.full((B, 1), pos, dtype=torch.int64,
-                               device=x.device)
+        positions = on_mesh_of(torch.full((B, 1), pos, dtype=torch.int64,
+                                          device=x.device), x)
     for i, p in enumerate(unstack(params["blocks"])):
         if quant:
             c = L.KVCacheQ(cache.k[i], cache.v[i], cache.k_scale[i],
                            cache.v_scale[i], pos)
         else:
             c = L.KVCache(cache.k[i], cache.v[i], pos)
-        x, _ = block_decode(cfg, p, x, c, positions, moe_impl=moe_impl)
+        x, _ = block_decode(cfg, p, x, c, positions, moe_impl=moe_impl,
+                            rules=rules)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
     return logits, cache._replace(length=pos + 1)

@@ -906,7 +906,8 @@ def record_step(mesh, L: int, n_classes: int, config: ADMMConfig, *,
                 q_codec: Optional[WireCodec] = None,
                 wire: Optional[PaddedWire] = None, health: bool = False,
                 faults: Optional[FT.FaultPlan] = None, widths=None,
-                device=None, wrap=None, inputs=None) -> RecordedStep:
+                device=None, wrap=None, inputs=None,
+                memory: bool = False) -> RecordedStep:
     """Record one call of the ``make_distributed_step`` step of this kwarg
     point (``analysis.torch_trace``) on a ``LocalRing`` of ``mesh``.
 
@@ -927,7 +928,10 @@ def record_step(mesh, L: int, n_classes: int, config: ADMMConfig, *,
     padded wire's ``widths`` table (default every stage at the widest),
     the sentinel step's primed good slabs and its tick-0 controls (the
     plan's, else the all-clear ones), the overlap step's primed carry.
-    ``wrap`` post-composes onto the step (``wrap(step)`` is recorded)."""
+    ``wrap`` post-composes onto the step (``wrap(step)`` is recorded).
+    ``memory`` tracks live bytes over the call, the carry and arguments
+    held from the start (``StepProgram.memory``, over every shard the
+    ring holds)."""
     from repro_torch.analysis import torch_trace as tt
     from repro_torch.kernels import ops
     shapes_only = device is None and faults is None
@@ -940,7 +944,7 @@ def record_step(mesh, L: int, n_classes: int, config: ADMMConfig, *,
         q_codec = codec_for_grid(config.grid if config.quantize_q else None)
     with (tt.fake_mode() if shapes_only else contextlib.nullcontext()):
         inner = LocalRing(mesh, dev)
-        rec = tt.StepRecorder(mesh.size)
+        rec = tt.StepRecorder(mesh.size, memory=memory)
         codecs = {} if wire is not None else dict(p_codec=p_codec,
                                                   q_codec=q_codec)
         step, _ = make_distributed_step(
@@ -969,6 +973,8 @@ def record_step(mesh, L: int, n_classes: int, config: ADMMConfig, *,
                         else FT.null_controls(n_stages, device=dev))
         args = tuple(args) + tuple(tail)
         fn = step if wrap is None else wrap(step)
+        if memory:
+            rec.hold((carry, args))
         before = ops.launch_counts()
         with rec:
             out = fn(carry, *args)

@@ -31,8 +31,8 @@ class Optimizer(NamedTuple):
 
 
 def _zeros_like_f32(params):
-    return _map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device),
-                params)
+    """f32 zeros laid out as each param (a DTensor's placements too)."""
+    return _map(lambda p: torch.zeros_like(p, dtype=F32), params)
 
 
 def _step_count(params):
@@ -140,6 +140,24 @@ def _is_q8(x) -> bool:
             and all(isinstance(e, torch.Tensor) for e in x))
 
 
+def _row_ones(p):
+    """f32 ones of shape p.shape[:-1] + (1,) (one scale a row), laid out
+    as ``p`` with its last dim whole."""
+    shape = p.shape[:-1] + (1,)
+    from repro_torch.parallel.sharding import _is_dtensor
+    if not _is_dtensor(p):
+        return torch.ones(shape, dtype=F32, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.parallel.sharding import local_shape_and_offset
+    pl = [Replicate() if s == Shard(p.dim() - 1) else s for s in p.placements]
+    local, _ = local_shape_and_offset(shape, p.device_mesh, pl)
+    return DTensor.from_local(
+        torch.ones(local, dtype=F32, device=p.device), p.device_mesh, pl,
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def adamw8bit(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
               eps: float = 1e-8, weight_decay: float = 0.1) -> Optimizer:
     """AdamW with int8 m/v storage: 2 bytes a parameter of optimizer state
@@ -151,10 +169,8 @@ def adamw8bit(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
     def init(params):
         def z(p):
             if small(p):
-                return torch.zeros(p.shape, dtype=F32, device=p.device)
-            return (torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-                    torch.ones(p.shape[:-1] + (1,), dtype=F32,
-                               device=p.device))
+                return torch.zeros_like(p, dtype=F32)
+            return (torch.zeros_like(p, dtype=torch.int8), _row_ones(p))
         return (_map(z, params), _map(z, params), _step_count(params))
 
     def update(grads, state, params):
@@ -190,3 +206,42 @@ def adamw8bit(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
         new_v = pytree.tree_unflatten([o[2] for o in out], spec)
         return new_p, (new_m, new_v, t)
     return Optimizer(init, update)
+
+
+def _leaves_sorted(tree, is_leaf=None):
+    """Leaves in JAX's order: a dict's by sorted key (PyTorch's pytree
+    keeps insertion order)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_sorted(tree[k],
+                                                                  is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_sorted(v, is_leaf)]
+    return [tree]
+
+
+def make_opt_pspecs(opt_state_shape, param_pspecs_tree, params_shape):
+    """PSpecs for an opt state: leaves matching a param shape reuse the
+    param's pspec; 8-bit scale leaves (shape[:-1] + (1,)) reuse it minus
+    the last axis; scalars replicate. As the reference matches shapes, the
+    first param of a shape (in its sorted-key order) gives the spec of every
+    state leaf of that shape. Leaves are anything with a ``shape``."""
+    from repro_torch.parallel.sharding import PSpec
+    shape_to_spec = {}
+    scale_to_spec = {}
+    is_spec = lambda x: isinstance(x, PSpec)
+    for sds, spec in zip(_leaves_sorted(params_shape),
+                         _leaves_sorted(param_pspecs_tree, is_spec)):
+        shape_to_spec.setdefault(tuple(sds.shape), spec)
+        sc_shape = tuple(sds.shape[:-1]) + (1,)
+        parts = list(spec) + [None] * (len(sds.shape) - len(spec))
+        scale_to_spec.setdefault(sc_shape, PSpec(*parts[:-1], None))
+
+    def spec_for(leaf):
+        shp = tuple(leaf.shape)
+        if shp in shape_to_spec:
+            return shape_to_spec[shp]
+        return scale_to_spec.get(shp, PSpec())
+
+    return _map(spec_for, opt_state_shape)

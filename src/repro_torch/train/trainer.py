@@ -3,13 +3,17 @@ microbatch accumulation.
 
 The port of ``repro/train/trainer.py``. PyTorch runs eagerly: there is no
 jit and no donation. The optimizer returns new trees and rebinding the
-names frees the old ones. One card needs no mesh. Checkpoints go through
+names frees the old ones. On a mesh the params, optimizer state and
+batch are DTensors: the microbatches split each data shard's rows, and
+the summed gradients come to their params' placements (the data-parallel
+all-reduce) before the update. Checkpoints go through
 ``ckpt.manager.CheckpointManager``, whose files either package restores,
 so a run the reference saved resumes here and the other way round.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -18,8 +22,10 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch.steps import make_train_step, value_and_grad
+from repro_torch.launch.steps import (make_train_step, on_param_placements,
+                                     value_and_grad)
 from repro_torch.models.api import ModelBundle
+from repro_torch.parallel.sharding import _is_dtensor, on_mesh_of
 from repro_torch.train import optim
 
 
@@ -39,6 +45,29 @@ class TrainerConfig:
     deadline_factor: float = 3.0
 
 
+def _batch_shards(x) -> int:
+    """The shards of a DTensor's dim 0 (1 for a plain tensor)."""
+    if not _is_dtensor(x):
+        return 1
+    from torch.distributed.tensor import Shard
+    return math.prod(n for p, n in zip(x.placements, x.device_mesh.shape)
+                     if p == Shard(0))
+
+
+def microbatch(x, i: int, microbatches: int):
+    """Microbatch ``i`` of ``microbatches`` along dim 0. A plain batch
+    splits into contiguous blocks, as the reference's reshape does; a
+    DTensor batch sharded n ways along dim 0 splits each shard's rows
+    alike ([n, microbatches, B / (n · microbatches)] and entry i), so
+    every microbatch is spread over the data shards and nothing moves.
+    With equal token counts a microbatch, both give the same mean."""
+    n = _batch_shards(x)
+    y = x.reshape((n, microbatches, x.shape[0] // (n * microbatches))
+                  + tuple(x.shape[1:]))
+    return y[:, i].reshape((x.shape[0] // microbatches,)
+                           + tuple(x.shape[1:]))
+
+
 def make_accum_train_step(bundle: ModelBundle, opt: optim.Optimizer,
                           microbatches: int, accum_dtype=None):
     """Gradient accumulation over ``microbatches`` splits of the batch dim.
@@ -53,21 +82,19 @@ def make_accum_train_step(bundle: ModelBundle, opt: optim.Optimizer,
     adt = accum_dtype or torch.float32
 
     def step(params, opt_state, batch):
-        def split(x):
-            return x.reshape((microbatches, x.shape[0] // microbatches)
-                             + x.shape[1:])
-        mb = {k: split(x) for k, x in batch.items()}
-        loss_acc = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
-        grads_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                   device=p.device), params)
+        loss_acc = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                          device=batch["tokens"].device),
+                              batch["tokens"])
+        grads_acc = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
         for i in range(microbatches):
-            loss, grads = value_and_grad(bundle, params,
-                                         {k: x[i] for k, x in mb.items()})
+            loss, grads = value_and_grad(
+                bundle, params,
+                {k: microbatch(x, i, microbatches) for k, x in batch.items()})
             loss_acc = loss_acc + loss
             grads_acc = tree_map(lambda a, g: a + g.to(adt), grads_acc,
                                  grads)
         grads = tree_map(lambda g: g.float() / microbatches, grads_acc)
+        grads = on_param_placements(grads, params)
         with torch.no_grad():
             params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss_acc / microbatches
