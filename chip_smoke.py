@@ -258,21 +258,29 @@ and the script exits non-zero without printing a result:
    saved ones bit for bit, the resumed losses within rtol 1e-2 of an
    uninterrupted run.
 10b. ``mesh_phase``, the mesh tools (``launch.mesh``, ``parallel.sharding``,
-   ``launch.dryrun``) in a subprocess of this script (one process holds
-   one default process group): (a) the port's dry run on this host,
-   tinyllama-1.1b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
-   (16, 16) production mesh (a fake world of 256 ranks) and the
-   stage-parallel ``stage_v1m_b32`` and ``stage_v1m_b8`` cells:
+   ``launch.dryrun``) in three subprocesses of this script at once (one
+   process holds one default process group): (a) the port's dry run on
+   this host in two of them: tinyllama-1.1b's ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` on the (16, 16) production mesh (a
+   fake world of 256 ranks), the stage-parallel ``stage_v1m_b32`` and
+   ``stage_v1m_b8`` cells and granite-moe-3b-a800m's ``train_4k`` (its 40
+   experts do not divide 16: the experts' f is split; one microbatch of
+   its 8):
    per-device flops, peak live bytes and moved bytes, each finite and
-   above 0, and the trace seconds; then (b)
-   tinyllama-1.1b at its published width through ``build(cfg,
-   mesh=make_host_mesh(), shape)``, a 1×1 mesh over an NCCL world of one:
-   a prefill of 4 × 2048 (``flash_attention`` 22 times, through
-   ``local_map``) and 32 greedy tokens at batch 4, logits, K/V and tokens
-   bitwise equal to the plain bundle's (else within an f32 relative L2 of
-   1e-6), ms per prefill and per token beside the plain path's in turns,
-   and one adamw step at 2 layers against the plain step. The phase must
-   take at most 90 s.
+   above 0, and the trace seconds; beside it, on the card, through
+   ``build(cfg, mesh=make_host_mesh(), shape)``, a 1×1 mesh over an NCCL
+   world of one: (b) tinyllama-1.1b at its published width, a prefill of
+   4 × 2048 (``flash_attention`` 22 times, through ``local_map``) and 32
+   greedy tokens at batch 4, logits, K/V and tokens bitwise equal to the
+   plain bundle's (else within an f32 relative L2 of 1e-6), ms per
+   prefill and per token beside the plain path's in turns, and one adamw
+   step at 2 layers against the plain step; (c) granite-moe-3b-a800m
+   (einsum and gather dispatch) and qwen2-vl-7b (text, a 32 × 32 image
+   block at 3-D positions, text) at their published widths, a prefill of
+   4 × 2048 (``flash_attention`` 32 and 28 times) and 8 greedy tokens,
+   held as (b), the router's picks equal call by call, ms in turns. The
+   ms of (b) and (c) are taken once (a)'s processes have exited. The
+   phase must take at most 90 s.
 11. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
@@ -284,7 +292,8 @@ shapes, in turns (parent, this, this, parent), by device time and by
 events, after checking the two against each other.
 
 With ``--decode-ab`` the script only times the plain (meshless)
-tinyllama-1.1b bundle's greedy decode at B 4 after a 4 × 2048 prefill,
+tinyllama-1.1b and granite-moe-3b-a800m bundles' greedy decode at B 4
+after a 4 × 2048 prefill,
 with another tree's ``src`` (e.g. a ``git archive`` of the parent commit)
 and with this tree's, each in a process of its own, in turns (parent,
 this, this, parent, twice), four runs of 8 tokens a process.
@@ -415,22 +424,47 @@ SEQ_TRAIN_STEPS = 3
 # each) and the bf16 weights outgrow 80 GB (~95 GB reckoned)
 FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH, FAMILY_TRAIN_MICRO = 3, 4, 4
 FAMILY_TRAIN_LAYERS = 16
-# mesh_phase: the port's dry run of tinyllama-1.1b on the single production
-# mesh (16, 16) traced in a fake world on the host, and the paper's
-# stage-parallel cells; then tinyllama-1.1b served and trained on a 1×1
-# DeviceMesh over an NCCL world of one against the plain (meshless) bundle
+# mesh_phase: the port's dry run traced in fake worlds on the host, in two
+# processes of about equal trace time (MESH_DRYRUN_SPLIT): tinyllama-1.1b
+# on the single production mesh (16, 16), the paper's stage-parallel cells
+# and granite-moe's train_4k (its ffn_exp layout: 40 experts do not divide
+# 16). Beside them, in a third process,
+# tinyllama-1.1b served and trained, granite-moe-3b-a800m (both
+# dispatches) and qwen2-vl-7b served, on a 1×1 DeviceMesh over an NCCL
+# world of one against the plain (meshless) bundle; the serving runs are
+# timed once both dry-run processes have exited
 MESH_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+MESH_MOE_CELL = ("granite-moe-3b-a800m", "train_4k")
+# granite-moe's train step traced at one microbatch of its 8: the same
+# tokens, flops and weights in an eighth of the recorded ops
+MESH_MOE_MICROBATCHES = 1
+# (arch, dispatches) served on the 1×1 mesh at LM serving's prefill and
+# MESH_FAMILY_TOKENS greedy tokens
+MESH_FAMILY = (("granite-moe-3b-a800m", ("einsum", "gather")),
+               ("qwen2-vl-7b", ("einsum",)))
+MESH_FAMILY_TOKENS = 8
+MESH_FAMILY_TIMED_TOKENS = 4   # greedy tokens per timed decode run
 # the bundle's attention chunk (the dry run's CLI takes the reference's
 # 256): the same flops in a quarter of the recorded ops, to keep the phase
 # in its budget
 MESH_ATTN_CHUNK = 1024
 MESH_ADMM_BITS = (0, 8)
 MESH_PHASE_S = 90              # the phase's wall-time budget (subprocess)
+# the dry run's cells (mesh_dryrun's names) by process: each ~30 s of
+# traces on the H100's host
+MESH_DRYRUN_SPLIT = (("train_4k", "prefill_32k"),
+                     ("granite-moe-3b-a800m train_4k", "decode_32k",
+                      "stage_v1m_b32", "stage_v1m_b8"))
+MESH_PARTS = ("dryrun-0", "dryrun-1", "host")   # the phase's subprocesses
+MESH_DRYRUN_DONE = "dryrun.done"   # written once the dry run has exited
 MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1024, 2
 MESH_REL_L2 = 1e-6             # f32 relative L2 where the bits differ
 MESH_TIMED_TOKENS = 8          # greedy tokens per timed decode run
 DECODE_AB_RUNS = 4             # timed decode runs per --decode-ab process
 DECODE_AB_ORDER = ("parent", "this", "this", "parent") * 2
+# the dense decode, and the MoE's (its router and dispatch take their
+# own path without a mesh too)
+DECODE_AB_ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m")
 # lm_train_phase: tinyllama-1.1b trained at full width through Trainer.run
 # on one card's share of TRAIN_4K (sequences of 4096, global batch 4), and
 # the checks (c)-(e) at full width with the depth cut to TRAIN_CUT_LAYERS
@@ -453,7 +487,7 @@ TRAIN_F32_GRAD_REL_L2 = 2e-2
 TRAIN_ACCUM_LOSS_RTOL = 1e-3
 TRAIN_ACCUM_UPDATE_REL_L2 = 5e-2
 TRAIN_RESUME_RTOL = 1e-2       # (e) resumed losses against uninterrupted
-PROFILE_TRIES = 3              # traces of the training step (see train_full)
+PROFILE_TRIES = 3   # traces of one iteration (see profile_phase, train_full)
 STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
@@ -1429,21 +1463,35 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
     (torch.profiler): the ``top`` largest and every kernel of the port
     beyond them, and the device ms of each ``kernel_group`` over all
     kernels; and the device's idle share of an unprofiled iteration
-    (1 − busy / ``ms_per_iter``)."""
+    (1 − busy / ``ms_per_iter``).
+
+    CUPTI now and then hands a trace back with no device event at all.
+    Such a trace is taken again, up to PROFILE_TRIES times; if every one
+    is empty, one iteration is timed with CUDA events instead
+    (``device_span_ms``: the device's span from the first launch to the
+    last, busy or not), and the busy time, idle share and kernels are
+    None: not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run_once()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_once()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's entry repeats its kernels' time
-    events = sorted((ev for ev in prof.key_averages()
-                     if ev.device_type == DeviceType.CUDA
-                     and ev.self_device_time_total > 0),
-                    key=lambda ev: -ev.self_device_time_total)
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_once()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's entry repeats its kernels' time
+        events = sorted((ev for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA
+                         and ev.self_device_time_total > 0),
+                        key=lambda ev: -ev.self_device_time_total)
+        if events:
+            break
+        print(f"profile ({label}): trace {attempt + 1} of {PROFILE_TRIES} "
+              f"recorded no device time", flush=True)
+    else:
+        return events_span(label, run_once, ms_per_iter)
     rows = [{"name": ev.key[:90], "calls": ev.count,
              "device_ms": ev.self_device_time_total / 1e3} for ev in events]
     busy = sum(r["device_ms"] for r in rows)
@@ -1455,8 +1503,6 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
             if any(k in ev.key for k in PORT_KERNEL_NAMES)]
     for r in rows[:top] + port:
         print(f"  {r['device_ms']:8.3f} ms  x{r['calls']:<4d} {r['name']}")
-    if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
     groups = {}
     for r, ev in zip(rows, events):
         g = groups.setdefault(kernel_group(ev.key), {"device_ms": 0.0,
@@ -1469,7 +1515,29 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
             groups.items(), key=lambda kv: -kv[1]["device_ms"])), flush=True)
     return {"device_busy_ms": busy, "device_launches": launches,
             "idle_share": 1.0 - busy / ms_per_iter,
-            "kernels": rows[:top] + port, "groups": groups}
+            "kernels": rows[:top] + port, "groups": groups,
+            "source": "torch.profiler"}
+
+
+def events_span(label, run_once, ms_per_iter: float) -> dict:
+    """profile_phase's stand-in when the profiler records no device time:
+    one iteration between two CUDA events. The span must be positive, or
+    nothing ran on the device."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run_once()
+    end.record()
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    print(f"profile ({label}, one iteration): the profiler recorded no "
+          f"device time in {PROFILE_TRIES} traces; CUDA events: device span "
+          f"{span:.3f} ms of a {ms_per_iter:.3f} ms iteration (busy time, "
+          f"idle share and kernels not measured)", flush=True)
+    if not span > 0:
+        raise AssertionError(f"{label}: no device time by profiler or events")
+    return {"device_busy_ms": None, "device_launches": None,
+            "idle_share": None, "kernels": [], "groups": {},
+            "device_span_ms": span, "source": "cuda events"}
 
 
 def iterate_once(X, ds, cfg, state):
@@ -2961,16 +3029,17 @@ class route_log:
         pinned = iter(self.pin) if self.pin is not None else None
 
         def router(x, w, k):
-            probs, idx, top, aux = real(x, w, k)
+            probs, idx, top, aux, kmask = real(x, w, k)
             if pinned is not None:
                 idx = next(pinned)
+                kmask = layers._one_hot(idx, w.shape[-1])
                 top = probs.gather(-1, idx)
                 top = top / top.sum(dim=-1, keepdim=True)
                 ce = F.one_hot(idx[..., 0], w.shape[-1]).float().mean(
                     dim=(0, 1))
                 aux = w.shape[-1] * torch.sum(probs.mean(dim=(0, 1)) * ce)
             self.picks.append(idx)
-            return probs, idx, top, aux
+            return probs, idx, top, aux, kmask
         layers._router = router
         return self.picks
 
@@ -2991,7 +3060,7 @@ def route_report(cfg, picks, other=None) -> dict:
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     for i, idx in enumerate(picks):
         C = layers._capacity(idx.shape[1], K, E, cfg.moe.capacity_factor)
-        _, emask, pos = layers._arrivals(idx, E)
+        emask, pos = layers._arrivals(layers._one_hot(idx, E))
         dropped = (emask > 0) & (pos >= C)
         out["dropped"].append(int(dropped.sum()))
         out["dropped_last_expert"].append(int(dropped[..., E - 1].sum()))
@@ -4024,7 +4093,8 @@ def train_full(dev, cfg) -> dict:
     for _ in range(PROFILE_TRIES):
         prof = profile_phase("training step", step_once, ms)
         prof["attention_events_ms"] = attn * cfg.n_layers
-        if prof["device_busy_ms"] >= 0.95 * attn * cfg.n_layers:
+        if (prof["device_busy_ms"] is None
+                or prof["device_busy_ms"] >= 0.95 * attn * cfg.n_layers):
             break
         print(f"  the trace's device time {prof['device_busy_ms']:.1f} ms "
               f"is below the attention's alone by events "
@@ -4338,23 +4408,29 @@ def sass_report(lib_path) -> dict:
 # mesh_phase: the mesh tools (launch/mesh, parallel/sharding, launch/dryrun)
 # ---------------------------------------------------------------------------
 
-def mesh_dryrun() -> dict:
-    """(a) ``launch.dryrun`` on this host: tinyllama-1.1b's MESH_CELLS on
-    the single production mesh (a fake world of 256 ranks; attention
-    chunks of MESH_ATTN_CHUNK queries) and the stage-parallel cells
-    (StageMesh(16, 16), V 1,048,576, h 4096, L 16, 64 classes) with an
-    fp32 and an 8-bit wire. Per device: flops, peak live bytes, the
-    collectives' moved bytes; each finite and above 0."""
+def mesh_dryrun(names) -> dict:
+    """(a) ``launch.dryrun`` on this host, the cells ``names`` of:
+    tinyllama-1.1b's MESH_CELLS on the single production mesh (a fake
+    world of 256 ranks; attention chunks of MESH_ATTN_CHUNK queries), the
+    stage-parallel cells (StageMesh(16, 16), V 1,048,576, h 4096, L 16, 64
+    classes) with an fp32 and an 8-bit wire, and MESH_MOE_CELL (the
+    experts' ffn_exp layout) at MESH_MOE_MICROBATCHES microbatches. Per
+    device: flops, peak live bytes, the collectives' moved bytes; each
+    finite and above 0."""
     from repro_torch.launch import dryrun as D
-    cells = [(shape, lambda shape=shape: D.trace_cell(
-        LM_ARCH, shape, False, attn_chunk=MESH_ATTN_CHUNK))
-             for shape in MESH_CELLS]
-    cells += [(f"stage_v1m_b{bits or 32}",
-               lambda bits=bits: D.lower_admm_cell(False, bits=bits))
-              for bits in MESH_ADMM_BITS]
+    cells = {shape: lambda shape=shape: D.trace_cell(
+        LM_ARCH, shape, False, attn_chunk=MESH_ATTN_CHUNK)
+        for shape in MESH_CELLS}
+    cells.update({f"stage_v1m_b{bits or 32}":
+                  lambda bits=bits: D.lower_admm_cell(False, bits=bits)
+                  for bits in MESH_ADMM_BITS})
+    arch, shape = MESH_MOE_CELL
+    cells[f"{arch} {shape}"] = lambda: D.trace_cell(
+        arch, shape, False, attn_chunk=MESH_ATTN_CHUNK,
+        microbatches=MESH_MOE_MICROBATCHES)
     out = {}
-    for name, trace in cells:
-        program, meta = trace()
+    for name in names:
+        program, meta = cells[name]()
         st = D.cell_stats(program, meta, meta["n_devices"])
         r = {"flops_per_device": st["flops_per_device"],
              "peak_live_bytes": st["memory"]["peak_live_bytes"],
@@ -4374,10 +4450,11 @@ def mesh_dryrun() -> dict:
 
 
 def mesh_greedy(bundle, params, cache, logits, n: int, start: int,
-                shape) -> torch.Tensor:
-    """``n`` greedy tokens from a prefill's cache and logits; on a mesh the
-    logits are gathered whole and each token goes back as the decode
-    shape's input DTensor."""
+                shape, pos_next=None) -> torch.Tensor:
+    """``n`` greedy tokens from a prefill's cache and logits (the VLM's
+    token t at the 3-D positions ``pos_next + t``); on a mesh the logits
+    are gathered whole and each token goes back as the decode shape's
+    input DTensor."""
     def whole(t):
         return t.full_tensor() if hasattr(t, "full_tensor") else t
     vocab = bundle.cfg.vocab
@@ -4385,6 +4462,8 @@ def mesh_greedy(bundle, params, cache, logits, n: int, start: int,
     out = []
     for t in range(n):
         batch = {"token": tok}
+        if pos_next is not None:
+            batch["positions"] = pos_next + t
         if bundle.on_mesh:
             batch = bundle.distribute(batch, bundle.input_pspecs(shape))
         logits, cache = bundle.serve_step(params, cache, batch,
@@ -4408,18 +4487,133 @@ def mesh_same(label, got, want) -> dict:
     return {"bitwise": same, "rel_l2": rel}
 
 
-def mesh_host(dev, cfg, batch_size: int = LM_BATCH, prompt: int = LM_PROMPT,
-              n_decode: int = LM_DECODE, train_seq: int = MESH_TRAIN_SEQ,
-              train_batch: int = MESH_TRAIN_BATCH) -> dict:
-    """(b) ``cfg`` through ``build(cfg, mesh=make_host_mesh(), shape)``: a
-    1×1 DeviceMesh over a world of one on ``dev``. Prefill and greedy
-    decode against the plain bundle on the same weights (logits, K/V and
-    tokens bitwise, else within MESH_REL_L2); the prefill's flash launches
-    equal the layers; ms per prefill and per token in turns (plain, mesh,
-    mesh, plain); one adamw training step at TRAIN_CUT_LAYERS layers
-    against the plain step."""
+def mesh_routes_equal(label, got, want) -> int:
+    """``route_log``'s picks of the mesh path (DTensors) equal the plain
+    path's, call by call; returns the number of calls."""
+    if len(got) != len(want):
+        raise AssertionError(f"1x1 mesh: {label}: {len(got)} router calls, "
+                             f"the plain path {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        if not torch.equal(a, b):
+            raise AssertionError(f"1x1 mesh: {label}: router call {i} picks "
+                                 "differ from the plain path's")
+    return len(got)
+
+
+def mesh_serve(label, cfg, plain, on_mesh, params, mparams, batch,
+               max_len: int, n_decode: int, n_timed: int, timers: list,
+               pos_next=None) -> dict:
+    """``cfg`` served on the 1×1 mesh (``on_mesh``, its weights
+    ``mparams``) against the plain bundle on the same weights
+    (``params``): a prefill of ``batch`` (logits and K/V bitwise, else
+    within MESH_REL_L2; ``flash_attention`` once a layer on the card) and
+    ``n_decode`` greedy tokens (tokens equal, the last logits and K/V as
+    the prefill's), the router's picks equal call by call. Appends to
+    ``timers`` (the returned dict, its timing): ms per prefill and per
+    token (``n_timed`` tokens a run; one run a turn, the checks having
+    warmed both paths) in turns (plain, mesh, mesh, plain), the best of
+    each, to be run when the host is otherwise idle."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
+    dev = plain.device
+    B, prompt = batch["tokens"].shape
+    shape = ShapeConfig("serve", max_len, B, "decode")
+    pshape = ShapeConfig("serve", max_len, B, "prefill")
+    mbatch = on_mesh.distribute(batch, on_mesh.input_pspecs(pshape))
+    out = {"mesh": str(on_mesh.mesh)}
+    # no_grad, not inference_mode: DTensor's views (the layers' unbind) set
+    # a version counter, which an inference tensor refuses
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        with route_log() as picks:
+            logits, cache = on_mesh.prefill(mparams, mbatch, max_len)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        flash = ops.launch_counts().get("flash_attention", 0)
+        want = cfg.n_layers if dev.type == "cuda" else 0
+        print(f"  1x1 mesh {label} prefill: flash_attention launched {flash} "
+              "times", flush=True)
+        if flash != want:
+            raise AssertionError(f"1x1 mesh {label} prefill: flash_attention "
+                                 f"launched {flash} times, not {want}")
+        with route_log() as picks_p:
+            logits_p, cache_p = plain.prefill(params, batch, max_len)
+        out["prefill"] = {
+            "logits": mesh_same(f"{label} prefill logits", logits, logits_p),
+            "k": mesh_same(f"{label} prefill K", cache.k, cache_p.k),
+            "v": mesh_same(f"{label} prefill V", cache.v, cache_p.v),
+            "flash_launches": flash}
+        with route_log() as more:
+            toks, last = mesh_greedy(on_mesh, mparams, cache, logits,
+                                     n_decode, prompt, shape, pos_next)
+        picks += more
+        with route_log() as more:
+            toks_p, last_p = mesh_greedy(plain, params, cache_p, logits_p,
+                                         n_decode, prompt, shape, pos_next)
+        picks_p += more
+        if not torch.equal(toks, toks_p):
+            raise AssertionError(f"1x1 mesh {label}: greedy tokens differ "
+                                 "from the plain path's")
+        out["router_calls_equal"] = mesh_routes_equal(label, picks, picks_p)
+        out["decode"] = {"tokens_equal": True, "tokens": toks.numel(),
+                         "last_logits": mesh_same(f"{label} decode logits",
+                                                  last, last_p),
+                         "k": mesh_same(f"{label} decode K", cache.k,
+                                        cache_p.k)}
+        print(f"  1x1 mesh {label}: prefill and {n_decode} greedy tokens at "
+              f"B {B} equal the plain path's ({out['router_calls_equal']} "
+              f"router calls with equal picks): {out['prefill']} "
+              f"{out['decode']}", flush=True)
+        del cache, cache_p, logits, logits_p, last, last_p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    runs = {"plain": (plain, params, batch),
+            "mesh": (on_mesh, mparams, mbatch)}
+
+    def timed():
+        ms = {"prefill": {"plain": [], "mesh": []},
+              "token": {"plain": [], "mesh": []}}
+        # the checks warmed both paths: one timed run each a turn
+        with torch.no_grad():
+            for name in ("plain", "mesh", "mesh", "plain"):
+                b, p, bt = runs[name]
+                t = time.perf_counter()
+                lg, c = b.prefill(p, bt, max_len)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ms["prefill"][name].append((time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+                mesh_greedy(b, p, c, lg, n_timed, prompt, shape, pos_next)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ms["token"][name].append((time.perf_counter() - t) * 1e3
+                                         / n_timed)
+                del lg, c
+        for what in ms:
+            for name in ms[what]:
+                ms[what][name] = min(ms[what][name])
+        print(f"  1x1 mesh {label} ms per prefill ({B} x {prompt}): mesh "
+              f"{ms['prefill']['mesh']:.3f}, plain "
+              f"{ms['prefill']['plain']:.3f}; ms per token (B {B}): mesh "
+              f"{ms['token']['mesh']:.3f}, plain {ms['token']['plain']:.3f}"
+              " (best of two, in turns)", flush=True)
+        return ms
+    timers.append((out, timed))
+    return out
+
+
+def mesh_host(dev, cfg, timers: list, batch_size: int = LM_BATCH,
+              prompt: int = LM_PROMPT, n_decode: int = LM_DECODE,
+              train_seq: int = MESH_TRAIN_SEQ,
+              train_batch: int = MESH_TRAIN_BATCH) -> dict:
+    """(b) ``cfg`` (the dense LM) through ``build(cfg,
+    mesh=make_host_mesh(), shape)``: a 1×1 DeviceMesh over a world of one
+    on ``dev``. ``mesh_serve``'s prefill and greedy decode against the
+    plain bundle on the same weights (its timing appended to
+    ``timers``); one adamw training step at TRAIN_CUT_LAYERS layers
+    against the plain step."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.api import build
     from repro_torch.train import optim
@@ -4428,77 +4622,17 @@ def mesh_host(dev, cfg, batch_size: int = LM_BATCH, prompt: int = LM_PROMPT,
     mesh = make_host_mesh(dev)
     max_len = prompt + n_decode
     shape = ShapeConfig("serve", max_len, batch_size, "decode")
-    on_mesh = build(cfg, mesh, shape)
     plain = build(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = plain.init(gen)
-    mparams = on_mesh.distribute(params, on_mesh.param_pspecs())
     tokens = torch.randint(0, cfg.vocab, (batch_size, prompt), generator=gen,
                            device=dev, dtype=torch.int32)
-    pshape = ShapeConfig("serve", max_len, batch_size, "prefill")
-    mbatch = on_mesh.distribute({"tokens": tokens},
-                                on_mesh.input_pspecs(pshape))
-    out = {"mesh": str(mesh)}
-    # no_grad, not inference_mode: DTensor's views (the layers' unbind) set
-    # a version counter, which an inference tensor refuses
-    with torch.no_grad():
-        ops.reset_launch_counts()
-        logits, cache = on_mesh.prefill(mparams, mbatch, max_len)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        flash = ops.launch_counts().get("flash_attention", 0)
-        want = cfg.n_layers if dev.type == "cuda" else 0
-        print(f"  1x1 mesh prefill: flash_attention launched {flash} times",
-              flush=True)
-        if flash != want:
-            raise AssertionError(f"1x1 mesh prefill: flash_attention "
-                                 f"launched {flash} times, not {want}")
-        logits_p, cache_p = plain.prefill(params, {"tokens": tokens},
-                                          max_len)
-        out["prefill"] = {"logits": mesh_same("prefill logits", logits,
-                                              logits_p),
-                          "k": mesh_same("prefill K", cache.k, cache_p.k),
-                          "v": mesh_same("prefill V", cache.v, cache_p.v),
-                          "flash_launches": flash}
-        toks, last = mesh_greedy(on_mesh, mparams, cache, logits, n_decode,
-                                 prompt, shape)
-        toks_p, last_p = mesh_greedy(plain, params, cache_p, logits_p,
-                                     n_decode, prompt, shape)
-        if not torch.equal(toks, toks_p):
-            raise AssertionError("1x1 mesh: greedy tokens differ from the "
-                                 "plain path's")
-        out["decode"] = {"tokens_equal": True, "tokens": toks.numel(),
-                         "last_logits": mesh_same("decode logits", last,
-                                                  last_p),
-                         "k": mesh_same("decode K", cache.k, cache_p.k)}
-        print(f"  1x1 mesh: prefill and {n_decode} greedy tokens at B "
-              f"{batch_size} equal the plain path's: {out['prefill']} "
-              f"{out['decode']}", flush=True)
-        n_t = min(MESH_TIMED_TOKENS, n_decode)
-        runs = {"plain": (plain, params, {"tokens": tokens}),
-                "mesh": (on_mesh, mparams, mbatch)}
-        ms = {"prefill": {"plain": [], "mesh": []},
-              "token": {"plain": [], "mesh": []}}
-        for name in ("plain", "mesh", "mesh", "plain"):
-            b, p, batch = runs[name]
-            ms["prefill"][name].append(timed_ms(
-                lambda: b.prefill(p, batch, max_len), 2))
-            lg, c = b.prefill(p, batch, max_len)
-            ms["token"][name].append(timed_ms(
-                lambda: mesh_greedy(b, p, c, lg, n_t, prompt, shape),
-                1) / n_t)
-        for what in ms:
-            for name in ms[what]:
-                ms[what][name] = min(ms[what][name])
-        out["ms"] = ms
-        print(f"  1x1 mesh ms per prefill ({batch_size} x {prompt}): mesh "
-              f"{ms['prefill']['mesh']:.3f}, plain {ms['prefill']['plain']:.3f};"
-              f" ms per token (B {batch_size}): mesh {ms['token']['mesh']:.3f}"
-              f", plain {ms['token']['plain']:.3f} (best of two, in turns)",
-              flush=True)
-        del cache, cache_p, logits, logits_p, mparams, params
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    on_mesh = build(cfg, mesh, shape)
+    out = mesh_serve(cfg.name, cfg, plain, on_mesh, params,
+                     on_mesh.distribute(params, on_mesh.param_pspecs()),
+                     {"tokens": tokens}, max_len, n_decode,
+                     min(MESH_TIMED_TOKENS, n_decode), timers)
+    del params
 
     cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
     tshape = ShapeConfig("train", train_seq, train_batch, "train")
@@ -4531,19 +4665,93 @@ def mesh_host(dev, cfg, batch_size: int = LM_BATCH, prompt: int = LM_PROMPT,
     return out
 
 
-def mesh_child(path: str) -> int:
-    """The mesh phase's subprocess: one process holds one default process
-    group, so the fake worlds of the dry run and the card's world of one
-    live here, apart from the rest of the script."""
+def mesh_family(dev, cfg, impls, timers: list, batch_size: int = LM_BATCH,
+                prompt: int = LM_PROMPT,
+                n_decode: int = MESH_FAMILY_TOKENS) -> dict:
+    """(c) an MoE or VLM ``cfg`` on the 1×1 mesh (``make_host_mesh``):
+    ``mesh_serve`` for each MoE dispatch in ``impls`` on one set of seeded
+    weights (laid out once on the mesh; the timings appended to
+    ``timers``); the VLM's prompt is text, a VLM_IMAGE_GRID² image block
+    at 3-D positions, then text (``vlm_positions``, as
+    lm_family_phase)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build
+
+    mesh = make_host_mesh(dev)
+    max_len = prompt + n_decode
+    shape = ShapeConfig("serve", max_len, batch_size, "decode")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build(cfg, device=dev).init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (batch_size, prompt),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    pos_next = None
+    if cfg.mrope_sections is not None:
+        grid = min(VLM_IMAGE_GRID, math.isqrt(prompt // 2))
+        batch["positions"] = vlm_positions(batch_size,
+                                           (prompt - grid ** 2) // 2, grid,
+                                           dev)
+        pos_next = batch["positions"][:, -1:] + 1
+    out = {"layers": cfg.n_layers}
+    mparams = None
+    for impl in impls:
+        label = f"{cfg.name} ({impl})" if cfg.moe is not None else cfg.name
+        on_mesh = build(cfg, mesh, shape, moe_impl=impl)
+        if mparams is None:
+            mparams = on_mesh.distribute(params, on_mesh.param_pspecs())
+        out[impl] = mesh_serve(label, cfg, build(cfg, device=dev,
+                                                 moe_impl=impl),
+                               on_mesh, params, mparams, batch, max_len,
+                               n_decode,
+                               min(MESH_FAMILY_TIMED_TOKENS, n_decode),
+                               timers, pos_next)
+    del params, mparams
+    return out
+
+
+def mesh_wait_for(path: str, timeout: float = 600.0) -> None:
+    """Return once the file ``path`` exists."""
+    t = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"mesh phase: no {path} in {timeout} s")
+        time.sleep(0.05)
+
+
+def mesh_child(path: str, part: str) -> int:
+    """One of the mesh phase's subprocesses (MESH_PARTS; one process holds
+    one default process group): "dryrun-i", the fake worlds of the dry
+    run's cells MESH_DRYRUN_SPLIT[i] on this host; "host", the
+    card's world of one (the 1×1 mesh): its checks beside the dry run,
+    its timings once the dry run has exited (MESH_DRYRUN_DONE beside
+    ``path``), so that no trace shares the host's cores with them."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import get_arch
     t0 = time.perf_counter()
-    res = {"dryrun": mesh_dryrun()}
-    t1 = time.perf_counter()
-    res["host"] = mesh_host(torch.device("cuda"), get_arch(LM_ARCH))
-    t2 = time.perf_counter()
-    res["dryrun_s"], res["host_s"] = t1 - t0, t2 - t1
+    if part.startswith("dryrun-"):
+        res = {"dryrun": mesh_dryrun(
+            MESH_DRYRUN_SPLIT[int(part[len("dryrun-"):])])}
+    else:
+        from repro_torch.kernels import build as kbuild
+        kbuild.library()
+        dev = torch.device("cuda")
+        timers = []
+        res = {"host": mesh_host(dev, get_arch(LM_ARCH), timers)}
+        for name, impls in MESH_FAMILY:
+            res[name] = mesh_family(dev, get_arch(name), impls, timers)
+            torch.cuda.empty_cache()
+        res["host_checks_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        mesh_wait_for(os.path.join(os.path.dirname(path), MESH_DRYRUN_DONE))
+        res["host_waited_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        while timers:
+            out, timed = timers.pop(0)
+            out["ms"] = timed()
+        res["host_timed_s"] = time.perf_counter() - t
+    res[f"{part}_s"] = time.perf_counter() - t0
     if dist.is_initialized():
         dist.destroy_process_group()
     write_record(path, res)
@@ -4551,35 +4759,54 @@ def mesh_child(path: str) -> int:
 
 
 def mesh_phase() -> dict:
-    """Run ``mesh_child`` in a subprocess of this script and read its
-    record; the subprocess's wall time must stay within MESH_PHASE_S."""
+    """Run ``mesh_child``'s parts (MESH_PARTS) in subprocesses of this
+    script at once (the dry run's two on the host's cores, the 1×1 mesh on
+    the card), tell the 1×1 mesh's process when the dry run has exited,
+    and read their records; the phase's wall time must stay within
+    MESH_PHASE_S."""
     import tempfile
     d = tempfile.mkdtemp()
-    path = os.path.join(d, "mesh.json")
     t = time.perf_counter()
+    out = {"dryrun": {}}
+    procs, codes = {}, {}
     try:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--mesh-phase", path], timeout=600)
+        procs = {p: subprocess.Popen([sys.executable, os.path.abspath(
+            __file__), "--mesh-phase", os.path.join(d, f"{p}.json"),
+            "--mesh-part", p]) for p in MESH_PARTS}
+        for p in MESH_PARTS[:-1]:
+            codes[p] = procs[p].wait(timeout=600)
+        open(os.path.join(d, MESH_DRYRUN_DONE), "w").close()
+        codes["host"] = procs["host"].wait(timeout=600)
         wall = time.perf_counter() - t
-        if res.returncode != 0:
-            raise AssertionError(f"mesh phase: exit {res.returncode}")
-        with open(path) as f:
-            out = json.load(f)
+        for p in MESH_PARTS:
+            if codes[p] != 0:
+                raise AssertionError(f"mesh phase ({p}): exit {codes[p]}")
+            with open(os.path.join(d, f"{p}.json")) as f:
+                rec = json.load(f)
+            out["dryrun"].update(rec.pop("dryrun", {}))
+            out.update(rec)
     finally:
+        for q in procs.values():
+            if q.poll() is None:
+                q.kill()
+                q.wait()
         shutil.rmtree(d, ignore_errors=True)
     out["wall_s"] = wall
-    print(f"mesh phase: {wall:.1f} s (dry run {out['dryrun_s']:.1f} s, 1x1 "
-          f"mesh {out['host_s']:.1f} s)", flush=True)
+    print(f"mesh phase: {wall:.1f} s (dry run {out['dryrun-0_s']:.1f} "
+          f"and {out['dryrun-1_s']:.1f} s in two processes; 1x1 mesh "
+          f"checks {out['host_checks_s']:.1f} s beside them, then "
+          f"{out['host_waited_s']:.1f} s waiting for the dry run and "
+          f"{out['host_timed_s']:.1f} s timing alone)", flush=True)
     if wall > MESH_PHASE_S:
         raise AssertionError(f"mesh phase took {wall:.1f} s > "
                              f"{MESH_PHASE_S} s")
     return out
 
 
-def plain_decode_child(src: str, path: str) -> int:
+def plain_decode_child(src: str, path: str, arch: str) -> int:
     """``--plain-decode``: ms per greedy token (MESH_TIMED_TOKENS a run,
     DECODE_AB_RUNS runs, each after its own prefill) of the plain bundle of
-    LM_ARCH at its published width, B LM_BATCH after an LM_PROMPT-token
+    ``arch`` at its published width, B LM_BATCH after an LM_PROMPT-token
     prefill, with the ``repro_torch`` package under ``src``."""
     src = os.path.abspath(src)
     sys.path.insert(0, src)
@@ -4593,7 +4820,7 @@ def plain_decode_child(src: str, path: str) -> int:
     kbuild.build()
     kbuild.library()
     dev = torch.device("cuda")
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
     bundle = build(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = bundle.init(gen)
@@ -4607,43 +4834,48 @@ def plain_decode_child(src: str, path: str) -> int:
                                            LM_PROMPT + n)
             ms.append(timed_ms(lambda: greedy(bundle, params, cache, logits,
                                               n, LM_PROMPT), 1) / n)
-    write_record(path, {"src": src, "ms_per_token": ms})
+    write_record(path, {"src": src, "arch": arch, "ms_per_token": ms})
     return 0
 
 
 def decode_ab(parent_src: str) -> dict:
-    """``--decode-ab``: the plain bundle's decode ms per token with another
-    tree's package (``parent_src``, e.g. a ``git archive`` of the parent
-    commit's ``src``) and with this tree's, each in a process of its own,
-    in turns (DECODE_AB_ORDER)."""
+    """``--decode-ab``: the plain bundle's decode ms per token of each of
+    DECODE_AB_ARCHS with another tree's package (``parent_src``, e.g. a
+    ``git archive`` of the parent commit's ``src``) and with this tree's,
+    each in a process of its own, in turns (DECODE_AB_ORDER)."""
     import tempfile
     d = tempfile.mkdtemp()
-    out = {"parent": [], "this": []}
+    res = {}
     try:
-        for i, name in enumerate(DECODE_AB_ORDER):
-            src = parent_src if name == "parent" else os.path.join(ROOT, "src")
-            path = os.path.join(d, f"{i}.json")
-            res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--plain-decode", path, "--src", src],
-                                 timeout=600)
-            if res.returncode != 0:
-                raise AssertionError(f"plain decode ({name}): exit "
-                                     f"{res.returncode}")
-            with open(path) as f:
-                ms = json.load(f)["ms_per_token"]
-            print(f"  plain decode ms per token ({name}): {ms}", flush=True)
-            out[name].append(ms)
+        for arch in DECODE_AB_ARCHS:
+            out = {"parent": [], "this": []}
+            for i, name in enumerate(DECODE_AB_ORDER):
+                src = (parent_src if name == "parent"
+                       else os.path.join(ROOT, "src"))
+                path = os.path.join(d, f"{arch}.{i}.json")
+                run = subprocess.run([sys.executable, os.path.abspath(
+                    __file__), "--plain-decode", path, "--src", src,
+                    "--arch", arch], timeout=600)
+                if run.returncode != 0:
+                    raise AssertionError(f"plain decode ({arch}, {name}): "
+                                         f"exit {run.returncode}")
+                with open(path) as f:
+                    ms = json.load(f)["ms_per_token"]
+                print(f"  {arch} plain decode ms per token ({name}): {ms}",
+                      flush=True)
+                out[name].append(ms)
+            best = {k: min(min(r) for r in v) for k, v in out.items()}
+            median = {k: float(np.median(sum(v, []))) for k, v in out.items()}
+            n = DECODE_AB_ORDER.count("this") * DECODE_AB_RUNS
+            print(f"{arch} plain decode ms per token (B {LM_BATCH}, {n} runs "
+                  f"of {MESH_TIMED_TOKENS} tokens each): best parent "
+                  f"{best['parent']:.3f}, this tree {best['this']:.3f}; "
+                  f"median parent {median['parent']:.3f}, this tree "
+                  f"{median['this']:.3f}", flush=True)
+            res[arch] = {"runs": out, "best": best, "median": median}
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    best = {k: min(min(r) for r in v) for k, v in out.items()}
-    median = {k: float(np.median(sum(v, []))) for k, v in out.items()}
-    n = DECODE_AB_ORDER.count("this") * DECODE_AB_RUNS
-    print(f"plain decode ms per token (B {LM_BATCH}, {n} runs of "
-          f"{MESH_TIMED_TOKENS} tokens each): best parent "
-          f"{best['parent']:.3f}, this tree {best['this']:.3f}; median parent "
-          f"{median['parent']:.3f}, this tree {median['this']:.3f}",
-          flush=True)
-    return {"runs": out, "best": best, "median": median}
+    return res
 
 
 def card_line() -> str:
@@ -4667,6 +4899,8 @@ def main() -> int:
                          "this one's, in turns, at the kernel phase's shapes")
     ap.add_argument("--mesh-phase", default=None, metavar="OUT_JSON",
                     help=argparse.SUPPRESS)   # mesh_phase's subprocess
+    ap.add_argument("--mesh-part", default="host", choices=MESH_PARTS,
+                    help=argparse.SUPPRESS)   # which of its parts
     ap.add_argument("--decode-ab", default=None, metavar="OTHER_SRC",
                     help="only time the plain bundle's decode with another "
                          "tree's src/ against this one's, in turns")
@@ -4674,15 +4908,17 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # decode_ab's subprocess
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help=argparse.SUPPRESS)   # its package's tree
+    ap.add_argument("--arch", default=LM_ARCH,
+                    help=argparse.SUPPRESS)   # and its arch
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
     if args.mesh_phase:
-        return mesh_child(args.mesh_phase)
+        return mesh_child(args.mesh_phase, args.mesh_part)
     if args.plain_decode:
-        return plain_decode_child(args.src, args.plain_decode)
+        return plain_decode_child(args.src, args.plain_decode, args.arch)
     if args.decode_ab:
         record = {"card": card_line(), "decode_ab": decode_ab(args.decode_ab)}
         print(record["card"])

@@ -19,9 +19,10 @@ takes seconds to tens of seconds of host time at full width; the whole
 ``--all`` belongs on a host with cores and memory to spare, not on a small
 shared machine.
 
-Only the dense family runs on a mesh so far: ``--all`` records an error
-for each cell of the others (``ModelBundle`` raises ``NotImplementedError``),
-as the reference records any cell's error.
+The transformer's families (dense, MoE, VLM) run on a mesh; ``--all``
+records an error for each cell of the SSM, hybrid and audio families
+(``ModelBundle`` raises ``NotImplementedError``), as the reference records
+any cell's error.
 
 The ``--admm`` cells record the paper's own step (stage-parallel
 pdADMM-G, fp32 wire, or pdADMM-G-Q with 8/16-bit codes) shape-only on a

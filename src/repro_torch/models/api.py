@@ -24,8 +24,9 @@ The port of ``repro/models/api.py`` for every family: the transformer's
 padded so the model axis shards it. Without a mesh every path is the
 one-card port's, with plain tensors. On a ``DeviceMesh`` the params,
 inputs and decode state are DTensors (``distribute`` / ``abstract_params``
-/ ``serve_state_shape``), and the dense family runs on them; the others
-raise ``NotImplementedError`` there (ROADMAP Queue 1, item 8), though their
+/ ``serve_state_shape``), and the transformer's families (dense, MoE,
+VLM) run on them; the SSM, hybrid and audio families raise
+``NotImplementedError`` there (ROADMAP Queue 1, item 1), though their
 specs and rules are pure functions that every family has.
 """
 from __future__ import annotations
@@ -48,7 +49,7 @@ _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": jamba, "audio": whisper}
 PORTED_FAMILIES = tuple(_MODULES)
 # the families that run on DTensors on a DeviceMesh
-MESH_FAMILIES = ("dense",)
+MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -82,8 +83,8 @@ class ModelBundle:
         if self.on_mesh and self.cfg.family not in MESH_FAMILIES:
             raise NotImplementedError(
                 f"the {self.cfg.family} family does not run on a mesh yet "
-                "(DTensor execution of the MoE, VLM, SSM, hybrid and audio "
-                "families is ROADMAP Queue 1, item 8)")
+                "(DTensor execution of the SSM, hybrid and audio families "
+                "is ROADMAP Queue 1, item 1)")
 
     # -- params ---------------------------------------------------------
     def param_specs(self):

@@ -29,7 +29,11 @@ on each rank's local heads and rows under ``local_map`` (the flash kernel
 sees local tensors), with the kv heads its local q heads read. A cache row
 is written into the shard that holds it (``_write_at``);
 ``decode_attention``'s softmax over a sequence-sharded cache is DTensor's
-(it gathers the scores).
+(it gathers the scores). The MoE's router runs on DTensors, its logits
+gathered whole over the experts; its dispatch, experts and combine run
+per rank under ``local_map`` (``_experts_on_mesh``), each rank on its own
+experts (E sharded) or on its slice of every expert's f, and then the
+einsum dispatch on its slice of d (``_TPGroup``).
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.sharding import _is_dtensor, on_mesh_of
+from repro_torch.parallel.sharding import (_is_dtensor, gathered,
+                                          on_mesh_of, settle)
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -88,16 +93,15 @@ def apply_mrope(x, positions3, sections, theta: float):
     rotate by each of the three positions, in that order."""
     d2 = x.shape[-1] // 2
     assert sum(sections) == d2, (sections, d2)
-    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [d2]
-    # [d2] -> stream: jnp.repeat(arange(3), sections), built by comparing
-    # with the sections' ends, which copies nothing between host and card
-    # (a repeat_interleave by a device tensor of counts syncs twice)
-    j = torch.arange(d2, device=x.device)
-    sec_id = ((j >= sections[0]).long()
-              + (j >= sections[0] + sections[1]).long())
-    # gather takes int64 indices
-    pos = positions3.float().gather(
-        -1, sec_id.expand(positions3.shape[:-1] + (d2,)))         # [..., S, d2]
+    freqs = on_mesh_of(rope_freqs(x.shape[-1], theta, x.device),
+                       positions3)                                # [d2]
+    # [..., S, 3] -> [..., S, d2]: stream i's position over its section
+    # (the reference's gather by jnp.repeat(arange(3), sections)), as
+    # views and one cat: no index tensor, no host copy, and on a mesh
+    # nothing but the positions' own shards
+    p = positions3.float()
+    pos = torch.cat([p[..., i:i + 1].expand(p.shape[:-1] + (n,))
+                     for i, n in enumerate(sections)], dim=-1)    # [..., S, d2]
     ang = pos * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :d2], x[..., d2:]
@@ -375,23 +379,42 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
 # Mixture of Experts
 # ---------------------------------------------------------------------------
 
+def _one_hot(idx, n: int):
+    """f32 one-hot of ``idx`` over ``n`` classes, by comparison with
+    ``arange(n)`` (``F.one_hot``'s bits; on a mesh the arange joins
+    ``idx``'s)."""
+    classes = on_mesh_of(torch.arange(n, device=idx.device), idx)
+    return (idx[..., None] == classes).float()
+
+
 def _router(x, w_gate, top_k: int):
     """Return (probs [B,S,E] f32, topk_idx [B,S,K] int64, topk_p [B,S,K],
-    aux). The logits are an f32 product of f32 operands: the package keeps
-    TF32 off, which would flip near-tied routes on the card."""
+    aux, kmask [B,S,K,E] f32: the picks' one-hots). The logits are an f32
+    product of f32 operands: the package keeps TF32 off, which would flip
+    near-tied routes on the card. On a mesh the
+    logits come out sharded as the router's experts are and are gathered
+    whole (E on every rank) before the softmax and top-k, the tokens
+    staying on their shards; the aux loss's means over the sharded batch
+    are settled into the global means."""
     logits = x.float() @ w_gate.float()
+    logits = gathered(logits, logits.ndim - 1)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k breaks ties toward the lower index; torch.topk makes no
     # promise. Exact ties among f32 softmax outputs of distinct logits do
-    # not arise, so the picks agree wherever the probabilities do
-    topk_p, topk_idx = torch.topk(probs, top_k, dim=-1)
+    # not arise, so the picks agree wherever the probabilities do. The
+    # picked probabilities are read by their one-hots (one nonzero term a
+    # sum: topk's values, bit for bit): topk's backward scatters into a
+    # plain zeros tensor, which a DTensor gradient cannot meet (torch 2.11)
+    E = w_gate.shape[-1]
+    topk_idx = torch.topk(probs.detach(), top_k, dim=-1).indices
+    kmask = _one_hot(topk_idx, E)                                 # [B,S,K,E]
+    topk_p = (kmask * probs[..., None, :]).sum(dim=-1)           # [B,S,K]
     topk_p = topk_p / topk_p.sum(dim=-1, keepdim=True)
     # switch-style load-balance loss
-    E = w_gate.shape[-1]
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(topk_idx[..., 0], E).float().mean(dim=(0, 1))
+    me = settle(probs.mean(dim=(0, 1)))
+    ce = settle(kmask[..., 0, :].mean(dim=(0, 1)))
     aux = E * torch.sum(me * ce)
-    return probs, topk_idx, topk_p, aux
+    return probs, topk_idx, topk_p, aux, kmask
 
 
 def _capacity(S: int, top_k: int, E: int, factor: float) -> int:
@@ -401,7 +424,8 @@ def _capacity(S: int, top_k: int, E: int, factor: float) -> int:
 
 def _group(x, group_size: int):
     """[B, S, ...] -> [B*S/g, g, ...]: bounds the O(g*E*C) dispatch buffers.
-    Routing becomes per-group (Mesh-TF style grouping)."""
+    Routing becomes per-group (Mesh-TF style grouping). A batch sharded by
+    rows keeps whole groups on each rank (g divides S)."""
     B, S = x.shape[:2]
     g = min(group_size, S)
     if S % g:
@@ -421,41 +445,23 @@ def _expert_ffn(xe, w_gate_e, w_up_e, w_down_e):
     return torch.einsum("becf,efd->becd", h, w_down_e)
 
 
-def _arrivals(topk_idx, E: int):
-    """(kmask [B,S,K,E] f32, emask [B,S,E] f32, pos [B,S,E] f32): which
-    experts each token picked, and each token's arrival order at each
-    expert (the count of earlier tokens in the group that picked it)."""
-    kmask = F.one_hot(topk_idx, E).float()
+def _arrivals(kmask):
+    """(emask [B,S,E] f32, pos [B,S,E] f32) from the picks' one-hots
+    (kmask [B,S,K,E], ``_router``'s): which experts each token picked, and
+    each token's arrival order at each expert (the count of earlier tokens
+    in the group that picked it)."""
     emask = kmask.sum(dim=2)
-    return kmask, emask, torch.cumsum(emask, dim=1) - emask
+    return emask, torch.cumsum(emask, dim=1) - emask
 
 
 def moe_einsum(x, params, top_k: int, capacity_factor: float = 1.0,
                group_size: int = 512):
     """Capacity-based one-hot dispatch (Mesh-TF style). x: [B,S,d]. A pick
     that arrives at its expert after C others is dropped: it adds
-    nothing."""
-    x, bs = _group(x, group_size)
-    B, S, d = x.shape
-    E = params["w_router"].shape[-1]
-    C = _capacity(S, top_k, E, capacity_factor)
-    probs, topk_idx, topk_p, aux = _router(x, params["w_router"], top_k)
-
-    kmask, emask, pos = _arrivals(topk_idx, E)
-    keep = emask * (pos < C)
-    # jax.nn.one_hot gives a zero row for an index >= C where F.one_hot
-    # raises, so the one-hot of the arrival slot is built by comparison
-    slots = torch.arange(C, device=x.device, dtype=pos.dtype)
-    disp = (pos[..., None] == slots).to(x.dtype) \
-        * keep[..., None].to(x.dtype)                             # [B,S,E,C]
-    gate_e = torch.sum(kmask * topk_p[..., None], dim=2)         # [B,S,E]
-    comb = disp * gate_e[..., None].to(x.dtype)
-
-    xe = torch.einsum("bsec,bsd->becd", disp, x)
-    he = _expert_ffn(xe, params["w_gate_e"], params["w_up_e"],
-                     params["w_down_e"])
-    y = torch.einsum("bsec,becd->bsd", comb, he)
-    return _ungroup(y, bs), aux
+    nothing. On a mesh the router runs on DTensors and the dispatch, the
+    experts and the combine per rank (``_experts_on_mesh``)."""
+    return _moe(_einsum_experts, x, params, top_k, capacity_factor,
+                group_size)
 
 
 def moe_gather(x, params, top_k: int, capacity_factor: float = 1.0,
@@ -470,41 +476,217 @@ def moe_gather(x, params, top_k: int, capacity_factor: float = 1.0,
     a group of fewer than C tokens (every decode step: C is at least 8)
     fails the reference's reshape, so here the slots past the group's
     tokens stay empty."""
-    x, bs = _group(x, group_size)
-    B, S, d = x.shape
-    E = params["w_router"].shape[-1]
-    C = _capacity(S, top_k, E, capacity_factor)
-    probs, topk_idx, topk_p, aux = _router(x, params["w_router"], top_k)
+    return _moe(_gather_experts, x, params, top_k, capacity_factor,
+                group_size)
 
-    _, emask, pos = _arrivals(topk_idx, E)
+
+def _moe(experts, x, params, top_k, capacity_factor, group_size):
+    """Group the tokens, route them (``_router``) and run ``experts`` (a
+    dispatch, the expert FFN and the combine): on a mesh per rank on its
+    experts (``_experts_on_mesh``). Returns (y [B,S,d], aux)."""
+    x, bs = _group(x, group_size)
+    E = params["w_router"].shape[-1]
+    C = _capacity(x.shape[1], top_k, E, capacity_factor)
+    _, topk_idx, topk_p, aux, kmask = _router(x, params["w_router"], top_k)
+    w = (params["w_gate_e"], params["w_up_e"], params["w_down_e"])
+    if _is_dtensor(x):
+        y = _experts_on_mesh(experts, x, topk_idx, topk_p, kmask, w, E, C)
+    else:
+        y = experts(x, topk_idx, topk_p, kmask, *w, E=E, C=C, e_lo=0)
+    return _ungroup(y, bs), aux
+
+
+def _einsum_experts(x, topk_idx, topk_p, kmask, w_gate_e, w_up_e, w_down_e,
+                    *, E: int, C: int, e_lo: int, tp=None):
+    """The one-hot dispatch, the FFN and the combine of the experts
+    [e_lo, e_lo + n) that the weights [n, ...] hold, of E in all: a
+    token's picks of other experts add nothing here. x: [B,S,d] grouped;
+    topk_idx, topk_p: [B,S,K]; kmask: their one-hots. With ``tp``
+    (``_TPGroup``: the weights' f split over a group whose ranks hold the
+    same tokens) the dispatch
+    and the combine's gradient of the experts' output run on this rank's
+    slice of d and are gathered, as XLA partitions them: each rank does a
+    share of them and not all."""
+    n = w_gate_e.shape[0]
+    emask, pos = _arrivals(kmask)
+    keep = emask * (pos < C)
+    gate_e = torch.sum(kmask * topk_p[..., None], dim=2)         # [B,S,E]
+    if n < E:
+        pos, keep, gate_e = (t[..., e_lo:e_lo + n]
+                             for t in (pos, keep, gate_e))
+    # jax.nn.one_hot gives a zero row for an index >= C where F.one_hot
+    # raises, so the one-hot of the arrival slot is built by comparison
+    slots = torch.arange(C, device=x.device, dtype=pos.dtype)
+    disp = (pos[..., None] == slots).to(x.dtype) \
+        * keep[..., None].to(x.dtype)                             # [B,S,n,C]
+    comb = disp * gate_e[..., None].to(x.dtype)
+
+    if tp is None:
+        xe = torch.einsum("bsec,bsd->becd", disp, x)
+        he = _expert_ffn(xe, w_gate_e, w_up_e, w_down_e)
+        return torch.einsum("bsec,becd->bsd", comb, he)
+    xe = _GatherD.apply(torch.einsum("bsec,bsd->becd", disp, tp.part(x)),
+                        tp)
+    he = _expert_ffn(xe, w_gate_e, w_up_e, w_down_e)     # a partial sum
+    return _CombinePartial.apply(comb, he, tp)
+
+
+def _gather_experts(x, topk_idx, topk_p, kmask, w_gate_e, w_up_e, w_down_e,
+                    *, E: int, C: int, e_lo: int):
+    """The gather dispatch, the FFN and the combine of the experts
+    [e_lo, e_lo + n) that the weights [n, ...] hold, as
+    ``_einsum_experts``."""
+    B, S, d = x.shape
+    n = w_gate_e.shape[0]
+    emask, pos = _arrivals(kmask)
     keep = (emask > 0) & (pos < C)                                # [B,S,E]
 
     # token index per (expert, slot): sort token ids by (chosen, arrival);
     # jnp.argsort is stable, torch.argsort only when asked
-    key = torch.where(keep, pos, float(S + 1))
-    order = torch.argsort(key, dim=1, stable=True)[:, :C, :]      # [B,min(S,C),E]
-    tok_idx = order.transpose(1, 2)                               # [B,E,.]
-    slot_valid = keep.transpose(1, 2).gather(2, tok_idx)          # [B,E,.]
+    key = torch.where(keep, pos, float(S + 1))[..., e_lo:e_lo + n]
+    order = torch.argsort(key, dim=1, stable=True)[:, :C, :]      # [B,min(S,C),n]
+    tok_idx = order.transpose(1, 2)                               # [B,n,.]
+    slot_valid = keep[..., e_lo:e_lo + n].transpose(1, 2).gather(
+        2, tok_idx)                                               # [B,n,.]
     if tok_idx.shape[2] < C:                  # fewer tokens than slots
         pad = C - tok_idx.shape[2]
         tok_idx = F.pad(tok_idx, (0, pad))
         slot_valid = F.pad(slot_valid, (0, pad))
-    xe = x[:, None].expand(B, E, S, d).gather(
-        2, tok_idx[..., None].expand(B, E, C, d))                 # [B,E,C,d]
+    xe = x[:, None].expand(B, n, S, d).gather(
+        2, tok_idx[..., None].expand(B, n, C, d))                 # [B,n,C,d]
     xe = xe * slot_valid[..., None].to(x.dtype)
-    he = _expert_ffn(xe, params["w_gate_e"], params["w_up_e"],
-                     params["w_down_e"])
+    he = _expert_ffn(xe, w_gate_e, w_up_e, w_down_e)
 
-    # combine: each token reads its K slots back
+    # combine: each token reads its K slots back (those of these experts)
     pos_k = pos.gather(-1, topk_idx)                              # [B,S,K]
     keep_k = keep.gather(-1, topk_idx)                            # [B,S,K]
-    slot = torch.where(keep_k, topk_idx * C + pos_k.long(), 0)    # in range
+    if n < E:
+        keep_k = keep_k & (topk_idx >= e_lo) & (topk_idx < e_lo + n)
+    slot = torch.where(keep_k, (topk_idx - e_lo) * C + pos_k.long(),
+                       0)                                         # in range
     K = topk_idx.shape[-1]
-    yk = he.reshape(B, E * C, d).gather(
+    yk = he.reshape(B, n * C, d).gather(
         1, slot.reshape(B, S * K, 1).expand(B, S * K, d)).reshape(B, S, K, d)
     w = (topk_p * keep_k).to(x.dtype)[..., None]
-    y = torch.sum(yk * w, dim=2)
-    return _ungroup(y, bs), aux
+    return torch.sum(yk * w, dim=2)
+
+
+class _TPGroup(NamedTuple):
+    """The mesh dim over which the expert weights split f while the tokens
+    are whole: its process group's name, this rank's index and the
+    group's size."""
+    name: str
+    rank: int
+    size: int
+
+    def part(self, t):
+        """This rank's slice of ``t``'s last dim."""
+        n = t.shape[-1] // self.size
+        return t[..., self.rank * n:(self.rank + 1) * n]
+
+
+def _gather_last(t, tp: _TPGroup):
+    """``t`` all-gathered along its last dim over ``tp``, ranks in order
+    (the functional collective DTensor issues, on dim 0 of a view)."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_gather_into_tensor(
+        t.movedim(-1, 0).contiguous(), tp.size, tp.name)).movedim(0, -1)
+
+
+class _GatherD(torch.autograd.Function):
+    """All-gather of the last dim over ``tp``; the backward reduce-scatters
+    the gradient, which each rank holds as a partial sum (its share of
+    f)."""
+
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return _gather_last(t, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        c10d, tp = torch.ops._c10d_functional, ctx.tp
+        return c10d.wait_tensor(c10d.reduce_scatter_tensor(
+            g.movedim(-1, 0).contiguous(), "sum", tp.size,
+            tp.name)).movedim(0, -1), None
+
+
+class _CombinePartial(torch.autograd.Function):
+    """y = einsum("bsec,becd->bsd", comb, he) with ``he`` a partial sum over
+    ``tp`` (so y is one too); the gradient of ``comb`` is a partial sum
+    alike, and that of ``he`` is taken on this rank's slice of d (the
+    gradient of y being whole on every rank) and gathered."""
+
+    @staticmethod
+    def forward(ctx, comb, he, tp):
+        ctx.save_for_backward(comb, he)
+        ctx.tp = tp
+        return torch.einsum("bsec,becd->bsd", comb, he)
+
+    @staticmethod
+    def backward(ctx, dy):
+        comb, he = ctx.saved_tensors
+        d_comb = torch.einsum("bsd,becd->bsec", dy, he)
+        d_he = torch.einsum("bsec,bsd->becd", comb, ctx.tp.part(dy))
+        return d_comb, _gather_last(d_he, ctx.tp), None
+
+
+def _experts_on_mesh(experts, x, topk_idx, topk_p, kmask, w, E: int,
+                     C: int):
+    """``experts`` (``_einsum_experts`` or ``_gather_experts``) of
+    DTensors, per rank under ``local_map``. The tokens (x [B,S,d], their
+    picks and the picks' one-hots) come sharded by batch or replicated;
+    each expert weight keeps its sharding of E (dim 0: expert parallel,
+    the rank's own experts) or of f (tensor parallel inside every
+    expert) on the mesh dims that do
+    not shard the tokens, and is gathered whole on those that do (FSDP's
+    embed dim). So no rank runs an expert or a slice of f twice, and
+    DTensor, which has no strategy for a sort's indices into another
+    tensor's shards, runs none of it. A rank holding a part of the
+    experts or of f returns its part of y, a partial sum over those mesh
+    dims (the block's residual reduces it), as are its gradients of x and
+    of the pick weights; a weight's gradient is a partial sum over the
+    mesh dims that shard the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    tok_pl = tuple(x.placements)
+    if any(p not in (Shard(0), Replicate()) for p in tok_pl):
+        raise ValueError("the MoE on a mesh takes tokens sharded by batch, "
+                         f"not {x.placements}")
+    topk_idx, topk_p, kmask = (t.redistribute(mesh, tok_pl)
+                               for t in (topk_idx, topk_p, kmask))
+    w_pl, w_grad_pl = [], []
+    for t in w:
+        pl = tuple(pw if pt == Replicate() else Replicate()
+                   for pt, pw in zip(tok_pl, t.placements))
+        w_pl.append(pl)
+        w_grad_pl.append(tuple(Partial() if pt == Shard(0) else pw
+                               for pt, pw in zip(tok_pl, pl)))
+    w = [t.redistribute(mesh, pl) for t, pl in zip(w, w_pl)]
+    split = [any(pl[i] != Replicate() for pl in w_pl)
+             for i in range(mesh.ndim)]
+    out_pl = tuple(Partial() if s else p for s, p in zip(split, tok_pl))
+    e_lo = _offset(w[0], 0)
+    kw = dict(E=E, C=C, e_lo=e_lo)
+    # the einsum dispatch under f split over a mesh dim (the experts whole
+    # there): its d split over that dim too (``_einsum_experts``)
+    f_dims = [i for i, s in enumerate(split)
+              if s and w_pl[0][i] != Shard(0) and mesh.size(i) > 1]
+    if (experts is _einsum_experts and len(f_dims) == 1
+            and x.shape[-1] % mesh.size(f_dims[0]) == 0):
+        i = f_dims[0]
+        kw["tp"] = _TPGroup(mesh.get_group(i).group_name,
+                            mesh.get_local_rank(i), mesh.size(i))
+
+    def local(xl, il, pl, kl, wg, wu, wd):
+        return experts(xl, il, pl, kl, wg, wu, wd, **kw)
+
+    return local_map(local, out_placements=list(out_pl),
+                     in_placements=(tok_pl,) * 4 + tuple(w_pl),
+                     in_grad_placements=(out_pl, tok_pl, out_pl, tok_pl)
+                     + tuple(w_grad_pl),
+                     device_mesh=mesh)(x, topk_idx, topk_p, kmask, *w)
 
 
 def moe(x, params, top_k: int, capacity_factor: float = 1.0,

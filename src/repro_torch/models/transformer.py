@@ -103,14 +103,34 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
 
 def _positions_for(cfg, batch, B, S, like):
     if cfg.mrope_sections is not None:
-        return batch["positions"]  # [B, S, 3]
+        return _caller_positions(batch, like)  # [B, S, 3]
     return on_mesh_of(torch.arange(S, device=like.device)[None, :], like)
+
+
+def _caller_positions(batch, like):
+    """The VLM's 3-D positions from ``batch``: on a mesh a DTensor laid out
+    by the bundle's ``input_pspecs``, as the tokens are."""
+    positions = batch["positions"]
+    if _is_dtensor(like) and not _is_dtensor(positions):
+        raise ValueError("on a mesh batch['positions'] must be a DTensor "
+                         "(ModelBundle.distribute with input_pspecs)")
+    return positions
 
 
 def _apply_rope(cfg, x, positions):
     if cfg.mrope_sections is not None:
         return L.apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return L.apply_rope(x, positions, cfg.rope_theta)
+
+
+def _heads(t, n: int, hd: int, axis: str, rules):
+    """A projection [B, S, n·hd] as heads [B, S, n, hd], laid out first by
+    the heads' rule ``axis`` (a no-op without a mesh): DTensor may shard
+    the product's last dim over a mesh dim that the heads do not divide
+    (torch 2.11 does for an FSDP weight, qwen2-vl's 28 heads on 16), and
+    a view into heads cannot split such a shard."""
+    t = constrain(t, None, ("batch", "act_seq", axis), rules)
+    return t.reshape(t.shape[:-1] + (n, hd))
 
 
 def _mlp(cfg, p, h, moe_impl):
@@ -129,9 +149,9 @@ def block_forward(cfg, p, x, positions, *, moe_impl="einsum",
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-    k = project(h, p["wk"]).reshape(B, S, Hkv, hd)
-    v = project(h, p["wv"]).reshape(B, S, Hkv, hd)
+    q = _heads(h @ p["wq"], Hq, hd, "act_heads", rules)
+    k = _heads(project(h, p["wk"]), Hkv, hd, "act_kv_heads", rules)
+    v = _heads(project(h, p["wv"]), Hkv, hd, "act_kv_heads", rules)
     q = _apply_rope(cfg, q, positions)
     k = _apply_rope(cfg, k, positions)
     q = constrain(q, None, ("batch", "act_seq", "act_heads", None), rules)
@@ -139,7 +159,11 @@ def block_forward(cfg, p, x, positions, *, moe_impl="einsum",
     # the plain attention, as the reference trains through L.attention: the
     # flash kernel has no backward and refuses inputs that require grad
     o = L.attention(q, k, v, causal=True, chunk=attn_chunk, use_kernel=False)
-    x = constrain(x + o.reshape(B, S, Hq * hd) @ p["wo"], None, ACT, rules)
+    # the heads merged, laid out by heads as q was: so is the gradient
+    # that the backward pass splits into heads again (``_heads``)
+    o = constrain(o.reshape(B, S, Hq * hd), None,
+                  ("batch", "act_seq", "act_heads"), rules)
+    x = constrain(x + o @ p["wo"], None, ACT, rules)
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _mlp(cfg, p, h, moe_impl)
     return constrain(x + y, None, ACT, rules), aux
@@ -152,9 +176,9 @@ def block_decode(cfg, p, x, cache, positions, *, moe_impl="einsum",
     B = x.shape[0]
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, 1, Hq, hd)
-    k = (h @ p["wk"]).reshape(B, 1, Hkv, hd)
-    v = (h @ p["wv"]).reshape(B, 1, Hkv, hd)
+    q = _heads(h @ p["wq"], Hq, hd, "act_heads", rules)
+    k = _heads(h @ p["wk"], Hkv, hd, "act_kv_heads", rules)
+    v = _heads(h @ p["wv"], Hkv, hd, "act_kv_heads", rules)
     q = _apply_rope(cfg, q, positions)
     k = _apply_rope(cfg, k, positions)
     if isinstance(cache, L.KVCacheQ):
@@ -318,9 +342,9 @@ def prefill(cfg, params, batch, max_len: int, *, moe_impl="einsum",
     vc = torch.zeros_like(kc)
     for i, p in enumerate(unstack(params["blocks"])):
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q = (h @ p["wq"]).reshape(B, S, Hq, hd)
-        k = project(h, p["wk"]).reshape(B, S, Hkv, hd)
-        v = project(h, p["wv"]).reshape(B, S, Hkv, hd)
+        q = _heads(h @ p["wq"], Hq, hd, "act_heads", rules)
+        k = _heads(project(h, p["wk"]), Hkv, hd, "act_kv_heads", rules)
+        v = _heads(project(h, p["wv"]), Hkv, hd, "act_kv_heads", rules)
         q = _apply_rope(cfg, q, positions)
         k = _apply_rope(cfg, k, positions)
         o = L.attention(q, k, v, causal=True, chunk=attn_chunk,
@@ -348,7 +372,7 @@ def decode_step(cfg, params, cache, batch, *, moe_impl="einsum",
     pos = int(cache.length)
     quant = isinstance(cache, L.KVCacheQ)
     if cfg.mrope_sections is not None:
-        positions = batch["positions"]                       # [B,1,3]
+        positions = _caller_positions(batch, x)              # [B,1,3]
     else:
         positions = on_mesh_of(torch.full((B, 1), pos, dtype=torch.int64,
                                           device=x.device), x)

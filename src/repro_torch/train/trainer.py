@@ -4,7 +4,8 @@ microbatch accumulation.
 The port of ``repro/train/trainer.py``. PyTorch runs eagerly: there is no
 jit and no donation. The optimizer returns new trees and rebinding the
 names frees the old ones. On a mesh the params, optimizer state and
-batch are DTensors: the microbatches split each data shard's rows, and
+batch are DTensors: each microbatch is a block of the batch's rows, as in
+the reference, laid out as the batch (``split_microbatches``), and
 the summed gradients come to their params' placements (the data-parallel
 all-reduce) before the update. Checkpoints go through
 ``ckpt.manager.CheckpointManager``, whose files either package restores,
@@ -13,7 +14,6 @@ so a run the reference saved resumes here and the other way round.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from typing import Optional
 
@@ -25,7 +25,8 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import (make_train_step, on_param_placements,
                                      value_and_grad)
 from repro_torch.models.api import ModelBundle
-from repro_torch.parallel.sharding import _is_dtensor, on_mesh_of
+from repro_torch.parallel.sharding import (_is_dtensor, gathered,
+                                          on_mesh_of)
 from repro_torch.train import optim
 
 
@@ -45,27 +46,19 @@ class TrainerConfig:
     deadline_factor: float = 3.0
 
 
-def _batch_shards(x) -> int:
-    """The shards of a DTensor's dim 0 (1 for a plain tensor)."""
+def split_microbatches(x, microbatches: int) -> list:
+    """``x``'s ``microbatches`` microbatches along dim 0: contiguous blocks
+    of rows, as the reference's reshape splits the batch. A DTensor batch
+    is gathered whole once (token ids and positions, a few bytes a
+    position) and each block laid out as the batch was. Splitting each
+    data shard's rows instead would move nothing, but it makes other
+    microbatches: the same mean cross-entropy, another sum of the MoE's
+    aux loss, which is a product of means over a microbatch."""
+    blocks = gathered(x, 0).reshape(
+        (microbatches, -1) + tuple(x.shape[1:])).unbind(0)
     if not _is_dtensor(x):
-        return 1
-    from torch.distributed.tensor import Shard
-    return math.prod(n for p, n in zip(x.placements, x.device_mesh.shape)
-                     if p == Shard(0))
-
-
-def microbatch(x, i: int, microbatches: int):
-    """Microbatch ``i`` of ``microbatches`` along dim 0. A plain batch
-    splits into contiguous blocks, as the reference's reshape does; a
-    DTensor batch sharded n ways along dim 0 splits each shard's rows
-    alike ([n, microbatches, B / (n · microbatches)] and entry i), so
-    every microbatch is spread over the data shards and nothing moves.
-    With equal token counts a microbatch, both give the same mean."""
-    n = _batch_shards(x)
-    y = x.reshape((n, microbatches, x.shape[0] // (n * microbatches))
-                  + tuple(x.shape[1:]))
-    return y[:, i].reshape((x.shape[0] // microbatches,)
-                           + tuple(x.shape[1:]))
+        return list(blocks)
+    return [b.redistribute(x.device_mesh, x.placements) for b in blocks]
 
 
 def make_accum_train_step(bundle: ModelBundle, opt: optim.Optimizer,
@@ -86,10 +79,11 @@ def make_accum_train_step(bundle: ModelBundle, opt: optim.Optimizer,
                                           device=batch["tokens"].device),
                               batch["tokens"])
         grads_acc = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
+        split = {k: split_microbatches(x, microbatches)
+                 for k, x in batch.items()}
         for i in range(microbatches):
             loss, grads = value_and_grad(
-                bundle, params,
-                {k: microbatch(x, i, microbatches) for k, x in batch.items()})
+                bundle, params, {k: x[i] for k, x in split.items()})
             loss_acc = loss_acc + loss
             grads_acc = tree_map(lambda a, g: a + g.to(adt), grads_acc,
                                  grads)

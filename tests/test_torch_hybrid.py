@@ -110,15 +110,16 @@ def _routes(jx, fn, pin=None):
         return out
 
     def trec(x, w, k):
-        probs, idx, top, aux = trouter(x, w, k)
+        probs, idx, top, aux, kmask = trouter(x, w, k)
         tpicks.append(idx.numpy())
         if pinned is not None:
             idx = torch.from_numpy(next(pinned)).long()
+            kmask = TL._one_hot(idx, w.shape[-1])
             top = probs.gather(-1, idx)
             top = top / top.sum(dim=-1, keepdim=True)
             ce = F.one_hot(idx[..., 0], w.shape[-1]).float().mean(dim=(0, 1))
             aux = w.shape[-1] * torch.sum(probs.mean(dim=(0, 1)) * ce)
-        return probs, idx, top, aux
+        return probs, idx, top, aux, kmask
     JL._router, TL._router = jrec, trec
     try:
         res = fn()
@@ -377,7 +378,7 @@ def test_jamba_decode_matches_full_forward(jx, runs, dtype):
     C = TL._capacity(PROMPT, cfg.moe.top_k, cfg.moe.num_experts, 1.0)
     assert C == 8 and any(
         int(((e > 0) & (p >= C)).sum())
-        for e, p in (TL._arrivals(torch.from_numpy(i), 4)[1:]
+        for e, p in (TL._arrivals(TL._one_hot(torch.from_numpy(i), 4))
                      for i in got.picks[:8]))
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     dec, full, alike = _decode_vs_forward(jx, got.tp, _roomy(cfg), tdt,

@@ -139,8 +139,8 @@ def _drops(x, params, top_k, factor, group_size=512):
     xg, _ = TL._group(x, group_size)
     E = params["w_router"].shape[-1]
     C = TL._capacity(xg.shape[1], top_k, E, factor)
-    _, idx, _, _ = TL._router(xg, params["w_router"], top_k)
-    _, emask, pos = TL._arrivals(idx, E)
+    _, idx, _, _, kmask = TL._router(xg, params["w_router"], top_k)
+    emask, pos = TL._arrivals(kmask)
     dropped = (emask > 0) & (pos >= C)
     return C, int(dropped.sum()), dropped[..., E - 1].reshape(x.shape[:2])
 
@@ -154,7 +154,7 @@ def test_router_matches_jax(jx, dtype, S, K, E):
     x, params = _moe_arrays(0, 64, E, 8, (2, S, 64))
     jxx, jp, tx, tp = _pair(jx, x, params, dtype)
     jprobs, jidx, jtop, jaux = jx.router(jxx, jp["w_router"], K)
-    probs, idx, top, aux = TL._router(tx, tp["w_router"], K)
+    probs, idx, top, aux, _ = TL._router(tx, tp["w_router"], K)
     assert probs.dtype == top.dtype == aux.dtype == torch.float32
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=1e-5)
@@ -263,7 +263,8 @@ def test_moe_einsum_matches_gather():
 
 def test_moe_routing_mass_conservation():
     x, params = _moe_arrays(7, 8, 4, 16, (2, 32, 8), router_scale=0.02)
-    _, idx, top, _ = TL._router(_torch(x), _torch(params["w_router"]), 2)
+    _, idx, top, _, _ = TL._router(_torch(x), _torch(params["w_router"]),
+                                   2)
     assert np.allclose(top.sum(-1).numpy(), 1.0, atol=1e-5)
     assert bool((top >= 0).all())
     assert bool((idx[..., 0] != idx[..., 1]).all())
@@ -460,7 +461,7 @@ def test_moe_model_picks_drop_at_the_configs_capacity(runs):
     C = TL._capacity(PROMPT, 2, 4, 1.0)
     drops = 0
     for picks in got.picks:
-        _, emask, pos = TL._arrivals(torch.from_numpy(picks), 4)
+        emask, pos = TL._arrivals(TL._one_hot(torch.from_numpy(picks), 4))
         drops += int(((emask > 0) & (pos >= C)).sum())
     assert C == 8 and drops > 0
 
