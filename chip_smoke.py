@@ -280,7 +280,21 @@ and the script exits non-zero without printing a result:
    4 × 2048 (``flash_attention`` 32 and 28 times) and 8 greedy tokens,
    held as (b), the router's picks equal call by call, ms in turns. The
    ms of (b) and (c) are taken once (a)'s processes have exited. The
-   phase must take at most 90 s.
+   phase must take at most 90 s. (a) also traces mamba2-130m's
+   ``decode_32k`` on (16, 16) (24 heads do not divide 16: its d_inner
+   layout is ``ssm_inner``, each rank 1.5 heads).
+10c. ``mesh_seq_phase``, alone after it, in a subprocess of its own: the
+   SSM, hybrid and audio families on the 1×1 mesh against the plain
+   bundle: mamba2-130m and whisper-tiny at their published configs,
+   jamba-v0.1-52b at its published width and one period (8 of 32
+   layers). Each: a prefill of 4 × 2048 tokens (whisper: 4 × 1500 frames
+   and 4 × 448 tokens), its logits bitwise equal to the plain bundle's,
+   ``flash_attention`` 0 (mamba2), 1 (jamba) and 12 (whisper) times; 8
+   greedy tokens from the zero state (whisper's cross K/V from
+   ``precompute_cross``): tokens, the last logits and every leaf of the
+   decode state bitwise equal; jamba's router picks equal call by call
+   (einsum dispatch); ms per prefill and per token in turns with the
+   plain bundle. The phase must take at most MESH_SEQ_PHASE_S (90 s).
 11. Print the wire bytes per iteration from the port's ledger (G, G-Q,
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
@@ -452,10 +466,21 @@ MESH_ADMM_BITS = (0, 8)
 MESH_PHASE_S = 90              # the phase's wall-time budget (subprocess)
 # the dry run's cells (mesh_dryrun's names) by process: each ~30 s of
 # traces on the H100's host
-MESH_DRYRUN_SPLIT = (("train_4k", "prefill_32k"),
+MESH_DRYRUN_SPLIT = (("train_4k", "prefill_32k",
+                      "mamba2-130m decode_32k"),
                      ("granite-moe-3b-a800m train_4k", "decode_32k",
                       "stage_v1m_b32", "stage_v1m_b8"))
+# the SSM's cell in the dry run: mamba2-130m's 24 heads on 16 ranks, the
+# ssm_inner layout at full width
+MESH_SSM_CELL = ("mamba2-130m", "decode_32k")
 MESH_PARTS = ("dryrun-0", "dryrun-1", "host")   # the phase's subprocesses
+# mesh_seq_phase: (arch, layers or None for the config's) served on the
+# 1×1 mesh against the plain bundle; jamba at one period of its four
+# (8 of 32 layers, ~25.5 GB in bf16)
+MESH_SEQ = (("mamba2-130m", None), ("whisper-tiny", None),
+            ("jamba-v0.1-52b", 8))
+MESH_SEQ_PART = "seq"          # its subprocess's part
+MESH_SEQ_PHASE_S = 90          # its wall-time budget (subprocess)
 MESH_DRYRUN_DONE = "dryrun.done"   # written once the dry run has exited
 MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1024, 2
 MESH_REL_L2 = 1e-6             # f32 relative L2 where the bits differ
@@ -4413,10 +4438,10 @@ def mesh_dryrun(names) -> dict:
     tinyllama-1.1b's MESH_CELLS on the single production mesh (a fake
     world of 256 ranks; attention chunks of MESH_ATTN_CHUNK queries), the
     stage-parallel cells (StageMesh(16, 16), V 1,048,576, h 4096, L 16, 64
-    classes) with an fp32 and an 8-bit wire, and MESH_MOE_CELL (the
-    experts' ffn_exp layout) at MESH_MOE_MICROBATCHES microbatches. Per
-    device: flops, peak live bytes, the collectives' moved bytes; each
-    finite and above 0."""
+    classes) with an fp32 and an 8-bit wire, MESH_MOE_CELL (the experts'
+    ffn_exp layout) at MESH_MOE_MICROBATCHES microbatches and
+    MESH_SSM_CELL (the SSM's ssm_inner layout). Per device: flops, peak
+    live bytes, the collectives' moved bytes; each finite and above 0."""
     from repro_torch.launch import dryrun as D
     cells = {shape: lambda shape=shape: D.trace_cell(
         LM_ARCH, shape, False, attn_chunk=MESH_ATTN_CHUNK)
@@ -4428,6 +4453,9 @@ def mesh_dryrun(names) -> dict:
     cells[f"{arch} {shape}"] = lambda: D.trace_cell(
         arch, shape, False, attn_chunk=MESH_ATTN_CHUNK,
         microbatches=MESH_MOE_MICROBATCHES)
+    ssm, ssm_shape = MESH_SSM_CELL
+    cells[f"{ssm} {ssm_shape}"] = lambda: D.trace_cell(
+        ssm, ssm_shape, False, attn_chunk=MESH_ATTN_CHUNK)
     out = {}
     for name in names:
         program, meta = cells[name]()
@@ -4710,6 +4738,164 @@ def mesh_family(dev, cfg, impls, timers: list, batch_size: int = LM_BATCH,
     return out
 
 
+def mesh_bitwise(label, got, want) -> bool:
+    """``got`` (a DTensor gathered whole) equal to ``want`` bit for bit."""
+    if hasattr(got, "full_tensor"):
+        got = got.full_tensor()
+    if not torch.equal(got, want):
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        raise AssertionError(f"1x1 mesh: {label} differs from the plain "
+                             f"path (relative L2 {rel:.3e})")
+    return True
+
+
+def mesh_seq_state(bundle, params, batch, shape):
+    """The state these families decode from: the zero state of ``shape``
+    (on a mesh laid out by ``serve_state_pspecs``), whisper's with the
+    cross K/V of ``batch["frames"]`` (``precompute_cross``), written into
+    the state's shards."""
+    from repro_torch.models import whisper
+    state = bundle.serve_state_shape(shape)
+    if bundle.cfg.family == "audio":
+        cross = whisper.precompute_cross(
+            bundle.cfg, params, batch["frames"],
+            use_kernel=bundle.use_kernels, rules=bundle.rules)
+        for key, t in zip(("cross_k", "cross_v"), cross):
+            if bundle.on_mesh:
+                t = t.redistribute(t.device_mesh, state[key].placements)
+                state[key].to_local().copy_(t.to_local())
+            else:
+                state[key] = t
+    return state
+
+
+def mesh_state_leaves(state) -> dict:
+    """A decode state's tensors by path (dict keys, tuple positions)."""
+    if isinstance(state, dict):
+        return {f"{k}/{p}": t for k in sorted(state)
+                for p, t in mesh_state_leaves(state[k]).items()}
+    if isinstance(state, tuple):
+        return {f"{i}/{p}": t for i, part in enumerate(state)
+                for p, t in mesh_state_leaves(part).items()}
+    return {"": state}
+
+
+def mesh_seq(dev, cfg, timers: list, batch_size: int = LM_BATCH,
+             prompt: int = LM_PROMPT,
+             n_decode: int = MESH_FAMILY_TOKENS) -> dict:
+    """(mesh_seq_phase) an SSM, hybrid or audio ``cfg`` on the 1×1 mesh
+    (``make_host_mesh``) against the plain bundle on the same seeded
+    weights: the prefill's logits bitwise and ``flash_attention`` launched
+    ``seq_flash_launches`` times; ``n_decode`` greedy tokens from
+    ``mesh_seq_state``: tokens, last logits and every state leaf bitwise;
+    the router's picks equal call by call. Appends its timing to
+    ``timers``: ms per prefill and per token (MESH_FAMILY_TIMED_TOKENS a
+    run) in turns (plain, mesh, mesh, plain), the best of each."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build
+
+    audio = cfg.family == "audio"
+    S = WHISPER_TEXT if audio else prompt
+    max_len = WHISPER_TEXT if audio else S + n_decode
+    pshape = ShapeConfig("serve", max_len, batch_size, "prefill")
+    dshape = ShapeConfig("serve", max_len, batch_size, "decode")
+    mesh = make_host_mesh(dev)
+    plain = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = plain.init(gen)
+    batch = plain.make_inputs(ShapeConfig("prefill", S, batch_size,
+                                          "prefill"), gen)
+    on_mesh = build(cfg, mesh, dshape)
+    mparams = on_mesh.distribute(params, on_mesh.param_pspecs())
+    mbatch = on_mesh.distribute(batch, on_mesh.input_pspecs(pshape))
+    label = cfg.name
+    out = {"mesh": str(mesh), "layers": cfg.n_layers}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        with route_log() as picks:
+            logits, _ = on_mesh.prefill(mparams, mbatch, max_len)
+        torch.cuda.synchronize()
+        flash = ops.launch_counts().get("flash_attention", 0)
+        print(f"  1x1 mesh {label} prefill: flash_attention launched {flash} "
+              "times", flush=True)
+        if flash != seq_flash_launches(cfg):
+            raise AssertionError(f"1x1 mesh {label} prefill: flash_attention "
+                                 f"launched {flash} times, not "
+                                 f"{seq_flash_launches(cfg)}")
+        with route_log() as picks_p:
+            logits_p, _ = plain.prefill(params, batch, max_len)
+        out["prefill"] = {"logits_bitwise": mesh_bitwise(
+            f"{label} prefill logits", logits, logits_p),
+            "flash_launches": flash}
+        state = mesh_seq_state(on_mesh, mparams, mbatch, dshape)
+        state_p = mesh_seq_state(plain, params, batch, dshape)
+        with route_log() as more:
+            toks, last = mesh_greedy(on_mesh, mparams, state, logits,
+                                     n_decode, 0, dshape)
+        picks += more
+        with route_log() as more:
+            toks_p, last_p = mesh_greedy(plain, params, state_p, logits_p,
+                                         n_decode, 0, dshape)
+        picks_p += more
+        if not torch.equal(toks, toks_p):
+            raise AssertionError(f"1x1 mesh {label}: greedy tokens differ "
+                                 "from the plain path's")
+        leaves, leaves_p = mesh_state_leaves(state), mesh_state_leaves(state_p)
+        if list(leaves) != list(leaves_p):
+            raise AssertionError(f"1x1 mesh {label}: decode states differ in "
+                                 f"structure: {list(leaves)}, {list(leaves_p)}")
+        for k in leaves:
+            mesh_bitwise(f"{label} decode state {k}", leaves[k], leaves_p[k])
+        out["router_calls_equal"] = mesh_routes_equal(label, picks, picks_p)
+        out["decode"] = {"tokens_equal": True, "tokens": toks.numel(),
+                         "last_logits_bitwise": mesh_bitwise(
+                             f"{label} decode logits", last, last_p),
+                         "state_leaves_bitwise": len(leaves)}
+        print(f"  1x1 mesh {label} ({cfg.n_layers} layers): prefill of "
+              f"{batch_size} x {S} and {n_decode} greedy tokens bitwise "
+              f"equal to the plain path's (logits, tokens, {len(leaves)} "
+              f"state leaves; {out['router_calls_equal']} router calls with "
+              "equal picks)", flush=True)
+        del state, state_p, logits, logits_p, last, last_p
+    torch.cuda.empty_cache()
+    runs = {"plain": (plain, params, batch), "mesh": (on_mesh, mparams,
+                                                      mbatch)}
+    n_timed = min(MESH_FAMILY_TIMED_TOKENS, n_decode)
+
+    def timed():
+        ms = {"prefill": {"plain": [], "mesh": []},
+              "token": {"plain": [], "mesh": []}}
+        with torch.no_grad():
+            for name in ("plain", "mesh", "mesh", "plain"):
+                b, p, bt = runs[name]
+                t = time.perf_counter()
+                lg, _ = b.prefill(p, bt, max_len)
+                torch.cuda.synchronize()
+                ms["prefill"][name].append((time.perf_counter() - t) * 1e3)
+                st = mesh_seq_state(b, p, bt, dshape)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                mesh_greedy(b, p, st, lg, n_timed, 0, dshape)
+                torch.cuda.synchronize()
+                ms["token"][name].append((time.perf_counter() - t) * 1e3
+                                         / n_timed)
+                del lg, st
+        for what in ms:
+            for name in ms[what]:
+                ms[what][name] = min(ms[what][name])
+        print(f"  1x1 mesh {label} ms per prefill ({batch_size} x {S}): mesh "
+              f"{ms['prefill']['mesh']:.3f}, plain "
+              f"{ms['prefill']['plain']:.3f}; ms per token (B {batch_size}):"
+              f" mesh {ms['token']['mesh']:.3f}, plain "
+              f"{ms['token']['plain']:.3f} (best of two, in turns)",
+              flush=True)
+        return ms
+    timers.append((out, timed))
+    return out
+
+
 def mesh_wait_for(path: str, timeout: float = 600.0) -> None:
     """Return once the file ``path`` exists."""
     t = time.perf_counter()
@@ -4730,9 +4916,27 @@ def mesh_child(path: str, part: str) -> int:
 
     from repro_torch.configs.base import get_arch
     t0 = time.perf_counter()
+    res = {}
     if part.startswith("dryrun-"):
         res = {"dryrun": mesh_dryrun(
             MESH_DRYRUN_SPLIT[int(part[len("dryrun-"):])])}
+    elif part == MESH_SEQ_PART:
+        from repro_torch.kernels import build as kbuild
+        kbuild.library()
+        dev = torch.device("cuda")
+        timers = []
+        for name, layers in MESH_SEQ:
+            cfg = get_arch(name)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            res[name] = mesh_seq(dev, cfg, timers)
+            torch.cuda.empty_cache()
+        res["seq_checks_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        while timers:
+            out, timed = timers.pop(0)
+            out["ms"] = timed()
+        res["seq_timed_s"] = time.perf_counter() - t
     else:
         from repro_torch.kernels import build as kbuild
         kbuild.library()
@@ -4800,6 +5004,39 @@ def mesh_phase() -> dict:
     if wall > MESH_PHASE_S:
         raise AssertionError(f"mesh phase took {wall:.1f} s > "
                              f"{MESH_PHASE_S} s")
+    return out
+
+
+def mesh_seq_phase() -> dict:
+    """Run ``mesh_child``'s MESH_SEQ_PART in a subprocess of this script
+    (its own process group) and read its record; the phase's wall time
+    must stay within MESH_SEQ_PHASE_S."""
+    import tempfile
+    d = tempfile.mkdtemp()
+    path = os.path.join(d, f"{MESH_SEQ_PART}.json")
+    t = time.perf_counter()
+    proc = None
+    try:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--mesh-phase", path, "--mesh-part",
+                                 MESH_SEQ_PART])
+        code = proc.wait(timeout=600)
+        wall = time.perf_counter() - t
+        if code != 0:
+            raise AssertionError(f"mesh seq phase: exit {code}")
+        with open(path) as f:
+            out = json.load(f)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    out["wall_s"] = wall
+    print(f"mesh seq phase: {wall:.1f} s (checks {out['seq_checks_s']:.1f} "
+          f"s, then {out['seq_timed_s']:.1f} s timing)", flush=True)
+    if wall > MESH_SEQ_PHASE_S:
+        raise AssertionError(f"mesh seq phase took {wall:.1f} s > "
+                             f"{MESH_SEQ_PHASE_S} s")
     return out
 
 
@@ -4899,7 +5136,8 @@ def main() -> int:
                          "this one's, in turns, at the kernel phase's shapes")
     ap.add_argument("--mesh-phase", default=None, metavar="OUT_JSON",
                     help=argparse.SUPPRESS)   # mesh_phase's subprocess
-    ap.add_argument("--mesh-part", default="host", choices=MESH_PARTS,
+    ap.add_argument("--mesh-part", default="host",
+                    choices=MESH_PARTS + (MESH_SEQ_PART,),
                     help=argparse.SUPPRESS)   # which of its parts
     ap.add_argument("--decode-ab", default=None, metavar="OTHER_SRC",
                     help="only time the plain bundle's decode with another "
@@ -5000,6 +5238,7 @@ def main() -> int:
     runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
     torch.cuda.empty_cache()
     runs["mesh"] = mesh_phase()
+    runs["mesh_seq"] = mesh_seq_phase()
 
     # each kernel's launches come from the run whose path needs it
     run_of = dict.fromkeys(BASE_KERNELS, "G")

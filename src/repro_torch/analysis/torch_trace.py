@@ -76,7 +76,9 @@ hold` is given: the step's arguments) counts from its first sight until a
 weakref finalizer sees it freed. The recorder then pins no collective
 output (it would keep each alive to the end); a freed output that nothing
 read is carried. :attr:`StepProgram.memory` holds
-``arg_bytes`` and ``peak_bytes`` (arguments included).
+``arg_bytes`` and ``peak_bytes`` (arguments included). An argument that
+no op but a view or a ``prim`` reads counts in neither, as ``jax.jit``
+drops unused arguments before XLA counts them.
 
 The walkers :func:`count_primitive`, :func:`count_primitives`,
 :func:`collective_profile` and :func:`ppermute_moves` are the
@@ -330,6 +332,8 @@ class StepRecorder(TorchDispatchMode):
                  memory: bool = False):
         super().__init__()
         self._memory = memory
+        self._held: Dict[int, int] = {}            # argument storage -> bytes
+        self._read_keys: set = set()
         self._live: Dict[int, int] = {}            # storage -> bytes
         self.arg_bytes = 0
         self.live_bytes = 0
@@ -383,7 +387,11 @@ class StepRecorder(TorchDispatchMode):
     def hold(self, tree) -> None:
         """Count the storages of ``tree``'s tensors (the step's arguments)
         as live from now on, as ``arg_bytes``."""
-        self.arg_bytes += self._track(_tensors(tree))
+        tensors = _tensors(tree)
+        self.arg_bytes += self._track(tensors)
+        for t in tensors:
+            st = getattr(t, "_local_tensor", t).untyped_storage()
+            self._held[st._cdata] = st.nbytes()
 
     @property
     def program(self) -> StepProgram:
@@ -396,7 +404,10 @@ class StepRecorder(TorchDispatchMode):
             # work strictly between issue i and consumer c
             r.move_work = [0 if c is None else work[c] - work[i + 1]
                            for c in r.move_consumers]
-        memory = ({"arg_bytes": self.arg_bytes, "peak_bytes": self.peak_bytes}
+        unused = sum(b for k, b in self._held.items()
+                     if k not in self._read_keys)
+        memory = ({"arg_bytes": self.arg_bytes - unused,
+                   "peak_bytes": self.peak_bytes - unused}
                   if self._memory else None)
         return StepProgram(self.records, self.n_shards, memory)
 
@@ -446,6 +457,10 @@ class StepRecorder(TorchDispatchMode):
                 self._apart.__enter__()
             return NotImplemented     # DTensor runs it on the local shards
         out = func(*args, **kwargs)
+        if self._memory and not (func.is_view or propagating()
+                                 or func.namespace == "prim"):
+            self._read_keys.update(_storage_key(t)
+                                   for t in _tensors((args, kwargs)))
         if self._quiet or func.namespace == "prim" or propagating():
             return out                # prim: metadata (.device), no work
         if self._memory:

@@ -19,10 +19,11 @@ takes seconds to tens of seconds of host time at full width; the whole
 ``--all`` belongs on a host with cores and memory to spare, not on a small
 shared machine.
 
-The transformer's families (dense, MoE, VLM) run on a mesh; ``--all``
-records an error for each cell of the SSM, hybrid and audio families
-(``ModelBundle`` raises ``NotImplementedError``), as the reference records
-any cell's error.
+Every family runs on a mesh (dense, MoE, VLM, SSM, hybrid, audio); a
+cell that raises records its error, as the reference records any cell's.
+An argument that the step never reads (whisper's encoder weights and its
+cross K/V projections in decode) counts in no byte total, as ``jax.jit``
+drops unused arguments before XLA counts them.
 
 The ``--admm`` cells record the paper's own step (stage-parallel
 pdADMM-G, fp32 wire, or pdADMM-G-Q with 8/16-bit codes) shape-only on a

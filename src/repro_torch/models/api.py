@@ -24,10 +24,8 @@ The port of ``repro/models/api.py`` for every family: the transformer's
 padded so the model axis shards it. Without a mesh every path is the
 one-card port's, with plain tensors. On a ``DeviceMesh`` the params,
 inputs and decode state are DTensors (``distribute`` / ``abstract_params``
-/ ``serve_state_shape``), and the transformer's families (dense, MoE,
-VLM) run on them; the SSM, hybrid and audio families raise
-``NotImplementedError`` there (ROADMAP Queue 1, item 1), though their
-specs and rules are pure functions that every family has.
+/ ``serve_state_shape``), and every family runs on them: each model
+module takes the bundle's ``rules`` for its ``constrain`` sites.
 """
 from __future__ import annotations
 
@@ -48,8 +46,6 @@ from repro_torch.parallel import sharding as sh
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": jamba, "audio": whisper}
 PORTED_FAMILIES = tuple(_MODULES)
-# the families that run on DTensors on a DeviceMesh
-MESH_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -79,13 +75,6 @@ class ModelBundle:
         """Whether the bundle's tensors are DTensors (a ``DeviceMesh``)."""
         return hasattr(self.mesh, "device_type")
 
-    def _check_runs(self):
-        if self.on_mesh and self.cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.cfg.family} family does not run on a mesh yet "
-                "(DTensor execution of the SSM, hybrid and audio families "
-                "is ROADMAP Queue 1, item 1)")
-
     # -- params ---------------------------------------------------------
     def param_specs(self):
         return self._mod.param_specs(self.cfg, self.vocab_padded, self.dtype)
@@ -99,7 +88,6 @@ class ModelBundle:
         ``FakeTensorMode``, else on the meta device)."""
         if not self.on_mesh:
             return common.abstract_params(self.param_specs())
-        self._check_runs()
         return common.abstract_params(self.param_specs(), self.mesh,
                                       self.rules)
 
@@ -108,7 +96,6 @@ class ModelBundle:
         device (``torch.Generator(device=bundle.device).manual_seed(s)``).
         On a mesh every rank draws the whole of each leaf (the same seed
         gives the same weights) and keeps its shard."""
-        self._check_runs()
         params = common.init_params(self.param_specs(), generator,
                                     self.device)
         if self.on_mesh:
@@ -122,7 +109,6 @@ class ModelBundle:
         one."""
         if not self.on_mesh:
             return tree
-        self._check_runs()
         return common.distribute_tree(tree, pspecs, self.mesh)
 
     def n_params(self) -> int:
@@ -135,12 +121,10 @@ class ModelBundle:
         jamba and whisper, ``prefill`` run. The transformer's always takes
         the plain attention (its prefill is its own); the other families'
         take the flash kernel on a CUDA tensor with ``use_kernel``."""
-        self._check_runs()
-        kw = dict(moe_impl=self.moe_impl, attn_chunk=self.attn_chunk)
+        kw = dict(moe_impl=self.moe_impl, attn_chunk=self.attn_chunk,
+                  rules=self.rules)
         if self._mod is not transformer:
             kw["use_kernel"] = use_kernel
-        else:
-            kw["rules"] = self.rules
         return self._mod.forward_hidden(self.cfg, params, batch, **kw)
 
     def _head(self, params):
@@ -171,7 +155,6 @@ class ModelBundle:
         or ``SSMState`` stacked over periods (jamba); self and cross K/V
         (whisper, the cross K/V zero as the reference serves it)."""
         if self.on_mesh:
-            self._check_runs()
             return pytree.tree_map(
                 lambda x, spec: (self._zeros(x, spec)
                                  if isinstance(x, torch.Tensor) else x),
@@ -234,8 +217,7 @@ class ModelBundle:
         if fam == "hybrid":
             out = {}
             for i, (mixer, _) in enumerate(jamba._positions(cfg)):
-                out[f"pos{i}"] = ((kv, kv) if mixer == "attn"
-                                  else tuple(ssm_pspecs()))
+                out[f"pos{i}"] = (kv, kv) if mixer == "attn" else ssm_pspecs()
             return out
         if fam == "audio":
             return {"self_k": kv_mha, "self_v": kv_mha,
@@ -247,7 +229,6 @@ class ModelBundle:
         (or SSM state) is written in place, at ``length`` for a KV cache;
         mamba2 ignores ``length``, as the reference does. Returns (logits
         [B,1,Vp] f32, the state one token on)."""
-        self._check_runs()
         cfg = self.cfg
         if self._mod is transformer:
             return transformer.decode_step(cfg, params,
@@ -256,7 +237,8 @@ class ModelBundle:
                                            rules=self.rules)
         return self._mod.decode_step(cfg, params, state, batch,
                                      length=int(length),
-                                     moe_impl=self.moe_impl)
+                                     moe_impl=self.moe_impl,
+                                     rules=self.rules)
 
     def prefill(self, params, batch, max_len: int):
         """The prompt: the transformer's (last-position logits [B,1,Vp] f32,
@@ -264,7 +246,6 @@ class ModelBundle:
         as the reference, the full forward pass and (the last position's
         logits, None). The attention takes the flash kernel on a CUDA
         tensor unless ``use_kernels`` is False."""
-        self._check_runs()
         cfg = self.cfg
         if self._mod is transformer:
             return transformer.prefill(cfg, params, batch, max_len,

@@ -15,6 +15,13 @@ once per period on a CUDA tensor; the loss takes the plain attention
 (``use_kernel=False``), since the kernel has no backward. The decode
 state, a (k, v) pair or an ``SSMState`` per position, each stacked over
 periods, is written in place in the period's view.
+
+On a mesh (the bundle's ``rules``) the reference's ``constrain`` sites
+are kept (q by heads, each sublayer's output as the activations, the
+embedding), plus one after the attention's residual (the tensor-parallel
+all-reduce, as the transformer has); the mixers run as ``mamba2``'s on a
+mesh, the MoE sublayers as ``layers.moe``'s, and the decode state is
+written into each rank's shard.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.common import Spec, unstack
-from repro_torch.models.transformer import _head_weight, embed_tokens
+from repro_torch.models.transformer import (ACT, _head_weight, _heads,
+                                            embed_tokens)
+from repro_torch.parallel.sharding import constrain, on_mesh_of, project
 
 
 def _attn_specs(cfg, n: int, dtype) -> dict:
@@ -96,57 +105,66 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
     return specs
 
 
-def _qkv(cfg, p, x):
-    B, S, _ = x.shape
+def _qkv(cfg, p, x, rules, *, split_kv: bool):
+    """q, k, v [B,S,H,hd] of the attention sublayer, each projection laid
+    out by its heads first on a mesh (``transformer._heads``). With
+    ``split_kv`` (the full sequence) k and v go through ``project``, as
+    the transformer's do."""
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    return ((h @ p["wq"]).reshape(B, S, Hq, hd),
-            (h @ p["wk"]).reshape(B, S, Hkv, hd),
-            (h @ p["wv"]).reshape(B, S, Hkv, hd))
+    kv = project if split_kv else (lambda a, w: a @ w)
+    return (_heads(h @ p["wq"], Hq, hd, "act_heads", rules),
+            _heads(kv(h, p["wk"]), Hkv, hd, "act_kv_heads", rules),
+            _heads(kv(h, p["wv"]), Hkv, hd, "act_kv_heads", rules))
 
 
-def _attn_fwd(cfg, p, x, attn_chunk, use_kernel):
-    """NoPE causal attention sublayer, the residual added."""
+def _attn_fwd(cfg, p, x, attn_chunk, use_kernel, rules=None):
+    """NoPE causal attention sublayer, the residual added (and laid out as
+    the activations: the tensor-parallel all-reduce on a mesh)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, rules, split_kv=True)
+    q = constrain(q, None, ("batch", "act_seq", "act_heads", None), rules)
     o = L.attention(q, k, v, causal=True, chunk=attn_chunk,
                     use_kernel=use_kernel)
-    return x + o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    o = constrain(o.reshape(B, S, cfg.n_heads * cfg.hd), None,
+                  ("batch", "act_seq", "act_heads"), rules)
+    return constrain(x + o @ p["wo"], None, ACT, rules)
 
 
-def _ffn_fwd(cfg, p, x, ffn_kind, moe_impl):
-    """The MoE or SwiGLU sublayer: (x with the residual added, the
-    router's aux loss or 0.0)."""
+def _ffn_fwd(cfg, p, x, ffn_kind, moe_impl, rules=None):
+    """The MoE or SwiGLU sublayer: (x with the residual added, laid out as
+    the activations, and the router's aux loss or 0.0)."""
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     if ffn_kind == "moe":
         y, aux = L.moe(h, p, cfg.moe.top_k, cfg.moe.capacity_factor,
                        impl=moe_impl)
     else:
         y, aux = L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
-    return x + y, aux
+    return constrain(x + y, None, ACT, rules), aux
 
 
 def forward_hidden(cfg, params, batch, *, moe_impl="einsum", attn_chunk=1024,
-                   use_kernel: bool = False, **_):
+                   use_kernel: bool = False, rules=None, **_):
     """Embed + every period + the final norm. Returns (hidden [B,S,d], the
     aux loss summed over the MoE sublayers, f32). ``use_kernel``: the
     attention's flash kernel on a CUDA tensor (the prefill; never under
     grad). With ``cfg.remat`` under grad mode each sublayer and each period
     runs under a checkpoint that keeps only its input, as the reference's
     two ``jax.checkpoint``s."""
-    x = embed_tokens(params, batch["tokens"])
+    x = constrain(embed_tokens(params, batch["tokens"]), None, ACT, rules)
     positions = _positions(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def sublayer(mixer, ffn, x, b):
         if mixer == "attn":
-            x = _attn_fwd(cfg, b["attn"], x, attn_chunk, use_kernel)
+            x = _attn_fwd(cfg, b["attn"], x, attn_chunk, use_kernel, rules)
         else:
-            x = M2.mixer_forward(cfg, b["mamba"], x)
-        return _ffn_fwd(cfg, b[ffn], x, ffn, moe_impl)
+            x = M2.mixer_forward(cfg, b["mamba"], x, rules)
+        return _ffn_fwd(cfg, b[ffn], x, ffn, moe_impl, rules)
 
     def period(x, p):
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = on_mesh_of(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
         for i, (mixer, ffn) in enumerate(positions):
             args = (mixer, ffn, x, p[f"pos{i}"])
             x, a = (checkpoint(sublayer, *args, use_reentrant=False) if remat
@@ -183,29 +201,30 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def decode_step(cfg, params, state, batch, *, length: int,
-                moe_impl="einsum", **_):
+                moe_impl="einsum", rules=None, **_):
     """One token for every sequence: the attention's new K/V row written at
     ``length`` and the mixers' states, each in the period's view of the
-    stacked ``state`` (in place). Returns (logits [B,1,Vp] f32, the
-    state)."""
-    x = embed_tokens(params, batch["token"])
+    stacked ``state`` (in place; on a mesh into each rank's shard).
+    Returns (logits [B,1,Vp] f32, the state)."""
+    x = constrain(embed_tokens(params, batch["token"]), None, ACT, rules)
     positions = _positions(cfg)
     B = x.shape[0]
     for j, p in enumerate(unstack(params["blocks"])):
         for i, (mixer, ffn) in enumerate(positions):
             b, st = p[f"pos{i}"], state[f"pos{i}"]
             if mixer == "attn":
-                q, k, v = _qkv(cfg, b["attn"], x)
+                q, k, v = _qkv(cfg, b["attn"], x, rules, split_kv=False)
                 cache = L.cache_update(L.KVCache(st[0][j], st[1][j],
                                                  int(length)), k, v)
                 o = L.decode_attention(q, cache)
-                x = x + o.reshape(B, 1, cfg.n_heads * cfg.hd) \
-                    @ b["attn"]["wo"]
+                x = constrain(x + o.reshape(B, 1, cfg.n_heads * cfg.hd)
+                              @ b["attn"]["wo"], None, ACT, rules)
             else:
                 x, new = M2.mixer_decode(cfg, b["mamba"], x,
-                                         M2.SSMState(*(t[j] for t in st)))
+                                         M2.SSMState(*(t[j] for t in st)),
+                                         rules)
                 M2.write_state(st, j, new)
-            x, _ = _ffn_fwd(cfg, b[ffn], x, ffn, moe_impl)
+            x, _ = _ffn_fwd(cfg, b[ffn], x, ffn, moe_impl, rules)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
     return logits, state

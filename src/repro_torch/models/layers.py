@@ -639,8 +639,10 @@ def _experts_on_mesh(experts, x, topk_idx, topk_p, kmask, w, E: int,
     each expert weight keeps its sharding of E (dim 0: expert parallel,
     the rank's own experts) or of f (tensor parallel inside every
     expert) on the mesh dims that do
-    not shard the tokens, and is gathered whole on those that do (FSDP's
-    embed dim). So no rank runs an expert or a slice of f twice, and
+    not shard the tokens, and is gathered whole on those that do and
+    wherever it shards d (FSDP's embed dim, which a decode batch that the
+    data axes do not divide leaves sharded beside replicated tokens). So
+    no rank runs an expert or a slice of f twice, and
     DTensor, which has no strategy for a sort's indices into another
     tensor's shards, runs none of it. A rank holding a part of the
     experts or of f returns its part of y, a partial sum over those mesh
@@ -657,8 +659,10 @@ def _experts_on_mesh(experts, x, topk_idx, topk_p, kmask, w, E: int,
     topk_idx, topk_p, kmask = (t.redistribute(mesh, tok_pl)
                                for t in (topk_idx, topk_p, kmask))
     w_pl, w_grad_pl = [], []
-    for t in w:
-        pl = tuple(pw if pt == Replicate() else Replicate()
+    # d is dim 1 of w_gate_e and w_up_e [E, d, f], dim 2 of w_down_e
+    for t, d_dim in zip(w, (1, 1, 2)):
+        pl = tuple(pw if pt == Replicate() and pw != Shard(d_dim)
+                   else Replicate()
                    for pt, pw in zip(tok_pl, t.placements))
         w_pl.append(pl)
         w_grad_pl.append(tuple(Partial() if pt == Shard(0) else pw
@@ -702,13 +706,39 @@ def moe(x, params, top_k: int, capacity_factor: float = 1.0,
 def causal_conv1d(x, w):
     """x: [B,S,D]; w: [K,D] depthwise. Causal: output[t] uses x[t-K+1..t].
     The reference's K-term loop in x's dtype, in its order (in bf16 each
-    product and partial sum rounds; ``F.conv1d`` sums in another order)."""
+    product and partial sum rounds; ``F.conv1d`` sums in another order).
+    On a mesh per rank under ``local_map`` (``_per_channel_on_mesh``):
+    torch 2.11's DTensor fails to redistribute for ``F.pad``."""
+    if _is_dtensor(x):
+        return _per_channel_on_mesh(causal_conv1d, x, w)
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for i in range(K):
         out = out + xp[:, i:i + S, :] * w[i]
     return out
+
+
+def _per_channel_on_mesh(fn, x, w):
+    """``fn(x, w)`` of DTensors for an ``fn`` that works sequence by
+    sequence and channel by channel (the depthwise conv): x [B,S,D] laid
+    out by batch and channels (the sequence whole), w [K,D] sliced as x's
+    channels (a local chunk where it is replicated). The output is laid
+    out as x; w's gradient is a partial sum over the batch's shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl = tuple(x.placements)
+    if any(p not in (Shard(0), Shard(2), Replicate()) for p in x_pl):
+        raise ValueError("the conv on a mesh takes x sharded by batch and "
+                         f"channels, not {x.placements}")
+    w_pl = tuple(Shard(1) if p == Shard(2) else Replicate() for p in x_pl)
+    w = w.redistribute(w.device_mesh, w_pl)
+    w_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(x_pl, w_pl))
+    return local_map(fn, out_placements=list(x_pl),
+                     in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad),
+                     device_mesh=x.device_mesh)(x, w)
 
 
 def causal_conv1d_update(state, x_new, w):

@@ -13,6 +13,11 @@ flash-kernel launch on a CUDA tensor under ``use_kernel=True`` (the
 prefill); the loss takes the plain attention, since the kernel has no
 backward. The decoder's self K/V cache is written in place; the cross
 K/V (``precompute_cross``) is read whole at every step.
+
+On a mesh (the bundle's ``rules``) the sinusoids join the activations'
+mesh, each layer's end is laid out as the reference's ``constrain``s lay
+it out, and so is each attention's residual (the tensor-parallel
+all-reduce), in decode too; the projections go through ``project``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import Spec, unstack
-from repro_torch.models.transformer import embed_tokens
+from repro_torch.models.transformer import ACT, _heads, embed_tokens
+from repro_torch.parallel.sharding import constrain, on_mesh_of, project
 
 
 def sinusoidal(n: int, d: int, device=None):
@@ -76,55 +82,71 @@ def param_specs(cfg, vocab_padded: int, dtype=torch.bfloat16) -> dict:
 
 
 def _mha(cfg, p, xq, xkv, *, causal, prefix="", chunk=1024,
-         use_kernel=False):
+         use_kernel=False, rules=None):
+    """Attention of xq over xkv, its output projected. On a mesh each
+    projection goes through ``project`` (whisper-tiny's 6 heads do not
+    divide a model axis of 16: the contraction is split instead) and is
+    laid out by heads before the view into them (``transformer._heads``)."""
     B, Sq, _ = xq.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = (xq @ p[f"{prefix}wq"]).reshape(B, Sq, H, hd)
-    k = (xkv @ p[f"{prefix}wk"]).reshape(B, xkv.shape[1], H, hd)
-    v = (xkv @ p[f"{prefix}wv"]).reshape(B, xkv.shape[1], H, hd)
+    q = _heads(project(xq, p[f"{prefix}wq"]), H, hd, "act_heads", rules)
+    k = _heads(project(xkv, p[f"{prefix}wk"]), H, hd, "act_heads", rules)
+    v = _heads(project(xkv, p[f"{prefix}wv"]), H, hd, "act_heads", rules)
     o = L.attention(q, k, v, causal=causal, chunk=chunk,
                     use_kernel=use_kernel)
-    return o.reshape(B, Sq, H * hd) @ p[f"{prefix}wo"]
+    o = constrain(o.reshape(B, Sq, H * hd), None,
+                  ("batch", "act_seq", "act_heads"), rules)
+    return project(o, p[f"{prefix}wo"])
 
 
-def _mlp(cfg, p, x):
+def _mlp(cfg, p, x, rules=None):
     h = L.layer_norm(x, p["mlp_ln_s"], p["mlp_ln_b"], cfg.norm_eps)
-    return x + L.gelu_mlp(h, p["w_up"], p["b_up"], p["w_down"], p["b_down"])
+    return constrain(x + L.gelu_mlp(h, p["w_up"], p["b_up"], p["w_down"],
+                                    p["b_down"]), None, ACT, rules)
 
 
-def encode(cfg, params, frames, *, use_kernel: bool = False):
+def _sinusoid_rows(n: int, d: int, like):
+    """``sinusoidal(n, d)`` in ``like``'s dtype, on its mesh."""
+    return on_mesh_of(sinusoidal(n, d, like.device).to(like.dtype), like)
+
+
+def encode(cfg, params, frames, *, use_kernel: bool = False, rules=None):
     """frames: [B, F, d] (the stub frontend's output) -> [B, F, d]."""
-    x = frames + sinusoidal(frames.shape[1], cfg.d_model,
-                            frames.device).to(frames.dtype)
+    x = frames + _sinusoid_rows(frames.shape[1], cfg.d_model, frames)
     for p in unstack(params["encoder"]):
         h = L.layer_norm(x, p["ln_s"], p["ln_b"], cfg.norm_eps)
-        x = x + _mha(cfg, p, h, h, causal=False, use_kernel=use_kernel)
-        x = _mlp(cfg, p, x)
+        x = constrain(x + _mha(cfg, p, h, h, causal=False,
+                               use_kernel=use_kernel, rules=rules),
+                      None, ACT, rules)
+        x = _mlp(cfg, p, x, rules)
     return L.layer_norm(x, params["enc_ln_f_s"], params["enc_ln_f_b"],
                         cfg.norm_eps)
 
 
 def forward_hidden(cfg, params, batch, *, attn_chunk=1024,
-                   use_kernel: bool = False, **_):
+                   use_kernel: bool = False, rules=None, **_):
     """The decoder over ``batch["tokens"]`` with cross-attention to the
     encoded ``batch["frames"]``. Returns (hidden [B,S,d], 0.0: no aux
     loss). With ``cfg.remat`` under grad mode each decoder layer runs
     under a checkpoint that keeps only its input (the reference
     checkpoints the decoder's scan body, not the encoder's)."""
-    enc = encode(cfg, params, batch["frames"], use_kernel=use_kernel)
+    enc = encode(cfg, params, batch["frames"], use_kernel=use_kernel,
+                 rules=rules)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = embed_tokens(params, tokens)
-    x = x + sinusoidal(S, cfg.d_model, x.device).to(x.dtype)
+    x = constrain(x + _sinusoid_rows(S, cfg.d_model, x), None, ACT, rules)
 
     def layer(x, p):
         h = L.layer_norm(x, p["ln_s"], p["ln_b"], cfg.norm_eps)
-        x = x + _mha(cfg, p, h, h, causal=True, chunk=attn_chunk,
-                     use_kernel=use_kernel)
+        x = constrain(x + _mha(cfg, p, h, h, causal=True, chunk=attn_chunk,
+                               use_kernel=use_kernel, rules=rules),
+                      None, ACT, rules)
         h = L.layer_norm(x, p["x_ln_s"], p["x_ln_b"], cfg.norm_eps)
-        x = x + _mha(cfg, p, h, enc, causal=False, prefix="x_",
-                     chunk=attn_chunk, use_kernel=use_kernel)
-        return _mlp(cfg, p, x)
+        x = constrain(x + _mha(cfg, p, h, enc, causal=False, prefix="x_",
+                               chunk=attn_chunk, use_kernel=use_kernel,
+                               rules=rules), None, ACT, rules)
+        return _mlp(cfg, p, x, rules)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for p in unstack(params["decoder"]):
@@ -148,21 +170,23 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "cross_k": z(cfg.encoder_seq), "cross_v": z(cfg.encoder_seq)}
 
 
-def precompute_cross(cfg, params, frames, *, use_kernel: bool = False):
+def precompute_cross(cfg, params, frames, *, use_kernel: bool = False,
+                     rules=None):
     """The encoder pass and every decoder layer's cross K/V: ([L, B, F, H,
-    hd], [L, B, F, H, hd])."""
-    enc = encode(cfg, params, frames, use_kernel=use_kernel)
-    B, Fr, _ = enc.shape
+    hd], [L, B, F, H, hd]); on a mesh laid out by batch and heads, as
+    ``ModelBundle.serve_state_pspecs`` lays out the cross K/V."""
+    enc = encode(cfg, params, frames, use_kernel=use_kernel, rules=rules)
     H, hd = cfg.n_heads, cfg.hd
     ks, vs = [], []
     for p in unstack(params["decoder"]):
         h = L.layer_norm(enc, p["x_ln_s"], p["x_ln_b"], cfg.norm_eps)
-        ks.append((h @ p["x_wk"]).reshape(B, Fr, H, hd))
-        vs.append((h @ p["x_wv"]).reshape(B, Fr, H, hd))
+        ks.append(_heads(project(h, p["x_wk"]), H, hd, "act_heads", rules))
+        vs.append(_heads(project(h, p["x_wv"]), H, hd, "act_heads", rules))
     return torch.stack(ks), torch.stack(vs)
 
 
-def decode_step(cfg, params, state, batch, *, length: int, **_):
+def decode_step(cfg, params, state, batch, *, length: int, rules=None,
+                **_):
     """One token for every sequence at position ``length``: its self K/V row
     written there (in place), attended with the rows before it, then
     cross-attention over every row of the cross K/V. Returns (logits
@@ -175,24 +199,27 @@ def decode_step(cfg, params, state, batch, *, length: int, **_):
     idx = int(length)
     idx = min(max(idx + T if idx < 0 else idx, 0), T - 1)
     x = embed_tokens(params, token)
-    x = x + sinusoidal(T, cfg.d_model, x.device)[idx][None, None].to(x.dtype)
+    row = sinusoidal(T, cfg.d_model, x.device)[idx][None, None]
+    x = constrain(x + on_mesh_of(row.to(x.dtype), x), None, ACT, rules)
     F_ = state["cross_k"].shape[2]
     for i, p in enumerate(unstack(params["decoder"])):
         h = L.layer_norm(x, p["ln_s"], p["ln_b"], cfg.norm_eps)
-        q = (h @ p["wq"]).reshape(B, 1, H, hd)
-        k = (h @ p["wk"]).reshape(B, 1, H, hd)
-        v = (h @ p["wv"]).reshape(B, 1, H, hd)
+        q = _heads(project(h, p["wq"]), H, hd, "act_heads", rules)
+        k = _heads(project(h, p["wk"]), H, hd, "act_heads", rules)
+        v = _heads(project(h, p["wv"]), H, hd, "act_heads", rules)
         cache = L.cache_update(L.KVCache(state["self_k"][i],
                                          state["self_v"][i], int(length)),
                                k, v)
         o = L.decode_attention(q, cache)
-        x = x + o.reshape(B, 1, H * hd) @ p["wo"]
+        x = constrain(x + project(o.reshape(B, 1, H * hd), p["wo"]),
+                      None, ACT, rules)
         h = L.layer_norm(x, p["x_ln_s"], p["x_ln_b"], cfg.norm_eps)
-        q = (h @ p["x_wq"]).reshape(B, 1, H, hd)
+        q = _heads(project(h, p["x_wq"]), H, hd, "act_heads", rules)
         o = L.decode_attention(q, L.KVCache(state["cross_k"][i],
                                             state["cross_v"][i], F_))
-        x = x + o.reshape(B, 1, H * hd) @ p["x_wo"]
-        x = _mlp(cfg, p, x)
+        x = constrain(x + project(o.reshape(B, 1, H * hd), p["x_wo"]),
+                      None, ACT, rules)
+        x = _mlp(cfg, p, x, rules)
     x = L.layer_norm(x, params["dec_ln_f_s"], params["dec_ln_f_b"],
                      cfg.norm_eps)
     logits = (x @ params["embed"].T).float()

@@ -1,7 +1,7 @@
-"""The port's dry run (``launch.dryrun``) and the dense LM on DTensors
+"""The port's dry run (``launch.dryrun``) and every LM family on DTensors
 against the JAX reference.
 
-Three subprocesses start together when the module's fixture first runs:
+The subprocesses start together when the module's fixture first runs:
 
 * ``REFERENCE``: the reference's mini cells of ``tests/test_dryrun_mini.py``
   (8 forced host devices, reduced tinyllama with ``remat=True``,
@@ -24,21 +24,31 @@ Three subprocesses start together when the module's fixture first runs:
   rules (``use_fsdp=True``: weights sharded over the data axis too, the
   gradients reduce-scattered onto them); all gathered whole on rank 0.
 
-The MoE and VLM families ride in the same processes: ``REFERENCE`` and
-``PORT`` also run the mini cells of ``FAMILY_CELLS`` (reduced granite-moe's
-``train_4k`` and ``decode_32k`` and reduced qwen2-vl's ``train_4k`` on
-(2, 4), the experts over the model axis; and granite-moe with 6 experts,
-which 4 does not divide, so the experts' f is split instead, the layout
-full-width granite-moe takes on (16, 16)), and each ``WORKER`` runs the
-``FAMILIES`` after tinyllama on the same (2, 2) mesh: reduced granite-moe
-with the einsum and the gather dispatch, reduced qwen2-vl (its prompt
-text, a 2 × 2 image block at 3-D positions, then text) and granite-moe
-with 3 experts (f split over the model axis) with both dispatches, each
-with the same loss,
-gradients, adamw step, prefill and decode steps, and the router's picks
-of every call on every rank; and it checks that a mesh bundle of the SSM,
-hybrid and audio families still raises (in this process, in a fake
-world).
+The other families ride in the same processes: ``REFERENCE`` and
+``PORT`` also run the mini cells of ``FAMILY_CELLS`` on (2, 4) (reduced
+granite-moe's ``train_4k`` and ``decode_32k``, the experts over the model
+axis, and with 6 experts, which 4 does not divide, so the experts' f is
+split, the layout full-width granite-moe takes on (16, 16); reduced
+qwen2-vl's ``train_4k``; reduced mamba2's ``train_4k`` and
+``decode_32k``, its heads over the model axis, and at head_dim 64, whose
+2 heads 4 does not divide, so d_inner is split by columns, the layout of
+mamba2-130m on (16, 16); reduced whisper's two cells, and again at 6
+heads, which 4 does not divide, so its projections' contraction is
+split, the layout of whisper-tiny on (16, 16); jamba's ``decode_32k``),
+and each ``WORKER`` runs the ``FAMILIES`` after
+tinyllama on the same (2, 2) mesh: granite-moe with the einsum and the
+gather dispatch, qwen2-vl (its prompt text, a 2 × 2 image block at 3-D
+positions, then text), granite-moe with 3 experts (f split) with both
+dispatches, mamba2 (8 heads, and 3 heads of 64 at expand 3: 1.5 heads a
+rank), jamba with both dispatches and whisper (4 heads, and 3, which 2
+does not divide), each with the same loss, gradients, adamw step (one
+microbatch for mamba2, jamba and whisper), prefill and decode steps
+(mamba2, jamba and whisper from the zero state, whose leaves are
+compared), and the router's picks of every call on every rank. In this
+process, while they run: the plain path and the jitted reference of the
+same computations; ``serve_state_pspecs`` against the decode state's
+tree for every arch, the SSD scan by columns, and jamba's decode under
+FSDP rules with whole tokens, traced in a fake world.
 
 Held: (a) each cell's ``memory.argument_bytes`` equal to the reference's,
 its per-device flops at a port/reference ratio in [0.9, 1.1] (or, for a
@@ -49,8 +59,10 @@ reduce-scatter in the train cells; both collective totals are printed.
 the reference's compiled HLO. (c) The 4-rank values within
 an f32 relative L2 distance of 1e-5 of the plain port path (one process,
 no mesh) and of the jitted reference (the gather dispatch against the
-reference's einsum, whose gather has faults the port does not copy), and
-every rank's picks equal to the plain path's. (d) The kv heads that a rank's
+reference's einsum, whose gather has faults the port does not copy; the
+reference's gradients of mamba2, jamba and whisper at 1e-4, and their
+steps where the reference's gradient reaches ``STEP_GRAD_FLOOR``),
+and every rank's picks equal to the plain path's. (d) The kv heads that a rank's
 local q heads read (``layers.select_kv_heads``), on the plain route: each
 rank's local attention equals its heads of the whole attention.
 """
@@ -73,13 +85,15 @@ from repro.configs.base import get_arch as j_get_arch
 from repro.launch.mesh import make_host_mesh as j_host_mesh
 from repro.models import api as japi
 from repro.models import transformer as JT
+from repro.models import whisper as JW
 from repro.train import optim as joptim
 from repro.train.trainer import make_accum_train_step as j_accum_step
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import ARCH_IDS, ShapeConfig, get_arch
 from repro_torch.launch import steps
 from repro_torch.models import api as tapi
 from repro_torch.models import common
 from repro_torch.models import layers as TL
+from repro_torch.models import whisper as TW
 from repro_torch.models.interop import lm_params_from_numpy
 from repro_torch.train import optim
 from repro_torch.train.trainer import make_accum_train_step
@@ -96,33 +110,110 @@ def key(shape, multi, fsdp):
 ADMM = dict(V=4096, h=64, L=8)
 TRAIN = (4, 32)                     # batch, sequence
 PROMPT, MAX_LEN, N_DECODE = 10, 24, 4
-# the MoE and VLM mini cells: (arch, experts or None for the config's, shape)
+# the other families' mini cells: (arch, variant or None for the reduced
+# config, shape); a variant (``variant_cfg``) "E<n>" sets n experts, "hd<n>"
+# the SSM's head_dim, "H<n>" the heads. granite-moe at E6 (4 does not
+# divide 6: the experts' f split), mamba2 at hd64 (2 heads on 4: the
+# ``ssm_inner`` layout) and whisper at H6 (6 heads on 4: its projections'
+# contraction split, ``sharding.project``) are the layouts granite-moe,
+# mamba2-130m and whisper-tiny take at full width on (16, 16)
 FAMILY_CELLS = (("granite-moe-3b-a800m", None, "train_4k"),
                 ("granite-moe-3b-a800m", None, "decode_32k"),
                 ("qwen2-vl-7b", None, "train_4k"),
-                ("granite-moe-3b-a800m", 6, "train_4k"))
+                ("granite-moe-3b-a800m", "E6", "train_4k"),
+                ("mamba2-130m", None, "train_4k"),
+                ("mamba2-130m", None, "decode_32k"),
+                ("mamba2-130m", "hd64", "train_4k"),
+                ("mamba2-130m", "hd64", "decode_32k"),
+                ("whisper-tiny", None, "train_4k"),
+                ("whisper-tiny", None, "decode_32k"),
+                ("whisper-tiny", "H6", "train_4k"),
+                ("whisper-tiny", "H6", "decode_32k"),
+                ("jamba-v0.1-52b", None, "decode_32k"))
 CONFIG_MODULES = {"tinyllama-1.1b": "tinyllama",
                   "granite-moe-3b-a800m": "granite_moe",
-                  "qwen2-vl-7b": "qwen2_vl"}
+                  "qwen2-vl-7b": "qwen2_vl",
+                  "mamba2-130m": "mamba2_130m",
+                  "whisper-tiny": "whisper_tiny",
+                  "jamba-v0.1-52b": "jamba"}
 
 
-def fkey(arch, experts, shape):
-    return f"{arch}{f'/E{experts}' if experts else ''}/{shape}/0"
+def fkey(arch, variant, shape):
+    return f"{arch}{f'/{variant}' if variant else ''}/{shape}/0"
 
 
-def kv_contractions(hlo: str) -> list:
+def variant_cfg(cfg, variant):
+    """``cfg`` (either package's) with the variant: "E<n>" n experts,
+    "H<n>" n heads (q and kv), "hd<n>" the SSM's head_dim n, "x<e>hd<n>"
+    its expand e too."""
+    import dataclasses
+    import re
+    if not variant:
+        return cfg
+    m = re.fullmatch(r"E(\d+)|H(\d+)|(?:x(\d+))?hd(\d+)", variant)
+    if m[1]:
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=int(m[1])))
+    if m[2]:
+        return dataclasses.replace(cfg, n_heads=int(m[2]),
+                                   n_kv_heads=int(m[2]))
+    ssm = dataclasses.replace(cfg.ssm, head_dim=int(m[4]))
+    if m[3]:
+        ssm = dataclasses.replace(ssm, expand=int(m[3]))
+    return dataclasses.replace(cfg, ssm=ssm)
+
+
+def n_routers(cfg):
+    """The router calls of one forward pass: one an MoE layer."""
+    if cfg.moe is None:
+        return 0
+    if cfg.hybrid_period:
+        moe_at = [i for i in range(cfg.hybrid_period)
+                  if i % cfg.moe.every == 1]
+        return len(moe_at) * (cfg.n_layers // cfg.hybrid_period)
+    return cfg.n_layers
+
+
+def flat_state(tree, prefix="decode_state"):
+    """A decode state's tensors by path (dict keys, tuple positions), the
+    same keys for either package's state."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat_state(tree[k], f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, t in enumerate(tree):
+            out.update(flat_state(t, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
+# the reference's projections whose dots' contracted sizes each family
+# cell records: (module of ``repro.models``, function, the weights read)
+PROJECTIONS = (("transformer", "block_forward", ("wk", "wv")),
+               ("whisper", "_mha", ("wq", "wk", "wv", "wo")),
+               ("whisper", "decode_step", ("wq", "wk", "wv", "wo")))
+
+
+def contractions(hlo: str) -> dict:
     """The sizes contracted by the dots that a compiled reference program
-    (``hlo``, with its stack frames) attributes to the k and v projections
-    of ``repro.models.transformer.block_forward``."""
+    (``hlo``, with its stack frames) attributes to the lines of each of
+    ``PROJECTIONS`` that read its weights, by "module.function"."""
+    import importlib
     import inspect
     import math
     import re
 
     from repro.analysis import hlo as H
-    from repro.models import transformer
-    src, first = inspect.getsourcelines(transformer.block_forward)
-    lines = {first + i for i, line in enumerate(src)
-             if 'p["wk"]' in line or 'p["wv"]' in line}
+    lines = {}
+    for mod, fn, weights in PROJECTIONS:
+        src, first = inspect.getsourcelines(getattr(importlib.import_module(
+            "repro.models." + mod), fn))
+        for i, line in enumerate(src):
+            if any(f'{w}"]' in line for w in weights):
+                lines[(f"models/{mod}.py", first + i)] = f"{mod}.{fn}"
     tab, sec = {}, None
     for line in hlo.splitlines():
         if line in ("FileNames", "FileLocations", "StackFrames"):
@@ -139,54 +230,96 @@ def kv_contractions(hlo: str) -> list:
                       tab["FileLocations"][loc[1]])
         return tab["FileNames"][m[1]].strip('"'), int(m[2])
 
-    out = set()
+    out = {}
     for comp in H._split_computations(hlo).values():
         for op in comp.ops:
             frame = re.search(r"stack_frame_id=(\d+)", op.line)
             if op.kind != "dot" or not frame:
                 continue
             path, line = where(frame[1])
-            if path.endswith("models/transformer.py") and line in lines:
+            name = lines.get(("models/" + path.rsplit("models/", 1)[-1],
+                              line))
+            if name:
                 lhs = comp.symbols[H._OPERAND_RE.findall(op.args)[0]][0][1]
                 dims = re.search(r"lhs_contracting_dims=\{([\d,]*)\}",
                                  op.line)[1]
-                out.add(math.prod(lhs[int(i)] for i in dims.split(",")))
-    return sorted(out)
+                out.setdefault(name, set()).add(
+                    math.prod(lhs[int(i)] for i in dims.split(",")))
+    return {k: sorted(v) for k, v in out.items()}
 
 
-def use_config(module, experts=None):
+def use_config(module, variant=None):
     """Set an arch's config module (of either package) to its reduced
-    config with remat, with ``experts`` experts if given."""
+    config with remat, in ``variant`` (``variant_cfg``) if given."""
     import dataclasses
     module.PUBLISHED = getattr(module, "PUBLISHED", module.CONFIG)
-    cfg = dataclasses.replace(module.PUBLISHED.reduced(), remat=True)
-    if experts:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=experts))
-    module.CONFIG = cfg
+    module.CONFIG = variant_cfg(dataclasses.replace(
+        module.PUBLISHED.reduced(), remat=True), variant)
 
 
-# the gloo world's families: name -> (arch, experts or None, dispatch,
-# the data (and reference) of the family named)
+# the gloo world's families: name -> (arch, variant or None, dispatch,
+# the data (and reference) of the family named). On (2, 2) mamba2's 8
+# heads take the ``ssm_heads`` layout; its variant x3hd64 (3 heads of 64,
+# d_inner 192) the ``ssm_inner`` layout, each rank 1.5 heads, as
+# mamba2-130m's 24 heads on 16 ranks; whisper's variant H3 (3 heads, which
+# 2 does not divide) its projections' split contraction, as whisper-tiny's
+# 6 heads on 16
 FAMILIES = {"granite-moe": ("granite-moe-3b-a800m", None, "einsum",
                             "granite-moe"),
             "granite-moe-gather": ("granite-moe-3b-a800m", None, "gather",
                                    "granite-moe"),
             "qwen2-vl": ("qwen2-vl-7b", None, "einsum", "qwen2-vl"),
-            "granite-moe-e3": ("granite-moe-3b-a800m", 3, "einsum",
+            "granite-moe-e3": ("granite-moe-3b-a800m", "E3", "einsum",
                                "granite-moe-e3"),
-            "granite-moe-e3-gather": ("granite-moe-3b-a800m", 3, "gather",
-                                      "granite-moe-e3")}
-# cells whose per-device flops ratio port/reference lies outside [0.9, 1.1],
-# with the ratio measured: XLA leaves qwen2-vl's k and v projections whole
-# on every model rank (their forward dots contract all of d_model in the
-# reference's HLO) where the port splits the contraction
+            "granite-moe-e3-gather": ("granite-moe-3b-a800m", "E3", "gather",
+                                      "granite-moe-e3"),
+            "mamba2": ("mamba2-130m", None, "einsum", "mamba2"),
+            "mamba2-x3hd64": ("mamba2-130m", "x3hd64", "einsum",
+                              "mamba2-x3hd64"),
+            "jamba": ("jamba-v0.1-52b", None, "einsum", "jamba"),
+            "jamba-gather": ("jamba-v0.1-52b", None, "gather", "jamba"),
+            "whisper": ("whisper-tiny", None, "einsum", "whisper"),
+            "whisper-h3": ("whisper-tiny", "H3", "einsum", "whisper-h3")}
+# the families whose prefill is the forward pass (no state) and whose
+# decode starts from the zero state (whisper's cross K/V precomputed)
+SEQ_FAMILIES = ("ssm", "hybrid", "audio")
+
+
+def step_microbatches(cfg):
+    """The adamw step's microbatches: 1 for ``SEQ_FAMILIES`` (the
+    reference's step is then its adamw update of the gradients it already
+    jitted, and compiles no second backward pass), else 2."""
+    return 1 if cfg.family in SEQ_FAMILIES else 2
+
+
+# Adam's first step moves an element by lr·g/(|g| + eps), here 1e-3·g/(|g|
+# + 1e-8): near g = 0 it multiplies the gradient's rounding error by lr/eps
+# = 1e5. ``SEQ_FAMILIES``' steps are compared on the elements whose
+# reference gradient is at least STEP_GRAD_FLOOR = 30·eps in magnitude.
+# Readings (the gloo world against the plain path, the worst leaf): with
+# every element 2.6e-5 (jamba's A_log, an element of |g| 1.1e-9); from 3·eps
+# 1.1e-5, 10·eps 3.6e-6, 30·eps 4.5e-7 (the reference: 4.1e-7). 30·eps
+# leaves out 12,917 of jamba's 437,224 step elements (10,176 of them exact
+# zeros: the embedding rows of tokens absent from the batch), 538 of
+# mamba2's 72,432, 245 of whisper's 182,528
+STEP_GRAD_FLOOR = 3e-7
+
+
+# cells whose per-device flops ratio port/reference lies outside [0.9, 1.1]:
+# (the ratio measured, the projections of ``PROJECTIONS`` read, the sizes
+# their dots contract in the reference's HLO). XLA leaves qwen2-vl's k and
+# v projections whole on every model rank (their dots contract all of
+# d_model, 64) and whisper's at 6 heads on 4 (d_model 64 into q, k, v and
+# H·hd 96 into the output) where the port splits the contraction
 # (``sharding.project``); why XLA splits them at tinyllama's head_dim 16
 # and not at qwen2-vl's 32 is not known
-FLOPS_OUTSIDE_BAND = {"qwen2-vl-7b/train_4k/0": 0.8684}
+FLOPS_OUTSIDE_BAND = {
+    "qwen2-vl-7b/train_4k/0": (0.8684, "transformer.block_forward", [64]),
+    "whisper-tiny/H6/train_4k/0": (0.5145, "whisper._mha", [64, 96]),
+    "whisper-tiny/H6/decode_32k/0": (0.5588, "whisper.decode_step",
+                                     [64, 96])}
 # VLM positions: the train rows' text, image block side, text; the prompt's
 VLM_TRAIN, VLM_PROMPT = (8, 4), (3, 2)
-STILL_UNMESHED = ("mamba2-130m", "jamba-v0.1-52b", "whisper-tiny")
 
 REFERENCE = r"""
 import os
@@ -216,15 +349,15 @@ for bits in (0, 8):
     compiled, meta = D.lower_admm_cell(False, bits=bits, **ADMM)
     out[f"admm/{bits}"] = D.cell_stats(compiled, meta, 8)["collectives"]
 import importlib
-for arch, experts, shape in FAMILY_CELLS:
+for arch, variant, shape in FAMILY_CELLS:
     use_config(importlib.import_module("repro.configs." +
-                                       CONFIG_MODULES[arch]), experts)
+                                       CONFIG_MODULES[arch]), variant)
     compiled, meta = D.lower_cell(arch, shape, False)
     st = D.cell_stats(compiled, meta, 8)
-    out[fkey(arch, experts, shape)] = {k: st[k] for k in
+    out[fkey(arch, variant, shape)] = {k: st[k] for k in
                                       ("flops_per_device", "memory",
                                        "collectives")}
-    out[fkey(arch, experts, shape)]["kv_contract"] = kv_contractions(
+    out[fkey(arch, variant, shape)]["contract"] = contractions(
         compiled.as_text())
 print(json.dumps(out))
 """
@@ -258,12 +391,12 @@ for bits in json.loads(sys.argv[2]):
     program, meta = D.lower_admm_cell(False, bits=bits, **ADMM)
     out[f"admm/{bits}"] = D.cell_stats(program, meta, 8)["collectives"]
 import importlib
-for arch, experts, shape in json.loads(sys.argv[3]):
+for arch, variant, shape in json.loads(sys.argv[3]):
     use_config(importlib.import_module("repro_torch.configs." +
-                                       CONFIG_MODULES[arch]), experts)
+                                       CONFIG_MODULES[arch]), variant)
     program, meta = D.trace_cell(arch, shape, False)
     st = D.cell_stats(program, meta, 8)
-    out[fkey(arch, experts, shape)] = {k: st[k] for k in
+    out[fkey(arch, variant, shape)] = {k: st[k] for k in
                                       ("flops_per_device", "memory",
                                        "collectives", "trace_s")}
 print(json.dumps(out))
@@ -390,9 +523,10 @@ res["fsdp/prefill"] = full(logits)
 if rank == 0:
     np.savez(out, **res)
 
-# the MoE and VLM families: loss, gradients, adamw step, prefill, decode,
-# and each router call's picks on every rank (its rows' offset beside them)
+# the other families: loss, gradients, adamw step, prefill, decode, and
+# each router call's picks on every rank (its rows' offset beside them)
 from repro_torch.models import layers as L
+from repro_torch.models import whisper
 from repro_torch.models.layers import _offset
 picks, real_router = [], L._router
 
@@ -403,22 +537,20 @@ def router(x, w, k):
     return out
 
 L._router = router
-for name, (arch, experts, impl, fdata, fout) in json.loads(
+for name, (arch, variant, impl, fdata, fout) in json.loads(
         sys.argv[5]).items():
     d = dict(np.load(fdata))
-    cfg = get_arch(arch).reduced()
-    if experts:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=experts))
-    vlm = "positions" in d
+    cfg = variant_cfg(get_arch(arch).reduced(), variant)
+    seq = cfg.family in SEQ_FAMILIES
+    extra = [k for k in ("positions", "frames") if k in d]
     B, S = d["tokens"].shape
     tshape = ShapeConfig("t", S, B, "train")
     tb = build(cfg, mesh, tshape, dtype=torch.float32, attn_chunk=16,
                moe_impl=impl)
     params = tb.distribute(lm_params_from_numpy(unflatten(d), device="cpu"),
                            tb.param_pspecs())
-    keys = ["tokens", "targets"] + (["positions"] if vlm else [])
-    batch = tb.distribute({k: torch.from_numpy(d[k]) for k in keys},
+    batch = tb.distribute({k: torch.from_numpy(d[k]) for k in
+                           ["tokens", "targets"] + extra},
                           tb.input_pspecs(tshape))
     res, picks[:] = {}, []
     loss, grads = steps.value_and_grad(tb, params, batch)
@@ -426,8 +558,8 @@ for name, (arch, experts, impl, fdata, fout) in json.loads(
     res["loss"] = full(loss)
     for path, g in common.leaves(grads):
         res["g/" + "/".join(path)] = full(g)
-    new, _, _ = make_accum_train_step(tb, opt, 2)(params, opt.init(params),
-                                                  batch)
+    new, _, _ = make_accum_train_step(tb, opt, step_microbatches(cfg))(
+        params, opt.init(params), batch)
     for path, p in common.leaves(new):
         res["step/" + "/".join(path)] = full(p)
     prompt = torch.from_numpy(d["prompt"])
@@ -437,27 +569,43 @@ for name, (arch, experts, impl, fdata, fout) in json.loads(
     pb = build(cfg, mesh, pshape, dtype=torch.float32, moe_impl=impl)
     db = build(cfg, mesh, dshape, dtype=torch.float32, moe_impl=impl)
     pbatch = {"tokens": prompt}
-    if vlm:
-        pbatch["positions"] = torch.from_numpy(d["prompt_positions"])
+    for k in extra:
+        pbatch[k] = torch.from_numpy(d[f"prompt_{k}"])
+    pbatch = pb.distribute(pbatch, pb.input_pspecs(pshape))
     n_train = len(picks)
     with torch.no_grad():
-        logits, cache = pb.prefill(params, pb.distribute(
-            pbatch, pb.input_pspecs(pshape)), max_len=T)
+        logits, cache = pb.prefill(params, pbatch, max_len=T)
         res["prefill"] = full(logits)
-        res["prefill_k"] = full(cache.k)
-        cache = lay_out(cache, db.serve_state_pspecs(dshape))
+        if seq:         # decode from the zero state, from position 0
+            cache, start = db.serve_state_shape(dshape), 0
+            if "frames" in extra:
+                pspecs = db.serve_state_pspecs(dshape)
+                for k, t in zip(("cross_k", "cross_v"),
+                                whisper.precompute_cross(
+                                    cfg, params, pbatch["frames"],
+                                    rules=pb.rules)):
+                    t = t.redistribute(mesh, sh.placements(
+                        mesh, pspecs[k], t.ndim))
+                    cache[k].to_local().copy_(t.to_local())
+        else:
+            res["prefill_k"] = full(cache.k)
+            cache = lay_out(cache, db.serve_state_pspecs(dshape))
+            start = prompt.shape[1]
         for i, tok in enumerate(d["decode"]):
             dbatch = {"token": torch.from_numpy(tok)}
-            if vlm:
+            if "positions" in extra:
                 dbatch["positions"] = torch.from_numpy(
                     d["decode_positions"][i])
             logits, cache = db.serve_step(params, cache, db.distribute(
-                dbatch, db.input_pspecs(dshape)), length=prompt.shape[1] + i)
+                dbatch, db.input_pspecs(dshape)), length=start + i)
             res[f"decode/{i}"] = full(logits)
-        res["decode_k"] = full(cache.k)
-    # the loss's forward pass (the first n_layers calls) and the serving's
+        if seq:
+            res.update({k: full(t) for k, t in flat_state(cache).items()})
+        else:
+            res["decode_k"] = full(cache.k)
+    # the loss's forward pass (its first router calls) and the serving's
     serve = picks[n_train:]
-    mine = {"train": picks[:cfg.n_layers], "serve": serve}
+    mine = {"train": picks[:n_routers(cfg)], "serve": serve}
     every = [None] * 4
     dist.all_gather_object(every, mine)
     if rank == 0:
@@ -474,12 +622,8 @@ print("WORKER_OK")
 """
 
 
-def _cfg(arch="tinyllama-1.1b", experts=None):
-    cfg = get_arch(arch).reduced()
-    if experts:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=experts))
-    return cfg
+def _cfg(arch="tinyllama-1.1b", variant=None):
+    return variant_cfg(get_arch(arch).reduced(), variant)
 
 
 def vlm_positions(B, n_text, grid):
@@ -515,6 +659,11 @@ def _data(cfg=None, seed=0):
     d["prompt"] = rng.integers(0, 256, (4, PROMPT), dtype=np.int32)
     d["decode"] = rng.integers(0, 256, (N_DECODE, 4, 1), dtype=np.int32)
     d["max_len"] = np.array(MAX_LEN)
+    if cfg.encoder_seq:
+        d["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        d["prompt_frames"] = rng.standard_normal(
+            (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     if cfg.mrope_sections is not None:
         d["positions"] = vlm_positions(B, *VLM_TRAIN)
         d["prompt_positions"] = vlm_positions(4, *VLM_PROMPT)
@@ -526,9 +675,9 @@ def _data(cfg=None, seed=0):
 def _family_data():
     """Each family's data, by the name of the family whose data it uses."""
     out = {}
-    for arch, experts, _, data in FAMILIES.values():
+    for arch, variant, _, data in FAMILIES.values():
         if data not in out:
-            out[data] = _data(_cfg(arch, experts), seed=1 + len(out))
+            out[data] = _data(_cfg(arch, variant), seed=1 + len(out))
     return out
 
 
@@ -577,8 +726,10 @@ def runs(tmp_path_factory):
               f"FAMILY_CELLS = {FAMILY_CELLS!r}\n"
               f"CONFIG_MODULES = {CONFIG_MODULES!r}\n"
               + inspect.getsource(key) + inspect.getsource(fkey)
+              + inspect.getsource(variant_cfg)
               + inspect.getsource(use_config))
-    ref_consts = consts + inspect.getsource(kv_contractions)
+    ref_consts = (consts + f"PROJECTIONS = {PROJECTIONS!r}\n"
+                  + inspect.getsource(contractions))
     # the port's cells in two processes: the (2, 2, 2) train cell alone
     # takes most of the time (DTensor's sharding search on three mesh dims)
     # and the rest a step down in priority
@@ -589,20 +740,30 @@ def runs(tmp_path_factory):
                              json.dumps(FAMILY_CELLS), nice=5)],
              "ref": _start(ref_consts + REFERENCE, nice=5)}
     init, out = os.path.join(tmp, "pg"), os.path.join(tmp, "out.npz")
-    procs["workers"] = [_start(WORKER, str(r), init, data, out,
+    worker = (f"SEQ_FAMILIES = {SEQ_FAMILIES!r}\n"
+              + inspect.getsource(step_microbatches)
+              + inspect.getsource(variant_cfg) + inspect.getsource(n_routers)
+              + inspect.getsource(flat_state) + WORKER)
+    procs["workers"] = [_start(worker, str(r), init, data, out,
                                json.dumps(fams), nice=5)
                         for r in range(4)]
     state = {"data": d, "family_data": fdata, "out": out, "fams": fams}
-    # the one-process results the gloo world is held to, while it runs
-    state["plain"] = plain_results(d)
-    state["reference"] = reference_results(d)
-    state["family_plain"] = {
-        name: family_plain_results(fdata[data], arch, experts, impl)
-        for name, (arch, experts, impl, data) in FAMILIES.items()}
-    state["family_reference"] = {
-        data: family_reference_results(fdata[data], arch, experts)
-        for arch, experts, impl, data in FAMILIES.values()
-        if impl == "einsum"}
+    # the one-process results the gloo world is held to, while it runs, on
+    # one torch thread (beside eight busy processes, more threads only spin)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state["plain"] = plain_results(d)
+        state["reference"] = reference_results(d)
+        state["family_plain"] = {
+            name: family_plain_results(fdata[data], arch, variant, impl)
+            for name, (arch, variant, impl, data) in FAMILIES.items()}
+        state["family_reference"] = {
+            data: family_reference_results(fdata[data], arch, variant)
+            for arch, variant, impl, data in FAMILIES.values()
+            if impl == "einsum"}
+    finally:
+        torch.set_num_threads(threads)
     yield procs, state
     for p in [procs["ref"]] + procs["port"] + procs["workers"]:
         if p.poll() is None:
@@ -630,12 +791,12 @@ def test_cells_match_the_reference(runs, cell):
     print(cell, "flops port/ref", ratio, "trace s", port["trace_s"])
     print(" collectives port", port["collectives"]["total"])
     print(" collectives ref ", ref["collectives"]["total"])
-    if "kv_contract" in ref:
-        print(" the reference's k/v projection dots contract",
-              ref["kv_contract"])
+    if "contract" in ref:
+        print(" the reference's projection dots contract", ref["contract"])
     if cell in FLOPS_OUTSIDE_BAND:
-        assert round(ratio, 4) == FLOPS_OUTSIDE_BAND[cell], (cell, ratio)
-        assert ref["kv_contract"] == [_cfg(cell.split("/")[0]).d_model]
+        want, where, sizes = FLOPS_OUTSIDE_BAND[cell]
+        assert round(ratio, 4) == want, (cell, ratio)
+        assert ref["contract"][where] == sizes, ref["contract"]
     else:
         assert 0.9 <= ratio <= 1.1, (cell, ratio)
     for k in ("peak_live_bytes", "temp_bytes"):
@@ -784,16 +945,17 @@ class _Picks:
         TL._router = self.real
 
 
-def family_plain_results(d, arch, experts, impl):
+def family_plain_results(d, arch, variant, impl):
     """A family's worker computations through the plain port path, and
     the picks of the loss's forward pass and of the serving's calls."""
-    cfg = _cfg(arch, experts)
+    cfg = _cfg(arch, variant)
+    seq = cfg.family in SEQ_FAMILIES
     tb = tapi.build(cfg, device="cpu", dtype=torch.float32, attn_chunk=16,
                     moe_impl=impl)
     params = lm_params_from_numpy(_params(d), device="cpu")
-    vlm = "positions" in d
+    extra = [k for k in ("positions", "frames") if k in d]
     batch = {k: torch.from_numpy(d[k]) for k in
-             ("tokens", "targets") + (("positions",) if vlm else ())}
+             ["tokens", "targets"] + extra}
     res = {}
     with _Picks() as train:
         loss, grads = steps.value_and_grad(tb, params, batch)
@@ -801,69 +963,98 @@ def family_plain_results(d, arch, experts, impl):
     for path, g in common.leaves(grads):
         res["g/" + "/".join(path)] = g.numpy()
     opt = optim.adamw(1e-3)
-    new, _, _ = make_accum_train_step(tb, opt, 2)(params, opt.init(params),
-                                                  batch)
+    new, _, _ = make_accum_train_step(tb, opt, step_microbatches(cfg))(
+        params, opt.init(params), batch)
     for path, p in common.leaves(new):
         res["step/" + "/".join(path)] = p.numpy()
     prompt = {"tokens": torch.from_numpy(d["prompt"])}
-    if vlm:
-        prompt["positions"] = torch.from_numpy(d["prompt_positions"])
+    for k in extra:
+        prompt[k] = torch.from_numpy(d[f"prompt_{k}"])
     with torch.no_grad(), _Picks() as serve:
         logits, cache = tb.prefill(params, prompt, max_len=MAX_LEN)
         res["prefill"] = logits.numpy()
-        res["prefill_k"] = cache.k.numpy().copy()  # decode writes the cache
+        if seq:
+            cache = tb.serve_state_shape(
+                ShapeConfig("d", MAX_LEN, 4, "decode"))
+            if "frames" in extra:
+                cache["cross_k"], cache["cross_v"] = TW.precompute_cross(
+                    cfg, params, prompt["frames"])
+            start = 0
+        else:
+            res["prefill_k"] = cache.k.numpy().copy()  # decode writes it
+            start = PROMPT
         for i, tok in enumerate(d["decode"]):
             batch = {"token": torch.from_numpy(tok)}
-            if vlm:
+            if "positions" in extra:
                 batch["positions"] = torch.from_numpy(
                     d["decode_positions"][i])
             logits, cache = tb.serve_step(params, cache, batch,
-                                          length=PROMPT + i)
+                                          length=start + i)
             res[f"decode/{i}"] = logits.numpy()
-        res["decode_k"] = cache.k.numpy()
+        if seq:
+            res.update({k: t.numpy() for k, t in flat_state(cache).items()})
+        else:
+            res["decode_k"] = cache.k.numpy()
     return res, {"train": train, "serve": serve}
 
 
-def family_reference_results(d, arch, experts):
+def family_reference_results(d, arch, variant):
     """A family's worker computations through the jitted reference (the
     einsum dispatch: the reference's gather has faults the port does not
     copy, and it decodes MoE with the einsum only)."""
-    jcfg = j_get_arch(arch).reduced()
-    if experts:
-        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
-            jcfg.moe, num_experts=experts))
+    jcfg = variant_cfg(j_get_arch(arch).reduced(), variant)
+    seq = jcfg.family in SEQ_FAMILIES
     B, S = TRAIN
     jb = japi.build(jcfg, j_host_mesh(), JShape("t", S, B, "train"),
                     dtype=jnp.float32, attn_chunk=16)
     params = jax.tree.map(jnp.asarray, _params(d))
-    vlm = "positions" in d
-    batch = {k: jnp.asarray(d[k]) for k in
-             ("tokens", "targets") + (("positions",) if vlm else ())}
+    extra = [k for k in ("positions", "frames") if k in d]
+    batch = {k: jnp.asarray(d[k]) for k in ["tokens", "targets"] + extra}
     res = {}
     loss, grads = jax.jit(jax.value_and_grad(jb.loss))(params, batch)
     res["loss"] = np.asarray(loss)
     for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
         res["g/" + "/".join(k.key for k in path)] = np.asarray(g)
     opt = joptim.adamw(1e-3)
-    new, _, _ = jax.jit(j_accum_step(jb, opt, 2))(params, opt.init(params),
-                                                  batch)
+    if step_microbatches(jcfg) == 1:    # j_accum_step's own 1-microbatch step
+        new, _ = jax.jit(opt.update)(grads, opt.init(params), params)
+    else:
+        new, _, _ = jax.jit(j_accum_step(jb, opt, 2))(
+            params, opt.init(params), batch)
     for path, p in jax.tree_util.tree_flatten_with_path(new)[0]:
         res["step/" + "/".join(k.key for k in path)] = np.asarray(p)
     prompt = {"tokens": jnp.asarray(d["prompt"])}
-    if vlm:
-        prompt["positions"] = jnp.asarray(d["prompt_positions"])
+    for k in extra:
+        prompt[k] = jnp.asarray(d[f"prompt_{k}"])
     logits, cache = jax.jit(lambda p, b: jb.prefill(p, b, MAX_LEN))(
         params, prompt)
-    res["prefill"], res["prefill_k"] = np.asarray(logits), np.asarray(cache.k)
-    step = jax.jit(lambda p, c, b: JT.decode_step(jcfg, jb.mesh, jb.rules, p,
-                                                  c, b))
+    res["prefill"] = np.asarray(logits)
+    if seq:
+        cache = jb.serve_state_shape(JShape("d", MAX_LEN, 4, "decode"))
+        if "frames" in extra:
+            cache = dict(cache, **dict(zip(("cross_k", "cross_v"), jax.jit(
+                lambda p, f: JW.precompute_cross(jcfg, jb.mesh, jb.rules, p,
+                                                 f))(params,
+                                                     prompt["frames"]))))
+        # committed, as the step's outputs are: one compile, not two
+        cache = jax.device_put(cache, jax.devices()[0])
+        step = jax.jit(lambda p, c, b, n: jb.serve_step(p, c, b, length=n))
+        start = 0
+    else:
+        res["prefill_k"] = np.asarray(cache.k)
+        step = jax.jit(lambda p, c, b, n: JT.decode_step(
+            jcfg, jb.mesh, jb.rules, p, c, b))
+        start = PROMPT
     for i, tok in enumerate(d["decode"]):
         batch = {"token": jnp.asarray(tok)}
-        if vlm:
+        if "positions" in extra:
             batch["positions"] = jnp.asarray(d["decode_positions"][i])
-        logits, cache = step(params, cache, batch)
+        logits, cache = step(params, cache, batch, jnp.int32(start + i))
         res[f"decode/{i}"] = np.asarray(logits)
-    res["decode_k"] = np.asarray(cache.k)
+    if seq:
+        res.update({k: np.asarray(t) for k, t in flat_state(cache).items()})
+    else:
+        res["decode_k"] = np.asarray(cache.k)
     return res
 
 
@@ -886,7 +1077,7 @@ def family_reference(runs):
 
 
 @pytest.mark.parametrize("name", [n for n, f in FAMILIES.items()
-                                  if f[0] != "qwen2-vl-7b"])
+                                  if _cfg(*f[:2]).moe is not None])
 def test_four_rank_routes_equal_the_plain_path(family_gloo, family_plain,
                                                name):
     """Every router call's picks on every rank of the (2, 2) mesh (the
@@ -894,7 +1085,7 @@ def test_four_rank_routes_equal_the_plain_path(family_gloo, family_plain,
     plain path's rows they stand for."""
     got, (_, picks) = family_gloo[name], family_plain[name]
     for part, calls in picks.items():
-        assert len(calls) == _cfg(*FAMILIES[name][:2]).n_layers * (
+        assert len(calls) == n_routers(_cfg(*FAMILIES[name][:2])) * (
             1 if part == "train" else 1 + N_DECODE)
         assert f"picks/{part}/{len(calls)}/r0" not in got
         for i, want in enumerate(calls):
@@ -908,31 +1099,107 @@ def test_four_rank_routes_equal_the_plain_path(family_gloo, family_plain,
 @pytest.mark.parametrize("name", list(FAMILIES))
 def test_four_rank_mesh_families_match_plain_and_reference(
         family_gloo, family_plain, family_reference, name):
-    """Loss (aux included), every gradient, one adamw step over 2
-    microbatches, the prefill's logits and K and 4 decode steps of an MoE
-    or VLM family on the (2, 2) gloo mesh: f32 relative L2 ≤ 1e-5 of the
-    plain port path and of the jitted reference (the gather dispatch
-    against the reference's einsum)."""
+    """Loss (aux included), every gradient, one adamw step (over
+    ``step_microbatches``), the prefill's logits (and K for the
+    transformer's families) and 4 decode steps (and the decode state for
+    mamba2, jamba and whisper, which decode from the zero state) of a
+    family on the (2, 2) gloo mesh: f32 relative L2 ≤ 1e-5 of the plain
+    port path and of the jitted reference (the gather dispatch against the
+    reference's einsum); against the reference the gradients of mamba2,
+    jamba and whisper at 1e-4 a leaf, their family tests' tolerance; their
+    steps on the elements whose reference gradient reaches
+    ``STEP_GRAD_FLOOR``."""
     got = {k: v for k, v in family_gloo[name].items()
            if not k.startswith("picks/")}
     plain, ref = family_plain[name][0], family_reference[FAMILIES[name][3]]
+    seq = _cfg(*FAMILIES[name][:2]).family in SEQ_FAMILIES
     assert set(got) == set(plain) == set(ref)
     for k in sorted(got):
         assert got[k].shape == plain[k].shape, k
-        assert _rel(got[k], plain[k]) <= 1e-5, (k, _rel(got[k], plain[k]))
-        assert _rel(got[k], ref[k]) <= 1e-5, (k, _rel(got[k], ref[k]))
+        a, b, r = got[k], plain[k], ref[k]
+        if seq and k.startswith("step/"):
+            keep = np.abs(ref["g/" + k[len("step/"):]]) >= STEP_GRAD_FLOOR
+            a, b, r = a[keep], b[keep], r[keep]
+        assert _rel(a, b) <= 1e-5, (k, _rel(a, b))
+        tol = 1e-4 if seq and k.startswith("g/") else 1e-5
+        assert _rel(a, r) <= tol, (k, _rel(a, r))
 
 
-@pytest.mark.parametrize("arch", STILL_UNMESHED)
-def test_other_families_still_raise_on_a_device_mesh(arch):
-    """The SSM, hybrid and audio families keep raising on a DeviceMesh
-    (their DTensor execution is the next slice), in a fake world of 4."""
-    from repro_torch.launch.mesh import _mk, fake_world
-    with fake_world(4):
-        bundle = tapi.build(get_arch(arch).reduced(),
-                            _mk((2, 2), ("data", "model")))
-        with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
-            bundle.abstract_params()
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_serve_state_pspecs_have_the_state_tree(arch):
+    """``serve_state_pspecs`` mirrors the decode state leaf for leaf, its
+    node types (the ``SSMState`` and KV cache namedtuples) included, for
+    every arch on the single production mesh's rules: ``serve_state_shape``
+    on a mesh maps the two trees together."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.models.common import TensorSpec
+    from repro_torch.parallel.sharding import PSpec
+    shape = SHAPES_BY_NAME["decode_32k"]
+    bundle = tapi.build(get_arch(arch), {"data": 16, "model": 16}, shape,
+                        device="cpu")
+    specs = pytree.tree_structure(bundle.serve_state_specs(shape),
+                                  is_leaf=lambda x: isinstance(x, TensorSpec))
+    pspecs = pytree.tree_structure(bundle.serve_state_pspecs(shape),
+                                   is_leaf=lambda x: isinstance(x, PSpec))
+    assert specs == pspecs, (specs, pspecs)
+
+
+def test_moe_decode_under_fsdp_rules_with_replicated_tokens(monkeypatch):
+    """jamba's decode at a batch that the data axis does not divide
+    (``long_500k``'s single sequence), under its FSDP rules, traced in a
+    fake world of 8 on (2, 4): the tokens stay whole on every rank, and the
+    expert weights' embed dim, sharded over the data axis, is gathered
+    before the experts run (it was kept sharded, and the einsum refused d
+    at 256 of 4096 at full width on (16, 16))."""
+    from repro_torch.configs.base import ShapeConfig as TShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    cfg = dataclasses.replace(_cfg("jamba-v0.1-52b"), use_fsdp=True)
+    shape = TShape("long", 128, 1, "decode")
+    monkeypatch.setattr(D, "get_arch", lambda name: cfg)
+    monkeypatch.setattr(D, "SHAPES_BY_NAME", {"long": shape})
+    monkeypatch.setattr(D, "fake_world", lambda n: M.fake_world(8))
+    monkeypatch.setattr(D, "make_production_mesh", lambda multi_pod=False:
+                        M._mk((2, 4), ("data", "model")))
+    program, meta = D.trace_cell("jamba-v0.1-52b", "long", False)
+    st = D.cell_stats(program, meta, 8)
+    assert st["flops_per_device"] > 0
+    assert st["collectives"]["by_kind"]["all-gather"]["count"] > 0
+
+
+@pytest.mark.parametrize("nh,hd,ranks", [(8, 16, 2), (2, 64, 4), (3, 64, 2),
+                                         (24, 8, 16)])
+def test_ssd_by_columns_equals_the_whole(nh, hd, ranks):
+    """The SSD scan of each rank's columns of d_inner (``mamba2._segments``:
+    whole heads, or parts of heads where a rank's columns start or end
+    inside one) side by side equals the scan of all of them, forward and
+    one decode step: 8 heads on 2 ranks (``ssm_heads``), 2 heads of 64 on 4
+    (half a head a rank), 3 on 2 (1.5 heads a rank), 24 on 16 (mamba2-130m's
+    heads on (16, 16), here of 8 columns)."""
+    from repro_torch.models import mamba2 as TM
+    g = torch.Generator().manual_seed(5)
+    b, l, n, di = 2, 16, 4, nh * hd
+    xs = torch.randn(b, l, di, generator=g)
+    dt = torch.rand(b, l, nh, generator=g)
+    A, D = -torch.rand(nh, generator=g), torch.randn(nh, generator=g)
+    Bs, Cs = torch.randn(b, l, n, generator=g), torch.randn(b, l, n, generator=g)
+    h = torch.randn(b, nh, hd, n, generator=g)
+    whole = TM._ssd_local(xs, dt, A, D, Bs, Cs, hd, 8)
+    hw, yw = TM._ssd_decode_local(h, xs[:, 0], dt[:, 0], A, D, Bs[:, 0],
+                                  Cs[:, 0], hd)
+    w = di // ranks
+    for r in range(ranks):
+        cols = slice(r * w, (r + 1) * w)
+        got = TM._ssd_local(xs[..., cols], dt, A, D, Bs, Cs, hd, 8, r * w)
+        torch.testing.assert_close(got, whole[..., cols], rtol=1e-6,
+                                   atol=1e-6)
+        hr, yr = TM._ssd_decode_local(h, xs[:, 0, cols], dt[:, 0], A, D,
+                                      Bs[:, 0], Cs[:, 0], hd, r * w)
+        torch.testing.assert_close(yr, yw[:, cols], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(hr, hw.reshape(b, di, n)[:, cols],
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("hq,hkv,model", [(8, 2, 4), (8, 4, 4), (12, 4, 3)])
