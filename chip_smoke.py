@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out FILE.json]
-    python3 chip_smoke.py --fista-parent OTHER_TREE/.../csrc/fista_zlast.cu
     python3 chip_smoke.py --decode-ab OTHER_TREE/src [--out FILE.json]
+    python3 chip_smoke.py --ab OTHER_TREE [--out FILE.json]
 
 Run from the repository root on a host with a CUDA card, the CUDA toolkit
 (``nvcc``) and PyTorch built for CUDA. Phases, in order; any failure raises
@@ -299,11 +299,15 @@ and the script exits non-zero without printing a result:
    G-Q with the u wire), the script's wall time, the card (``nvidia-smi``),
    one JSON line with every kernel's numbers, and last the device line.
 
-With ``--fista-parent`` the script builds that file alone (another tree's
-``fista_zlast.cu``, e.g. from a ``git archive`` of the parent commit) and
-only times it against this tree's kernel at phase 2's six ``fista_zlast``
-shapes, in turns (parent, this, this, parent), by device time and by
-events, after checking the two against each other.
+With ``--ab`` the script builds another tree's ``fista_zlast.cu``,
+``admm_pgrad.cu`` and ``pack_codes.cu`` (e.g. a ``git archive`` of the
+parent commit), each alone, and times them against this tree's kernels in
+turns (parent, this, this, parent) by device time per launch and by
+events, at phase 2's six ``fista_zlast`` shapes, its ``admm_pgrad`` shapes
+and every ``unpack_codes`` case, after checking the two versions' outputs
+against each other (unpack bit for bit); then G's and G-Q's ms per
+iteration (as phases 3 and 4 time them) with the other tree's package and
+with this one's, each in a process of its own, in the same turns.
 
 With ``--decode-ab`` the script only times the plain (meshless)
 tinyllama-1.1b and granite-moe-3b-a800m bundles' greedy decode at B 4
@@ -485,6 +489,8 @@ MESH_DRYRUN_DONE = "dryrun.done"   # written once the dry run has exited
 MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 1024, 2
 MESH_REL_L2 = 1e-6             # f32 relative L2 where the bits differ
 MESH_TIMED_TOKENS = 8          # greedy tokens per timed decode run
+AB_ORDER = ("parent", "this", "this", "parent")   # --ab's turns
+AB_TRAIN_RUNS = 3              # samples of 5 iterations per --ab process
 DECODE_AB_RUNS = 4             # timed decode runs per --decode-ab process
 DECODE_AB_ORDER = ("parent", "this", "this", "parent") * 2
 # the dense decode, and the MoE's (its router and dispatch take their
@@ -542,12 +548,17 @@ BLOCK_OBJ_RTOL = 1e-4
 # W-step, so 5 solves' worth of that, with room, is 1e-4
 BLOCK_Z_TOL = 1e-4
 SASS_KERNELS = ("flash", "fused_linear", "admm_pgrad", "resnorm_partials")
-# what the port's kernels' names hold (the grid kernels are
-# elementwise_kernel<..., Project | Encode<...> | Decode>), for the profiles
+# admm_pgrad's widest narrow r (its streaming route's KP = 16)
+NARROW_MAX = 16
+# rows of the skewed-stride unpack cases (each row's streams realigned)
+UNPACK_SKEW_ROWS = 4
+# what the port's kernels' names start with, for the profiles: every
+# __global__ name in the sources starts with one of them
+# (tests/test_torch_kernel_names.py)
 PORT_KERNEL_NAMES = (
     "fused_linear_", "admm_pgrad_", "relu_zupdate_kernel", "fista_zlast_kernel",
-    "resnorm_", "namespace)::Project>", "namespace)::Encode<",
-    "namespace)::Decode>", "pack4_kernel", "pack16_kernel", "flash_bf16_kernel",
+    "resnorm_", "grid_elementwise_kernel", "pack4_kernel", "pack16_kernel",
+    "unpack4_kernel", "unpack16_kernel", "flash_bf16_kernel",
     "flash_f32_kernel")
 SOURCES = {
     "fused_linear": ("src/repro_torch/kernels/csrc/fused_linear.cu",
@@ -590,13 +601,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
+def device_ms(fn, iters: int = 20, tries: int = 5,
+              per_launch: bool = False) -> float:
     """Device time of one call: the self time of every kernel it launches,
     summed by torch.profiler over ``iters`` calls. Unlike ``time_ms`` it
     leaves out the gaps where the device waits for the host, which set
     the event time of the smallest kernels. Every call launches a kernel,
     so a trace that holds fewer than ``iters`` kernels lost some (the
-    profiler has been seen to drop them) and is taken again."""
+    profiler has been seen to drop them) and is taken again. With
+    ``per_launch`` (for a call that launches one kernel) the time is the
+    mean of the kernels the trace holds, at least half of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -610,9 +624,11 @@ def device_ms(fn, iters: int = 20, tries: int = 5) -> float:
         kernels = [ev for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA]
         caught = sum(ev.count for ev in kernels)
+        total = sum(ev.self_device_time_total for ev in kernels) / 1e3
         if caught >= iters:
-            return sum(ev.self_device_time_total
-                       for ev in kernels) / 1e3 / iters
+            return total / iters
+        if per_launch and 2 * caught >= iters:
+            return total / caught
         print(f"  device_ms: the trace holds {caught} kernels for {iters} "
               f"calls; tracing again", flush=True)
     raise AssertionError(f"device_ms: {tries} traces lost kernels")
@@ -737,6 +753,15 @@ def launch_floor_ms(dev) -> float:
     return device_ms(lambda: torch.zeros(1, device=dev))
 
 
+def with_floor(row: dict, floor_ms: float) -> dict:
+    """``row`` with the launch floor beside its bound, printed."""
+    row["launch_floor_ms"] = floor_ms
+    print(f"    launch floor {floor_ms:.4f} ms; bound + floor "
+          f"{row['bound_ms'] + floor_ms:.4f} ms; device / bound "
+          f"{row['device_ms'] / row['bound_ms']:.3f}", flush=True)
+    return row
+
+
 def fista_work(nr: int, w: int, nc: int) -> tuple:
     """(bytes, flops) of one z_L solve on [nr, w] with nc classes: a, z_old
     read and z_L written once, labels and mask; 16 flops a class column and
@@ -852,22 +877,39 @@ def build_one(src, out_dir) -> str:
     return lib
 
 
-def fista_ab(parent_src, ds, nu, h) -> list:
-    """fista_zlast from ``parent_src`` (another tree's ``fista_zlast.cu``)
-    against this tree's, in turns (parent, this, this, parent) at every
-    ``fista_inputs`` shape, by device time (``device_ms``) and by CUDA
-    events; each pair's outputs checked against each other (class columns
-    at the FISTA tolerance, proximal columns bitwise)."""
+def ab_turns(label, runs, bound_ms) -> dict:
+    """``runs`` ({"parent": fn, "this": fn}, one launch a call) timed in
+    turns (AB_ORDER) by device time per launch (a trace of the other
+    tree's separately loaded library has been seen to lose one kernel in
+    20) and by events; printed beside the bound."""
+    r = {"shape": label, "device_ms": {}, "ms": {}, "bound_ms": bound_ms}
+    for k in AB_ORDER:
+        r["device_ms"].setdefault(k, []).append(
+            device_ms(runs[k], per_launch=True))
+        r["ms"].setdefault(k, []).append(time_ms(runs[k]))
+    print(f"  {label}: device ms parent {r['device_ms']['parent']} this "
+          f"{r['device_ms']['this']}; events parent {r['ms']['parent']} this "
+          f"{r['ms']['this']}; bound {bound_ms:.4f}", flush=True)
+    return r
+
+
+def fista_ab(csrc, ds, nu, h) -> list:
+    """fista_zlast from another tree's sources (``csrc``, its
+    ``kernels/csrc``) against this tree's, in turns (``ab_turns``) at
+    every ``fista_inputs`` shape; each pair's outputs checked against each
+    other (class columns at the FISTA tolerance, proximal columns
+    bitwise)."""
     import ctypes
 
     from repro_torch.kernels import build
-    lib = build_one(os.path.abspath(parent_src),
-                    str(build.BUILD_ROOT.parent / "fista_parent"))
+    lib = build_one(os.path.join(csrc, "fista_zlast.cu"),
+                    str(build.BUILD_ROOT.parent / "ab_parent_lib"))
     versions = {"parent": fista_entry(ctypes.CDLL(lib), nu),
                 "this": fista_entry(build.library(), nu)}
     gen = torch.Generator(device=ds.labels.device).manual_seed(1)
     C = ds.n_classes
     out = []
+    print("fista_zlast, parent against this tree:", flush=True)
     for label, a, z0, lab, msk, nc in fista_inputs(ds, gen, C, h):
         runs = {k: (lambda f=f: f(a, z0, lab, msk, nc))
                 for k, f in versions.items()}
@@ -876,17 +918,199 @@ def fista_ab(parent_src, ds, nu, h) -> list:
         (fista_check if a.shape[1] == nc else fista_wide_check(nc))(
             got, want, float((got - want).abs().max()))
         del got, want
-        r = {"shape": label, "device_ms": {}, "ms": {}}
-        for k in ("parent", "this", "this", "parent"):
-            r["device_ms"].setdefault(k, []).append(device_ms(runs[k]))
-            r["ms"].setdefault(k, []).append(time_ms(runs[k]))
-        r["bound_ms"] = bound(*fista_work(*a.shape, nc))[0]
-        print(f"  {label}: device ms parent {r['device_ms']['parent']} this "
-              f"{r['device_ms']['this']}; events parent {r['ms']['parent']} "
-              f"this {r['ms']['this']}; bound {r['bound_ms']:.4f}",
-              flush=True)
-        out.append(r)
+        out.append(ab_turns(label, runs, bound(*fista_work(*a.shape, nc))[0]))
     return out
+
+
+def pgrad_entry(lib, nu: float, rho: float):
+    """A caller of ``lib``'s ``admm_pgrad_f32`` as the port's wrapper calls
+    it (the route from ``admm_pgrad.route``), with no launch count."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.admm_pgrad import route
+    fn = lib.admm_pgrad_f32
+    fn.argtypes = build.SIGNATURES["admm_pgrad_f32"]
+    fn.restype = ctypes.c_int
+
+    def call(r, W, u, p, q):
+        lead = tuple(r.shape[:-2])
+        V, n_out = r.shape[-2:]
+        n_in = W.shape[-2]
+        out = torch.empty(lead + (V, n_in), dtype=torch.float32,
+                          device=r.device)
+        build.check(fn(r.data_ptr(), W.data_ptr(), u.data_ptr(), p.data_ptr(),
+                       q.data_ptr(), out.data_ptr(), lead[0] if lead else 1,
+                       V, n_out, n_in, V * n_out, n_in * n_out, V * n_in, nu,
+                       rho, int(route(n_out) == "tensor_cores"),
+                       build.stream_handle(r)), "admm_pgrad_f32")
+        return out
+    return call
+
+
+def unpack_entry(lib, bits: int):
+    """A caller of ``lib``'s ``unpack_codes4`` / ``unpack_codes16`` on a
+    [rows, ≥ body] uint8 container (any row stride), with no launch
+    count."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    name = "unpack_codes4" if bits <= 4 else "unpack_codes16"
+    fn = getattr(lib, name)
+    fn.argtypes = build.SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    dt = torch.uint8 if bits <= 4 else torch.uint16
+
+    def call(packed, n):
+        rows = packed.shape[0]
+        out = torch.empty((rows, n), dtype=dt, device=packed.device)
+        build.check(fn(packed.data_ptr(), out.data_ptr(), rows, n,
+                       packed.stride(0), n, build.stream_handle(packed)), name)
+        return out
+    return call
+
+
+def kernel_ab(csrc, X, dims, nu, rho) -> dict:
+    """``admm_pgrad`` and ``unpack_codes`` built from another tree's
+    sources (``csrc``, its ``kernels/csrc``) against this tree's, in turns
+    (``ab_turns``), at kernel_phase's shapes: the narrow route at n_out 7
+    and 16, the 3xTF32 route ×8, and every unpack case. The two versions'
+    outputs are compared bit for bit: unpack must agree (the wire layout);
+    admm_pgrad's agreement is reported."""
+    import ctypes
+
+    from repro_torch.comm.codecs import _body_bytes
+    from repro_torch.kernels import build
+    out_dir = str(build.BUILD_ROOT.parent / "ab_parent_lib")
+    libs = {"parent": {k: ctypes.CDLL(build_one(
+                os.path.join(csrc, k + ".cu"), out_dir))
+                for k in ("admm_pgrad", "pack_codes")},
+            "this": {k: build.library() for k in ("admm_pgrad", "pack_codes")}}
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    V, h, C = X.shape[0], dims[1], dims[-1]
+    B = len(dims) - 3
+    res = {"admm_pgrad": [], "unpack_codes": []}
+    print("admm_pgrad, parent against this tree:", flush=True)
+    for label, lead, n_out in ((f"[{V},{C}]@[{h},{C}]ᵀ", (), C),
+                               (f"[{V},{NARROW_MAX}]@[{h},{NARROW_MAX}]ᵀ", (),
+                                NARROW_MAX),
+                               (f"x{B} [{V},{h}]@[{h},{h}]ᵀ", (B,), h)):
+        r = torch.randn(lead + (V, n_out), generator=gen, device=dev)
+        W = torch.randn(lead + (h, n_out), generator=gen, device=dev)
+        u, p, q = (torch.randn(lead + (V, h), generator=gen, device=dev)
+                   for _ in range(3))
+        runs = {k: (lambda f=pgrad_entry(v["admm_pgrad"], nu, rho):
+                    f(r, W, u, p, q)) for k, v in libs.items()}
+        same = bool(torch.equal(runs["parent"](), runs["this"]()))
+        nb = lead[0] if lead else 1
+        n_bytes = 4 * nb * (V * n_out + h * n_out + 4 * V * h)
+        flops, epi = nb * 2 * V * n_out * h, nb * 5 * V * h
+        row = ab_turns(label, runs, (
+            bound(n_bytes, 3 * flops + epi * PEAK_TF32_FLOPS / PEAK_F32_FLOPS,
+                  PEAK_TF32_FLOPS) if n_out > NARROW_MAX
+            else bound(n_bytes, flops + epi))[0])
+        row["same_bits"] = same
+        print(f"    parent and this tree give the same bits: {same}",
+              flush=True)
+        res["admm_pgrad"].append(row)
+    print("unpack_codes, parent against this tree:", flush=True)
+    n = V * h
+    for bits in (4, 16):
+        cases = [(f"[{m}] {bits}-bit", torch.randint(
+            0, 256, (1, _body_bytes(bits, m)), generator=gen, device=dev,
+            dtype=torch.int32).to(torch.uint8), m) for m in (n, n + 1)]
+        nr = STAGES if bits <= 4 else STAGES - 2
+        cap = _body_bytes(16, n)
+        cases.append((f"[{nr},{cap}] container, {bits}-bit", torch.randint(
+            0, 256, (nr, cap), generator=gen, device=dev,
+            dtype=torch.int32).to(torch.uint8), n))
+        nb = _body_bytes(bits, n)
+        for skew in (4, 1):
+            ld = (nb + 15) // 16 * 16 + skew
+            flat = torch.randint(0, 256, (UNPACK_SKEW_ROWS * ld,),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32).to(torch.uint8)
+            cases.append((f"[{UNPACK_SKEW_ROWS},{nb}] row stride {ld}, "
+                          f"{bits}-bit", flat.view(UNPACK_SKEW_ROWS, ld)[:, :nb],
+                          n))
+        for label, packed, m in cases:
+            runs = {k: (lambda f=unpack_entry(v["pack_codes"], bits):
+                        f(packed, m)) for k, v in libs.items()}
+            if not torch.equal(runs["parent"]().to(torch.int32),
+                               runs["this"]().to(torch.int32)):
+                raise AssertionError(f"unpack_codes {label}: parent and this "
+                                     f"tree differ")
+            cb = 1 if bits <= 4 else 2
+            res["unpack_codes"].append(ab_turns(label, runs, bound(
+                packed.shape[0] * (_body_bytes(bits, m) + cb * m), 0)[0]))
+    return res
+
+
+def train_child(src: str, path: str) -> int:
+    """``--train-child``: G's and G-Q's ms per iteration through the
+    kernels, as ``train_phase`` times them (AB_TRAIN_RUNS samples of 5
+    iterations from a trained state), with the ``repro_torch`` package
+    under ``src``."""
+    src = os.path.abspath(src)
+    sys.path.insert(0, src)
+    import repro_torch
+    if not os.path.abspath(repro_torch.__file__).startswith(src + os.sep):
+        raise AssertionError(f"repro_torch came from {repro_torch.__file__}"
+                             f", not {src}")
+    from repro_torch.core.pdadmm import ADMMConfig
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.graph.datasets import synthetic
+    from repro_torch.kernels import build
+    build.build()
+    build.library()
+    dev = torch.device("cuda")
+    ds = synthetic("cora", scale=1.0, device=dev)
+    X = ds.augmented(4)
+    dims = [X.shape[1]] + [1000] * 9 + [ds.n_classes]
+    out = {"src": src}
+    for label, cfg in (("G", ADMMConfig(nu=1e-2, rho=1.0)),
+                       ("GQ", ADMMConfig(nu=1e-2, rho=1.0, quantize_p=True,
+                                         quantize_q=True,
+                                         grid=uniform_grid(8, -2.0, 6.0)))):
+        state = train_run(X, ds, dims, cfg, EPOCHS)[0]
+        out[label] = [ms_per_iter(X, ds, cfg, state)
+                      for _ in range(AB_TRAIN_RUNS)]
+    write_record(path, out)
+    return 0
+
+
+def train_ab(parent_root: str) -> dict:
+    """``--ab``'s training part: G's and G-Q's ms per iteration with
+    another tree's package (``PARENT_ROOT/src``) and with this tree's,
+    each in a process of its own, in turns (AB_ORDER)."""
+    import tempfile
+    d = tempfile.mkdtemp()
+    res = {"G": {"parent": [], "this": []}, "GQ": {"parent": [], "this": []}}
+    try:
+        for i, name in enumerate(AB_ORDER):
+            src = (os.path.join(os.path.abspath(parent_root), "src")
+                   if name == "parent" else os.path.join(ROOT, "src"))
+            path = os.path.join(d, f"train.{i}.json")
+            run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--train-child", path, "--src", src],
+                                 timeout=900)
+            if run.returncode != 0:
+                raise AssertionError(f"train child ({name}): exit "
+                                     f"{run.returncode}")
+            with open(path) as f:
+                got = json.load(f)
+            for key in ("G", "GQ"):
+                res[key][name] += got[key]
+            print(f"  {name}: G ms per iteration {got['G']}, G-Q "
+                  f"{got['GQ']}", flush=True)
+        for key, v in res.items():
+            print(f"{key} ms per iteration, median: parent "
+                  f"{float(np.median(v['parent'])):.3f}, this tree "
+                  f"{float(np.median(v['this'])):.3f}", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return res
 
 
 def kernel_phase(X, ds, dims, nu, rho, grid):
@@ -911,6 +1135,9 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
     V, K0, h, C = X.shape[0], dims[0], dims[1], dims[-1]
     B = len(dims) - 3                       # stacked hidden layers 1..L-2
     rows = {}
+    floor_ms = launch_floor_ms(dev)
+    print(f"launch floor (device ms of a one-element torch.zeros fill): "
+          f"{floor_ms:.4f}", flush=True)
 
     print("fused_linear:", flush=True)
     fl = []
@@ -954,7 +1181,9 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             (f"x{STAGES} [{V},{h}]@[{h},{h}]ᵀ (ring)", rand(STAGES, V, h),
              rand(STAGES, h, h, scale=h ** -0.5), (STAGES, V, h)),
             (f"[{V},{C}]@[{h},{C}]ᵀ", rand(V, C), rand(h, C, scale=C ** -0.5),
-             (V, h))):
+             (V, h)),
+            (f"[{V},{NARROW_MAX}]@[{h},{NARROW_MAX}]ᵀ", rand(V, NARROW_MAX),
+             rand(h, NARROW_MAX, scale=NARROW_MAX ** -0.5), (V, h))):
         u, p, q = rand(*shape_in), rand(*shape_in).relu(), rand(*shape_in).relu()
         c = u + rho * (p - q)
         lib = ((lambda c=c, r=r, W=W: torch.addmm(c, r, W.mT, alpha=-nu))
@@ -969,6 +1198,8 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             4 * nb * (Vr * n_out + n_in * n_out + 4 * Vr * n_in),
             nb * 2 * Vr * n_out * n_in, nb * 5 * Vr * n_in, matmul_check,
             pgrad_route(n_out)))
+        if pgrad_route(n_out) != "tensor_cores":
+            with_floor(pg[-1], floor_ms)
     rows["admm_pgrad"] = pg
 
     print("relu_zupdate:", flush=True)
@@ -1065,11 +1296,11 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
                 lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
                 cb * n + nb, 2 * n, bitwise_check))
             packed = ref.pack_codes_ref(codes, bits)
-            upk.append(case(
+            upk.append(with_floor(case(
                 f"[{n}] {bits}-bit",
                 lambda p=packed, b=bits, n=n: pc.unpack_codes(p, b, n),
                 lambda p=packed, b=bits, n=n: ref.unpack_codes_ref(p, b, n),
-                None, nb + cb * n, 2 * n, bitwise_check))
+                None, nb + cb * n, 2 * n, bitwise_check), floor_ms))
     # the mixed-width ring's own shapes: one row per stage's slab (row
     # strides of 2,485,000 codes leave every other row 8 bytes off a
     # 16-byte boundary), unpacked from the head of each 16-bit-wide
@@ -1089,11 +1320,26 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             nr * (cb * n + nb), 2 * nr * n, bitwise_check))
         container = torch.zeros((nr, cap), dtype=torch.uint8, device=dev)
         container[:, :nb] = ref.pack_codes_ref(codes, bits)
-        upk.append(case(
+        upk.append(with_floor(case(
             f"[{nr},{cap}] container, {bits}-bit (mixed-width ring)",
             lambda p=container, b=bits: pc.unpack_codes(p, b, n),
             lambda p=container, b=bits: ref.unpack_codes_ref(p, b, n),
-            None, nr * (nb + cb * n), 2 * nr * n, bitwise_check))
+            None, nr * (nb + cb * n), 2 * nr * n, bitwise_check), floor_ms))
+        # rows whose stride leaves each one 4 or 1 bytes further off a
+        # 16-byte boundary than the last (every stream realigned)
+        for skew in (4, 1):
+            ld = (nb + 15) // 16 * 16 + skew
+            flat = torch.zeros(UNPACK_SKEW_ROWS * ld, dtype=torch.uint8,
+                               device=dev)
+            skewed = flat.view(UNPACK_SKEW_ROWS, ld)[:, :nb]
+            skewed.copy_(container[:UNPACK_SKEW_ROWS, :nb])
+            upk.append(with_floor(case(
+                f"[{UNPACK_SKEW_ROWS},{nb}] row stride {ld} ({skew} off 16),"
+                f" {bits}-bit",
+                lambda p=skewed, b=bits: pc.unpack_codes(p, b, n),
+                lambda p=skewed, b=bits: ref.unpack_codes_ref(p, b, n),
+                None, UNPACK_SKEW_ROWS * (nb + cb * n),
+                2 * UNPACK_SKEW_ROWS * n, bitwise_check), floor_ms))
     rows["pack_codes"], rows["unpack_codes"] = pk, upk
     rows["flash_attention"] = flash_cases(dev)
     return rows
@@ -5131,14 +5377,18 @@ def write_record(path, record) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the record here")
-    ap.add_argument("--fista-parent", default=None, metavar="FISTA_ZLAST_CU",
-                    help="only time another tree's fista_zlast.cu against "
-                         "this one's, in turns, at the kernel phase's shapes")
     ap.add_argument("--mesh-phase", default=None, metavar="OUT_JSON",
                     help=argparse.SUPPRESS)   # mesh_phase's subprocess
     ap.add_argument("--mesh-part", default="host",
                     choices=MESH_PARTS + (MESH_SEQ_PART,),
                     help=argparse.SUPPRESS)   # which of its parts
+    ap.add_argument("--ab", default=None, metavar="OTHER_ROOT",
+                    help="only time fista_zlast, admm_pgrad and "
+                         "unpack_codes built from another tree's sources "
+                         "against this one's, and G's and G-Q's ms per "
+                         "iteration with its package, in turns")
+    ap.add_argument("--train-child", default=None, metavar="OUT_JSON",
+                    help=argparse.SUPPRESS)   # train_ab's subprocess
     ap.add_argument("--decode-ab", default=None, metavar="OTHER_SRC",
                     help="only time the plain bundle's decode with another "
                          "tree's src/ against this one's, in turns")
@@ -5157,6 +5407,8 @@ def main() -> int:
         return mesh_child(args.mesh_phase, args.mesh_part)
     if args.plain_decode:
         return plain_decode_child(args.src, args.plain_decode, args.arch)
+    if args.train_child:
+        return train_child(args.src, args.train_child)
     if args.decode_ab:
         record = {"card": card_line(), "decode_ab": decode_ab(args.decode_ab)}
         print(record["card"])
@@ -5193,11 +5445,15 @@ def main() -> int:
                        grid=uniform_grid(8, -2.0, 6.0))
     print(f"cora: V={X.shape[0]} X={tuple(X.shape)} dims={dims}", flush=True)
 
-    if args.fista_parent:
-        print("fista_zlast, parent against this tree:", flush=True)
+    if args.ab:
+        csrc = os.path.join(os.path.abspath(args.ab), "src", "repro_torch",
+                            "kernels", "csrc")
         record = {"card": card_line(), "launch_floor_ms": launch_floor_ms(
-            device), "fista_ab": fista_ab(args.fista_parent, ds, cfg.nu,
-                                          dims[1])}
+            device), "fista_ab": fista_ab(csrc, ds, cfg.nu, dims[1]),
+            "kernels": kernel_ab(csrc, X, dims, cfg.nu, cfg.rho)}
+        del X, ds
+        torch.cuda.empty_cache()
+        record["train"] = train_ab(args.ab)
         print(record["card"])
         if args.out:
             write_record(args.out, record)

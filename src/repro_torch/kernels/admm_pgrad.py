@@ -4,21 +4,24 @@
 
 Replaces ``repro/kernels/admm_pgrad.py:admm_pgrad`` (its nested Pallas body
 ``kernel``). Source: ``csrc/admm_pgrad.cu`` on the 3xTF32 tile core
-``csrc/matmul_tf32x3.cuh`` (and the SIMT tile ``csrc/matmul_tile.cuh`` for
-narrow r).
+``csrc/matmul_tf32x3.cuh``, and its own streaming kernel for narrow r.
 
 What bounds it on the H100: operations for the hidden layers
 (2·V·n_out·n_in flops; [2485, 1000] @ [1000, 1000]ᵀ is 4.97 GFLOP per layer
 against 5·10 MB of operands), bytes for the last layer (n_out = 7: three
-[V, 1000] reads and one write dominate).
+[V, 1000] reads and one write, 39.8 MB, against 98 KB of r and W).
 
 Design, by ``route(n_out)``: for n_out > 16 the 3xTF32 tensor-core tile
 (three TF32 passes, about 22 mantissa bits, 128×128 output tiles) with a
 transposed B: the slabs are copied from rows of W, which are already
-K-major, so Wᵀ is never formed. For n_out ≤ 16 the 64×64 SIMT f32 tile,
-which reads W's rows the same way. Either way u, p and q are read once in
-the epilogue and the product never goes to device memory; ``blockIdx.z``
-walks the stacked layers.
+K-major, so Wᵀ is never formed; u, p and q are read once in its epilogue
+and the product never goes to device memory. For n_out ≤ 16 a streaming
+pass (``admm_pgrad_narrow``): a block stages a 128-column slice of W and
+its rows of r in shared memory once, each thread keeps its 4 columns of W
+in registers, and a warp streams one row of u, p, q and g as float4s (512
+contiguous bytes an instruction), two rows in flight a thread, one wave of
+blocks over the card's SMs; the sum runs f32 FMAs over k in ascending
+order. ``blockIdx.z`` walks the stacked layers on both.
 """
 from __future__ import annotations
 
@@ -27,12 +30,12 @@ import torch
 from repro_torch.kernels import build
 
 launches = 0
-NARROW = 16   # n_out at or below which the SIMT tile takes the product
+NARROW = 16   # n_out at or below which the streaming route takes it
 
 
 def route(n_out: int) -> str:
     """The kernel's route for r of width n_out: "tensor_cores" (3xTF32) or
-    "simt" (the narrow last layer)."""
+    "simt" (the narrow last layer's f32 streaming pass)."""
     return "simt" if n_out <= NARROW else "tensor_cores"
 
 

@@ -65,8 +65,8 @@ struct Vec4<uint16_t> { using type = ushort4; };
 // pointers), whose tail of n % 4 elements runs scalar.
 template <typename In, typename Out, typename F>
 __global__ void __launch_bounds__(THREADS)
-elementwise_kernel(const In* __restrict__ in, Out* __restrict__ out,
-                   long long n, F f, int vec) {
+grid_elementwise_kernel(const In* __restrict__ in, Out* __restrict__ out,
+                        long long n, F f, int vec) {
   const long long stride = (long long)gridDim.x * THREADS;
   const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
   long long done = 0;
@@ -101,8 +101,9 @@ int launch(const In* in, Out* out, long long n, F f, void* stream) {
   const long long work = vec ? (n + 3) / 4 : n;
   long long blocks = (work + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  elementwise_kernel<In, Out, F><<<(unsigned)blocks, THREADS, 0,
-                                   (cudaStream_t)stream>>>(in, out, n, f, vec);
+  grid_elementwise_kernel<In, Out, F><<<(unsigned)blocks, THREADS, 0,
+                                        (cudaStream_t)stream>>>(in, out, n, f,
+                                                                vec);
   return (int)cudaGetLastError();
 }
 

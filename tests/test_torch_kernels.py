@@ -644,7 +644,11 @@ def test_cuda_fused_linear_matches_plain(cuda, lead, M, K, N, mode):
     ((), 2485, 1000, 7),             # the last layer: the SIMT route
     ((), 300, 200, 130),             # K = 130: 4-byte copies; ragged n_in
     ((2,), 97, 201, 130),            # odd n_in: no paired epilogue
-    ((), 130, 96, 16), ((), 130, 96, 17)])   # either side of the routes
+    ((), 130, 96, 16), ((), 130, 96, 17),    # either side of the routes
+    # the narrow route: n_out 1 and 15, n_in not a multiple of 4 (scalar
+    # rows), the ring's stacked last layers, one row, n_out 16 at full size
+    ((), 300, 1001, 1), ((), 300, 3, 15), ((10,), 2485, 1000, 7),
+    ((), 1, 1000, 7), ((), 2485, 1000, 16)])
 def test_cuda_admm_pgrad_matches_plain(cuda, lead, V, ni, no):
     r, W, u, p, q = _t(*_np(10, lead + (V, no), lead + (ni, no),
                             lead + (V, ni), lead + (V, ni), lead + (V, ni)),
@@ -787,15 +791,19 @@ def test_cuda_fista_zlast_wide_rows(cuda, V, width, n_classes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 16])
-@pytest.mark.parametrize("rows,n,pad", [(1, 2485 * 1000, 0), (1, 1001, 0),
-                                        (3, 1001, 7), (4, 4096, 16),
-                                        (2, 1, 0), (5, 33, 3),
-                                        (10, 2485 * 1000, 0), (6, 4104, 0),
-                                        (4, 4100, 0), (3, 1002, 2)])
-def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad):
+@pytest.mark.parametrize("rows,n,pad,off", [
+    (1, 2485 * 1000, 0, 0), (1, 1001, 0, 0), (3, 1001, 7, 0),
+    (4, 4096, 16, 0), (2, 1, 0, 0), (5, 33, 3, 0), (10, 2485 * 1000, 0, 0),
+    (6, 4104, 0, 0), (4, 4100, 0, 0), (3, 1002, 2, 0),
+    # unpacking from containers whose first row starts 1, 2, 4 or 8 bytes
+    # off a 16-byte boundary, at several waves of blocks
+    (2, 2_000_001, 0, 1), (2, 2_000_001, 3, 2), (2, 2_000_000, 0, 4),
+    (2, 2_000_000, 5, 8)])
+def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad, off):
     """Every access width (row strides that leave rows 8, 4 or 1 bytes off
     a 16-byte boundary, as the ring's [10, 2,485,000] batch does), odd n,
-    batched rows, and unpacking from the head of wider rows."""
+    batched rows, and unpacking from the head of wider rows, the container
+    itself ``off`` bytes off a 16-byte boundary."""
     rng = np.random.default_rng(n + rows)
     dt = torch.uint8 if bits <= 8 else torch.uint16
     wide = torch.from_numpy(rng.integers(0, 2 ** bits, (rows, n + pad))
@@ -808,12 +816,16 @@ def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     nb = got.shape[-1]
-    room = torch.zeros(got.shape[:-1] + (nb + pad,), dtype=torch.uint8,
+    flat = torch.zeros(off + rows * (nb + pad), dtype=torch.uint8,
                        device=cuda)
+    room = flat[off:].view(got.shape[:-1] + (nb + pad,))
     room[..., :nb] = got
     back = cuda_pack.unpack_codes(room, bits, n)
     torch.cuda.synchronize()
     assert back.dtype == dt
+    assert torch.equal(back.cpu().to(torch.int32),
+                       tref.unpack_codes_ref(room.cpu(), bits, n)
+                       .to(torch.int32))
     assert torch.equal(back.cpu().to(torch.int32),
                        codes.cpu().to(torch.int32))
 
