@@ -56,7 +56,10 @@ and the script exits non-zero without printing a result:
    ``stage_ring_edges``, widths {4, 8, 16}): one step built, the schedules
    printed, ``pack_codes`` and ``unpack_codes`` launched, the shifts' bytes
    equal to the ledger's physical bytes, the objectives tracking the same
-   run with ``use_kernels=False`` at rtol 1e-3. Last,
+   run with ``use_kernels=False`` at rtol 1e-3; the same iterations again
+   under torch.profiler give each pack and unpack kernel's device ms a
+   launch inside the ring's iterations (its inputs where the step leaves
+   them, not re-read back to back from L2). Last,
    ``quantized_psum`` on a ``LocalRing`` of data 4 over [2485, 1000]
    shards: gather and code_psum give the same bits (4-bit affine and grid).
 6b. ``replay_phase``, the replay cost model (``repro_torch.analysis``) on
@@ -304,8 +307,9 @@ With ``--ab`` the script builds another tree's ``fista_zlast.cu``,
 parent commit), each alone, and times them against this tree's kernels in
 turns (parent, this, this, parent) by device time per launch and by
 events, at phase 2's six ``fista_zlast`` shapes, its ``admm_pgrad`` shapes
-and every ``unpack_codes`` case, after checking the two versions' outputs
-against each other (unpack bit for bit); then G's and G-Q's ms per
+and every ``unpack_codes`` and ``pack_codes`` case, after checking the two
+versions' outputs against each other (unpack and pack bit for bit, pack
+also against its plain version); then G's and G-Q's ms per
 iteration (as phases 3 and 4 time them) with the other tree's package and
 with this one's, each in a process of its own, in the same turns.
 
@@ -550,8 +554,16 @@ BLOCK_Z_TOL = 1e-4
 SASS_KERNELS = ("flash", "fused_linear", "admm_pgrad", "resnorm_partials")
 # admm_pgrad's widest narrow r (its streaming route's KP = 16)
 NARROW_MAX = 16
-# rows of the skewed-stride unpack cases (each row's streams realigned)
+# rows of the skewed-stride unpack and pack cases (each row's streams
+# realigned)
 UNPACK_SKEW_ROWS = 4
+# pack from rows this many codes further off a 16-byte boundary than the
+# last (4-bit: 4 and 1 bytes; 16-bit: 4 and 2 bytes)
+PACK_SKEWS = {4: (4, 1), 16: (2, 1)}
+# the pack and unpack kernels, whose device ms a launch the mixed-width
+# ring's iterations report
+PACK_DEVICE_KERNELS = ("pack4_kernel", "pack16_kernel", "unpack4_kernel",
+                     "unpack16_kernel")
 # what the port's kernels' names start with, for the profiles: every
 # __global__ name in the sources starts with one of them
 # (tests/test_torch_kernel_names.py)
@@ -970,17 +982,54 @@ def unpack_entry(lib, bits: int):
     return call
 
 
-def kernel_ab(csrc, X, dims, nu, rho) -> dict:
-    """``admm_pgrad`` and ``unpack_codes`` built from another tree's
-    sources (``csrc``, its ``kernels/csrc``) against this tree's, in turns
-    (``ab_turns``), at kernel_phase's shapes: the narrow route at n_out 7
-    and 16, the 3xTF32 route ×8, and every unpack case. The two versions'
-    outputs are compared bit for bit: unpack must agree (the wire layout);
-    admm_pgrad's agreement is reported."""
+def skewed_rows(x, skew: int):
+    """The first UNPACK_SKEW_ROWS rows of x [rows, m], copied into a buffer
+    whose row stride is m rounded up to 16 bytes plus ``skew`` elements:
+    each row starts skew elements further off a 16-byte boundary than the
+    last."""
+    per16 = 16 // x.element_size()
+    m = x.shape[1]
+    ld = (m + per16 - 1) // per16 * per16 + skew
+    flat = torch.zeros(UNPACK_SKEW_ROWS * ld, dtype=x.dtype, device=x.device)
+    rows = flat.view(UNPACK_SKEW_ROWS, ld)[:, :m]
+    rows.copy_(x[:UNPACK_SKEW_ROWS])
+    return rows
+
+
+def pack_entry(lib, bits: int):
+    """A caller of ``lib``'s ``pack_codes4`` / ``pack_codes16`` on [rows, n]
+    codes (any row stride), with no launch count."""
     import ctypes
 
     from repro_torch.comm.codecs import _body_bytes
     from repro_torch.kernels import build
+    name = "pack_codes4" if bits <= 4 else "pack_codes16"
+    fn = getattr(lib, name)
+    fn.argtypes = build.SIGNATURES[name]
+    fn.restype = ctypes.c_int
+
+    def call(codes):
+        rows, n = codes.shape
+        nb = _body_bytes(bits, n)
+        out = torch.empty((rows, nb), dtype=torch.uint8, device=codes.device)
+        build.check(fn(codes.data_ptr(), out.data_ptr(), rows, n,
+                       codes.stride(0), nb, build.stream_handle(codes)), name)
+        return out
+    return call
+
+
+def kernel_ab(csrc, X, dims, nu, rho) -> dict:
+    """``admm_pgrad``, ``unpack_codes`` and ``pack_codes`` built from
+    another tree's sources (``csrc``, its ``kernels/csrc``) against this
+    tree's, in turns (``ab_turns``), at kernel_phase's shapes: the narrow
+    route at n_out 7 and 16, the 3xTF32 route ×8, every unpack case and
+    every pack case. The two versions' outputs are compared bit for bit:
+    unpack and pack must agree (the wire layout), and pack must equal its
+    plain version; admm_pgrad's agreement is reported."""
+    import ctypes
+
+    from repro_torch.comm.codecs import _body_bytes
+    from repro_torch.kernels import build, ref
     out_dir = str(build.BUILD_ROOT.parent / "ab_parent_lib")
     libs = {"parent": {k: ctypes.CDLL(build_one(
                 os.path.join(csrc, k + ".cu"), out_dir))
@@ -990,7 +1039,7 @@ def kernel_ab(csrc, X, dims, nu, rho) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     V, h, C = X.shape[0], dims[1], dims[-1]
     B = len(dims) - 3
-    res = {"admm_pgrad": [], "unpack_codes": []}
+    res = {"admm_pgrad": [], "unpack_codes": [], "pack_codes": []}
     print("admm_pgrad, parent against this tree:", flush=True)
     for label, lead, n_out in ((f"[{V},{C}]@[{h},{C}]ᵀ", (), C),
                                (f"[{V},{NARROW_MAX}]@[{h},{NARROW_MAX}]ᵀ", (),
@@ -1044,6 +1093,35 @@ def kernel_ab(csrc, X, dims, nu, rho) -> dict:
             cb = 1 if bits <= 4 else 2
             res["unpack_codes"].append(ab_turns(label, runs, bound(
                 packed.shape[0] * (_body_bytes(bits, m) + cb * m), 0)[0]))
+    print("pack_codes, parent against this tree:", flush=True)
+    for bits in (4, 16):
+        dt = torch.uint8 if bits <= 8 else torch.uint16
+        nr = STAGES if bits <= 4 else STAGES - 2
+        draw = [torch.randint(0, 2 ** bits, (r, m), generator=gen, device=dev,
+                              dtype=torch.int32).to(dt)
+                for r, m in ((1, n), (1, n + 1), (nr, n))]
+        cases = [(f"[{n}] {bits}-bit", draw[0]),
+                 (f"[{n + 1}] {bits}-bit", draw[1]),
+                 (f"[{nr},{n}] {bits}-bit (mixed-width ring)", draw[2])]
+        for skew in PACK_SKEWS[bits]:
+            skewed = skewed_rows(draw[2], skew)
+            cases.append((f"[{UNPACK_SKEW_ROWS},{n}] row stride "
+                          f"{skewed.stride(0)}, {bits}-bit", skewed))
+        for label, codes in cases:
+            runs = {k: (lambda f=pack_entry(v["pack_codes"], bits):
+                        f(codes)) for k, v in libs.items()}
+            got = runs["this"]()
+            if not torch.equal(runs["parent"](), got):
+                raise AssertionError(f"pack_codes {label}: parent and this "
+                                     f"tree differ")
+            if not torch.equal(got, ref.pack_codes_ref(codes, bits)):
+                raise AssertionError(f"pack_codes {label}: this tree differs "
+                                     f"from the plain version")
+            del got
+            rows, m = codes.shape
+            res["pack_codes"].append(ab_turns(label, runs, bound(
+                rows * (codes.element_size() * m + _body_bytes(bits, m)),
+                0)[0]))
     return res
 
 
@@ -1113,10 +1191,84 @@ def train_ab(parent_root: str) -> dict:
     return res
 
 
-def kernel_phase(X, ds, dims, nu, rho, grid):
+def pack_rows(gen, n: int, floor_ms: float) -> tuple:
+    """``case`` rows of pack_codes and unpack_codes (each with the launch
+    floor) at one boundary slab of n codes and an odd n + 1, the
+    mixed-width ring's batches, and rows at skewed strides; codes drawn on
+    the card from ``gen``."""
     from repro_torch.comm.codecs import _body_bytes
-    from repro_torch.kernels import ref
     from repro_torch.kernels import pack_codes as pc
+    from repro_torch.kernels import ref
+    dev = gen.device
+    print("pack_codes / unpack_codes:", flush=True)
+    pk, upk = [], []
+    for bits in (4, 16):
+        dt = torch.uint8 if bits <= 8 else torch.uint16
+        for m in (n, n + 1):         # one boundary slab; an odd n
+            codes = torch.randint(0, 2 ** bits, (m,), generator=gen,
+                                  device=dev, dtype=torch.int32).to(dt)
+            nb = _body_bytes(bits, m)
+            cb = codes.element_size()
+            pk.append(with_floor(case(
+                f"[{m}] {bits}-bit", lambda c=codes, b=bits: pc.pack_codes(c, b),
+                lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
+                cb * m + nb, 2 * m, bitwise_check), floor_ms))
+            packed = ref.pack_codes_ref(codes, bits)
+            upk.append(with_floor(case(
+                f"[{m}] {bits}-bit",
+                lambda p=packed, b=bits, m=m: pc.unpack_codes(p, b, m),
+                lambda p=packed, b=bits, m=m: ref.unpack_codes_ref(p, b, m),
+                None, nb + cb * m, 2 * m, bitwise_check), floor_ms))
+    # the mixed-width ring's own shapes: one row per stage's slab (row
+    # strides of 2,485,000 codes leave every other row 8 bytes off a
+    # 16-byte boundary), unpacked from the head of each 16-bit-wide
+    # container row (4,970,000 bytes)
+    cap = _body_bytes(16, n)
+    for bits, nr in ((4, STAGES), (16, STAGES - 2)):
+        dt = torch.uint8 if bits <= 8 else torch.uint16
+        codes = torch.randint(0, 2 ** bits, (nr, n), generator=gen,
+                              device=dev, dtype=torch.int32).to(dt)
+        nb = _body_bytes(bits, n)
+        cb = codes.element_size()
+        pk.append(with_floor(case(
+            f"[{nr},{n}] {bits}-bit (mixed-width ring)",
+            lambda c=codes, b=bits: pc.pack_codes(c, b),
+            lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
+            nr * (cb * n + nb), 2 * nr * n, bitwise_check), floor_ms))
+        # packing from rows whose stride leaves each one further off a
+        # 16-byte boundary than the last (every input stream realigned)
+        for skew in PACK_SKEWS[bits]:
+            skewed = skewed_rows(codes, skew)
+            pk.append(with_floor(case(
+                f"[{UNPACK_SKEW_ROWS},{n}] row stride {skewed.stride(0)} "
+                f"({cb * skew} off 16), {bits}-bit",
+                lambda c=skewed, b=bits: pc.pack_codes(c, b),
+                lambda c=skewed, b=bits: ref.pack_codes_ref(c, b), None,
+                UNPACK_SKEW_ROWS * (cb * n + nb), 2 * UNPACK_SKEW_ROWS * n,
+                bitwise_check), floor_ms))
+        container = torch.zeros((nr, cap), dtype=torch.uint8, device=dev)
+        container[:, :nb] = ref.pack_codes_ref(codes, bits)
+        upk.append(with_floor(case(
+            f"[{nr},{cap}] container, {bits}-bit (mixed-width ring)",
+            lambda p=container, b=bits: pc.unpack_codes(p, b, n),
+            lambda p=container, b=bits: ref.unpack_codes_ref(p, b, n),
+            None, nr * (nb + cb * n), 2 * nr * n, bitwise_check), floor_ms))
+        # rows whose stride leaves each one 4 or 1 bytes further off a
+        # 16-byte boundary than the last (every stream realigned)
+        for skew in (4, 1):
+            skewed = skewed_rows(container[:, :nb], skew)
+            upk.append(with_floor(case(
+                f"[{UNPACK_SKEW_ROWS},{nb}] row stride {skewed.stride(0)} "
+                f"({skew} off 16), {bits}-bit",
+                lambda p=skewed, b=bits: pc.unpack_codes(p, b, n),
+                lambda p=skewed, b=bits: ref.unpack_codes_ref(p, b, n),
+                None, UNPACK_SKEW_ROWS * (nb + cb * n),
+                2 * UNPACK_SKEW_ROWS * n, bitwise_check), floor_ms))
+    return pk, upk
+
+
+def kernel_phase(X, ds, dims, nu, rho, grid):
+    from repro_torch.kernels import ref
     from repro_torch.kernels import quantize_kernel as qk
     from repro_torch.kernels.admm_pgrad import admm_pgrad
     from repro_torch.kernels.admm_pgrad import route as pgrad_route
@@ -1282,65 +1434,8 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             (4 + cb) * n, 2 * n, bitwise_check))
     rows["grid_encode"], rows["grid_decode"] = enc, dec
 
-    print("pack_codes / unpack_codes:", flush=True)
-    pk, upk = [], []
-    for bits in (4, 16):
-        dt = torch.uint8 if bits <= 8 else torch.uint16
-        for n in (V * h, V * h + 1):         # one boundary slab; an odd n
-            codes = torch.randint(0, 2 ** bits, (n,), generator=gen,
-                                  device=dev, dtype=torch.int32).to(dt)
-            nb = _body_bytes(bits, n)
-            cb = codes.element_size()
-            pk.append(case(
-                f"[{n}] {bits}-bit", lambda c=codes, b=bits: pc.pack_codes(c, b),
-                lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
-                cb * n + nb, 2 * n, bitwise_check))
-            packed = ref.pack_codes_ref(codes, bits)
-            upk.append(with_floor(case(
-                f"[{n}] {bits}-bit",
-                lambda p=packed, b=bits, n=n: pc.unpack_codes(p, b, n),
-                lambda p=packed, b=bits, n=n: ref.unpack_codes_ref(p, b, n),
-                None, nb + cb * n, 2 * n, bitwise_check), floor_ms))
-    # the mixed-width ring's own shapes: one row per stage's slab (row
-    # strides of 2,485,000 codes leave every other row 8 bytes off a
-    # 16-byte boundary), unpacked from the head of each 16-bit-wide
-    # container row (4,970,000 bytes)
-    n = V * h
-    cap = _body_bytes(16, n)
-    for bits, nr in ((4, STAGES), (16, STAGES - 2)):
-        dt = torch.uint8 if bits <= 8 else torch.uint16
-        codes = torch.randint(0, 2 ** bits, (nr, n), generator=gen,
-                              device=dev, dtype=torch.int32).to(dt)
-        nb = _body_bytes(bits, n)
-        cb = codes.element_size()
-        pk.append(case(
-            f"[{nr},{n}] {bits}-bit (mixed-width ring)",
-            lambda c=codes, b=bits: pc.pack_codes(c, b),
-            lambda c=codes, b=bits: ref.pack_codes_ref(c, b), None,
-            nr * (cb * n + nb), 2 * nr * n, bitwise_check))
-        container = torch.zeros((nr, cap), dtype=torch.uint8, device=dev)
-        container[:, :nb] = ref.pack_codes_ref(codes, bits)
-        upk.append(with_floor(case(
-            f"[{nr},{cap}] container, {bits}-bit (mixed-width ring)",
-            lambda p=container, b=bits: pc.unpack_codes(p, b, n),
-            lambda p=container, b=bits: ref.unpack_codes_ref(p, b, n),
-            None, nr * (nb + cb * n), 2 * nr * n, bitwise_check), floor_ms))
-        # rows whose stride leaves each one 4 or 1 bytes further off a
-        # 16-byte boundary than the last (every stream realigned)
-        for skew in (4, 1):
-            ld = (nb + 15) // 16 * 16 + skew
-            flat = torch.zeros(UNPACK_SKEW_ROWS * ld, dtype=torch.uint8,
-                               device=dev)
-            skewed = flat.view(UNPACK_SKEW_ROWS, ld)[:, :nb]
-            skewed.copy_(container[:UNPACK_SKEW_ROWS, :nb])
-            upk.append(with_floor(case(
-                f"[{UNPACK_SKEW_ROWS},{nb}] row stride {ld} ({skew} off 16),"
-                f" {bits}-bit",
-                lambda p=skewed, b=bits: pc.unpack_codes(p, b, n),
-                lambda p=skewed, b=bits: ref.unpack_codes_ref(p, b, n),
-                None, UNPACK_SKEW_ROWS * (nb + cb * n),
-                2 * UNPACK_SKEW_ROWS * n, bitwise_check), floor_ms))
-    rows["pack_codes"], rows["unpack_codes"] = pk, upk
+    rows["pack_codes"], rows["unpack_codes"] = pack_rows(gen, V * h,
+                                                         floor_ms)
     rows["flash_attention"] = flash_cases(dev)
     return rows
 
@@ -1790,6 +1885,39 @@ def profile_phase(label, run_once, ms_per_iter: float, top: int = 12):
             "source": "torch.profiler"}
 
 
+def launch_ms_by_kernel(label, run_once, names) -> dict:
+    """Device ms of every launch of each kernel in ``names`` over one
+    ``run_once()`` under torch.profiler, in launch order, printed: {name:
+    [ms, ...]}. A name matches a trace's kernel where it starts a word
+    (``pack4_kernel`` is not ``unpack4_kernel``). A trace with no device
+    event is taken again, up to PROFILE_TRIES times; after that every list
+    is empty (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kernels = []
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_once()
+            torch.cuda.synchronize()
+        kernels = sorted((ev for ev in prof.events()
+                          if ev.device_type == DeviceType.CUDA
+                          and ev.self_device_time_total > 0),
+                         key=lambda ev: ev.time_range.start)
+        if kernels:
+            break
+        print(f"profile ({label}): trace {attempt + 1} of {PROFILE_TRIES} "
+              f"recorded no device time", flush=True)
+    out = {}
+    for name in names:
+        word = re.compile(r"(?<![A-Za-z0-9_])" + name + r"\b")
+        out[name] = [ev.self_device_time_total / 1e3 for ev in kernels
+                     if word.search(ev.name)]
+        print(f"  {label}: {name} device ms a launch, in launch order: "
+              + ", ".join(f"{x:.4f}" for x in out[name]), flush=True)
+    return out
+
+
 def events_span(label, run_once, ms_per_iter: float) -> dict:
     """profile_phase's stand-in when the profiler records no device time:
     one iteration between two CUDA events. The span must be positive, or
@@ -2036,11 +2164,24 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
           flush=True)
     np.testing.assert_allclose(hist["objective"], h_plain["objective"],
                                rtol=TRAJ_RTOL)
+
+    # the same iterations again under the profiler: each pack and unpack
+    # launch's device ms with its inputs where the step leaves them (each
+    # width group of stages is one launch a direction, so the schedules
+    # give each launch's rows)
+    def mixed_run():
+        ctl_prof = BitWidthController(stage_ring_edges(STAGES, V, h),
+                                      ControllerConfig(**MIXED_CONTROLLER))
+        SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
+                             controller=ctl_prof, grids_by_bits=grids,
+                             mixed_width=True, init=init)
+    per_launch = launch_ms_by_kernel("mixed width", mixed_run,
+                                     PACK_DEVICE_KERNELS)
     out["mixed"] = {"launches": counts, "iterations": epochs,
                     "schedules": [list(x) for x in hist["schedules"]],
                     "objective": hist["objective"],
                     "objective_plain": h_plain["objective"],
-                    "train_s": t_mixed,
+                    "train_s": t_mixed, "device_ms_by_launch": per_launch,
                     "logical_bytes": s["total_bytes"],
                     "physical_bytes": s["wire_bytes"],
                     "shifted_bytes": ring.shifted_bytes}
@@ -5383,8 +5524,8 @@ def main() -> int:
                     choices=MESH_PARTS + (MESH_SEQ_PART,),
                     help=argparse.SUPPRESS)   # which of its parts
     ap.add_argument("--ab", default=None, metavar="OTHER_ROOT",
-                    help="only time fista_zlast, admm_pgrad and "
-                         "unpack_codes built from another tree's sources "
+                    help="only time fista_zlast, admm_pgrad, unpack_codes "
+                         "and pack_codes built from another tree's sources "
                          "against this one's, and G's and G-Q's ms per "
                          "iteration with its package, in turns")
     ap.add_argument("--train-child", default=None, metavar="OUT_JSON",

@@ -12,32 +12,35 @@
 // one launch formats every shard's boundary slab, and unpacking reads the
 // head of each row of a wider wire container in place.
 //
-// Pure data movement, bound by bytes.
-// Packing: each thread formats 16 packed bytes per step (16 codes for the
-// 16-bit planes). Each stream of a row takes the widest access its row's
-// address allows (128, 64 or 32 bits, bytes otherwise), found on the
-// device per row: the ring's rows are 2,485,000 codes, so the odd rows of
-// a batch sit 8 bytes off a 16-byte boundary and the 4-bit half-split's
-// second stream 4 bytes off. A scalar tail takes the last partial chunk.
-// Unpacking: every global load and store of a row's bulk is 16 bytes wide
-// and 16-byte aligned, whatever n and the row stride; consecutive threads
-// store consecutive chunks. Each output stream is cut into its aligned
-// 16-byte chunks; the input bytes a chunk needs start at the input's own
-// offset, which an odd n or a row of a wider container leaves off a
-// 16-byte boundary, and are realigned with funnel shifts:
-// - unpack4 (one input stream, two outputs): in registers. Lane k of a
-//   warp loads aligned input chunk k, takes chunks k + 1 and k + 2 from
-//   the lanes above with shuffles and cuts both output chunks from them;
-//   a warp has 64 chunks of each stream in flight, two a lane, and no
-//   block-wide barrier stands between its loads and its stores.
+// Pure data movement, bound by bytes. Every global load and store of a
+// row's bulk is 16 bytes wide and 16-byte aligned, whatever n and the row
+// stride; consecutive threads store consecutive chunks. Each output stream
+// is cut into a head before its first 16-byte boundary, its aligned 16-byte
+// chunks and a tail. The input bytes a chunk needs start at the input's own
+// offset, which an odd n, a row stride or a row of a wider container leaves
+// off a 16-byte boundary, so each input stream is loaded as aligned chunks
+// and realigned with funnel shifts:
+// - pack4 (two input halves, one output): in registers. Lane k of a warp
+//   loads aligned chunk k of each half, takes chunk k + 1 from the lane
+//   above by a shuffle, and joins the two windows' nibbles on 32-bit words.
+// - pack16 (one input, two output planes, 32 input bytes an output chunk):
+//   in registers. Lane k loads aligned chunks 2k and 2k + 1 of the row,
+//   takes 2k + 2 .. 2k + 4 from the lanes above, and each plane cuts its
+//   32 bytes at its own offset (an odd n gives the planes different heads)
+//   and picks its bytes with __byte_perm. The loads depend on the row's
+//   address alone, so they issue before the planes' spans are known.
+// - unpack4 (one input stream, two outputs): in registers. Lane k loads
+//   aligned input chunk k, takes chunks k + 1 and k + 2 from the lanes
+//   above and cuts both output chunks from them.
 // - unpack16 (two input planes, 8 codes an output chunk): in shared
 //   memory. A block stages the aligned span of both planes that its 512
 //   output chunks read with cp.async (2 or 3 chunks in flight a thread)
 //   and each thread reads its 8 + 8 bytes at the planes' own offsets.
-// Each stream's head before its first 16-byte boundary and its ragged
-// tail (under 16 bytes each) are written byte by byte, one slot a thread,
-// by the warp or block that takes the row's first chunks, their loads
-// issued with its chunks'.
+// The register kernels give a warp 64 chunks of each stream, two a lane,
+// with no block-wide barrier between its loads and its stores. Each
+// stream's head and ragged tail are written byte by byte, one slot a
+// thread, by the warp or block that takes the row's first chunks, their
+// loads issued with its chunks'. Rows run on blockIdx.y.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -46,161 +49,19 @@
 
 namespace {
 
+// the register kernels: blocks of four warps, each warp 2 steps of 32
+// chunks of each stream at once
+constexpr int WARPS = 4;
+constexpr int STEPS = 2;
+constexpr int SPAN = 32 * STEPS;        // chunks of a warp's work item
+// unpack16: blocks of 256 threads, 2 output chunks a thread
 constexpr int THREADS = 256;
-constexpr long long MAX_BLOCKS_X = 132 * 8;
-
-union Bytes16 {
-  uint4 v;
-  uint2 d[2];
-  uint32_t w[4];
-  uint8_t b[16];
-};
-
-union Halves16 {
-  Bytes16 q[2];
-  uint16_t h[16];
-};
-
-// The widest access (16, 8, 4 or 1 bytes) the address is aligned for. A
-// chunk starts a multiple of 16 bytes into its stream, so the stream's row
-// start decides for every chunk of the row.
-__device__ __forceinline__ int align_of(const void* p) {
-  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(p);
-  return (a & 15u) == 0 ? 16 : (a & 7u) == 0 ? 8 : (a & 3u) == 0 ? 4 : 1;
-}
-
-__device__ __forceinline__ void load16(const uint8_t* p, int al,
-                                       Bytes16& x) {
-  if (al == 16) {
-    x.v = *reinterpret_cast<const uint4*>(p);
-  } else if (al == 8) {
-    const uint2* q = reinterpret_cast<const uint2*>(p);
-    x.d[0] = q[0];
-    x.d[1] = q[1];
-  } else if (al == 4) {
-    const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x.w[j] = q[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) x.b[j] = p[j];
-  }
-}
-
-__device__ __forceinline__ void store16(uint8_t* p, int al,
-                                        const Bytes16& x) {
-  if (al == 16) {
-    *reinterpret_cast<uint4*>(p) = x.v;
-  } else if (al == 8) {
-    uint2* q = reinterpret_cast<uint2*>(p);
-    q[0] = x.d[0];
-    q[1] = x.d[1];
-  } else if (al == 4) {
-    uint32_t* q = reinterpret_cast<uint32_t*>(p);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q[j] = x.w[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) p[j] = x.b[j];
-  }
-}
+constexpr int CPT = 2;
+constexpr int TC = THREADS * CPT;       // output chunks of a tile
 
 struct Job {
   long long rows, n, half, ld_in, ld_out;
 };
-
-// streams: 0 = codes (first half), 1 = codes (second half), 2 = out
-__global__ void __launch_bounds__(THREADS)
-pack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-             Job job) {
-  const long long h = job.half, n = job.n;
-  const long long chunks = (h + 15) / 16;
-  for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
-    const uint8_t* src = in + r * job.ld_in;
-    uint8_t* dst = out + r * job.ld_out;
-    const int a_hi = align_of(src), a_lo = align_of(src + h),
-              a_out = align_of(dst);
-    for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
-         c < chunks; c += (long long)gridDim.x * THREADS) {
-      const long long i0 = c * 16;
-      if (i0 + 16 <= h && i0 + 16 + h <= n) {
-        Bytes16 hi, lo, o;
-        load16(src + i0, a_hi, hi);
-        load16(src + h + i0, a_lo, lo);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          o.b[j] = (uint8_t)((hi.b[j] << 4) | (lo.b[j] & 0xF));
-        store16(dst + i0, a_out, o);
-      } else {
-        for (long long i = i0; i < i0 + 16 && i < h; ++i) {
-          const int lo = i + h < n ? src[i + h] : 0;
-          dst[i] = (uint8_t)((src[i] << 4) | (lo & 0xF));
-        }
-      }
-    }
-  }
-}
-
-// streams: 0 = codes (uint16), 1 = high plane, 2 = low plane
-__global__ void __launch_bounds__(THREADS)
-pack16_kernel(const uint16_t* __restrict__ in, uint8_t* __restrict__ out,
-              Job job) {
-  const long long n = job.n;
-  const long long chunks = (n + 15) / 16;
-  for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
-    const uint16_t* src = in + r * job.ld_in;
-    uint8_t* dst = out + r * job.ld_out;
-    const int a_in = align_of(src), a_hi = align_of(dst),
-              a_lo = align_of(dst + n);
-    for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
-         c < chunks; c += (long long)gridDim.x * THREADS) {
-      const long long i0 = c * 16;
-      if (i0 + 16 <= n) {
-        Halves16 x;
-        const uint8_t* p = reinterpret_cast<const uint8_t*>(src + i0);
-        load16(p, a_in, x.q[0]);
-        load16(p + 16, a_in, x.q[1]);
-        Bytes16 hi, lo;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          hi.b[j] = (uint8_t)(x.h[j] >> 8);
-          lo.b[j] = (uint8_t)(x.h[j] & 0xFF);
-        }
-        store16(dst + i0, a_hi, hi);
-        store16(dst + n + i0, a_lo, lo);
-      } else {
-        for (long long i = i0; i < n; ++i) {
-          dst[i] = (uint8_t)(src[i] >> 8);
-          dst[n + i] = (uint8_t)(src[i] & 0xFF);
-        }
-      }
-    }
-  }
-}
-
-template <typename In, typename Out>
-int launch(void (*kernel)(const In*, Out*, Job), const In* in, Out* out,
-           Job job, long long chunks, void* stream) {
-  if (job.rows < 1 || job.n < 1) return (int)cudaErrorInvalidValue;
-  long long bx = (chunks + THREADS - 1) / THREADS;
-  if (bx > MAX_BLOCKS_X) bx = MAX_BLOCKS_X;
-  const long long by = job.rows < 65535 ? job.rows : 65535;
-  kernel<<<dim3((unsigned)bx, (unsigned)by), THREADS, 0,
-           (cudaStream_t)stream>>>(in, out, job);
-  return (int)cudaGetLastError();
-}
-
-// --- unpacking ------------------------------------------------------------
-
-namespace un {
-
-constexpr int THREADS = 256;
-constexpr int CPT = 2;                  // output chunks a thread and stream
-constexpr int TC = THREADS * CPT;       // output chunks of a tile and stream
-// unpack4: blocks of four warps, each warp 2 steps of 32 chunks at once
-constexpr int WARPS4 = 4;
-constexpr int STEPS4 = 2;
-constexpr int SPAN4 = 32 * STEPS4;      // chunks of a warp's work item
 
 // An output stream of `len` bytes at dst: `head` bytes before its first
 // 16-byte boundary (or all of it, if it holds none), then `full` whole
@@ -213,6 +74,21 @@ __device__ __forceinline__ Span span_of(const void* dst, long long len) {
   const long long to16 = (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
   const long long head = to16 < len ? to16 : len;
   return {head, (len - head) / 16};
+}
+
+// An input stream read as aligned 16-byte chunks from `base`: its bytes
+// start d (0..15) bytes in, and a chunk that starts at or past `avail`
+// bytes holds none of them and is not loaded.
+struct Stream {
+  const uint8_t* base;
+  int d;
+  long long avail;
+};
+
+// The stream of the `len` bytes at p.
+__device__ __forceinline__ Stream stream_at(const uint8_t* p, long long len) {
+  const int d = (int)(reinterpret_cast<uintptr_t>(p) & 15);
+  return {p - d, d, d + len};
 }
 
 __device__ __forceinline__ const uint8_t* align_down(const uint8_t* p) {
@@ -267,6 +143,12 @@ __device__ __forceinline__ uint4 chunk(const uint8_t* p, bool in) {
             : make_uint4(0u, 0u, 0u, 0u);
 }
 
+// Chunk j of stream s, if it holds bytes of the stream.
+__device__ __forceinline__ uint4 chunk_of(const Stream& s, long long j,
+                                          bool want = true) {
+  return chunk(s.base + 16 * j, want && 16 * j < s.avail);
+}
+
 // The 8 bytes at byte offset `off` of the staged chunks s, as two words
 // (off % 8 the same for every thread of a stream).
 __device__ __forceinline__ uint2 window8(const uint4* s, int off) {
@@ -281,6 +163,53 @@ __device__ __forceinline__ uint2 window8(const uint4* s, int off) {
   return make_uint2((uint32_t)x, (uint32_t)(x >> 32));
 }
 
+// Bytewise (hi << 4) | (lo & 0xF) on four bytes of each.
+__device__ __forceinline__ uint4 nibbles(uint4 hi, uint4 lo) {
+  return make_uint4((hi.x << 4 & 0xF0F0F0F0u) | (lo.x & 0x0F0F0F0Fu),
+                    (hi.y << 4 & 0xF0F0F0F0u) | (lo.y & 0x0F0F0F0Fu),
+                    (hi.z << 4 & 0xF0F0F0F0u) | (lo.z & 0x0F0F0F0Fu),
+                    (hi.w << 4 & 0xF0F0F0F0u) | (lo.w & 0x0F0F0F0Fu));
+}
+
+// One byte of each of the 16 little-endian uint16 codes in the words
+// v[Q .. Q + 8] shifted right by sh bits: selector 0x7531 picks the high
+// bytes, 0x6420 the low.
+template <int Q>
+__device__ __forceinline__ uint4 plane_at(const uint32_t (&v)[20],
+                                          unsigned sh, unsigned sel) {
+  uint32_t y[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    y[j] = __funnelshift_r(v[Q + j], v[Q + j + 1], sh);
+  return make_uint4(__byte_perm(y[0], y[1], sel), __byte_perm(y[2], y[3], sel),
+                    __byte_perm(y[4], y[5], sel), __byte_perm(y[6], y[7], sel));
+}
+
+// plane_at of the 16 codes that start o (0..47, the same for every lane
+// of a row, so the switch does not diverge) bytes into the chunks w.
+__device__ __forceinline__ uint4 plane(const uint4 (&w)[5], int o,
+                                       unsigned sel) {
+  const uint32_t v[20] = {w[0].x, w[0].y, w[0].z, w[0].w, w[1].x, w[1].y,
+                          w[1].z, w[1].w, w[2].x, w[2].y, w[2].z, w[2].w,
+                          w[3].x, w[3].y, w[3].z, w[3].w, w[4].x, w[4].y,
+                          w[4].z, w[4].w};
+  const unsigned sh = 8 * (o & 3);
+  switch (o >> 2) {
+    case 0: return plane_at<0>(v, sh, sel);
+    case 1: return plane_at<1>(v, sh, sel);
+    case 2: return plane_at<2>(v, sh, sel);
+    case 3: return plane_at<3>(v, sh, sel);
+    case 4: return plane_at<4>(v, sh, sel);
+    case 5: return plane_at<5>(v, sh, sel);
+    case 6: return plane_at<6>(v, sh, sel);
+    case 7: return plane_at<7>(v, sh, sel);
+    case 8: return plane_at<8>(v, sh, sel);
+    case 9: return plane_at<9>(v, sh, sel);
+    case 10: return plane_at<10>(v, sh, sel);
+    default: return plane_at<11>(v, sh, sel);
+  }
+}
+
 __device__ __forceinline__ uint4 high_nibbles(uint4 x) {
   return make_uint4(x.x >> 4 & 0x0F0F0F0Fu, x.y >> 4 & 0x0F0F0F0Fu,
                     x.z >> 4 & 0x0F0F0F0Fu, x.w >> 4 & 0x0F0F0F0Fu);
@@ -291,10 +220,131 @@ __device__ __forceinline__ uint4 low_nibbles(uint4 x) {
                     x.z & 0x0F0F0F0Fu, x.w & 0x0F0F0F0Fu);
 }
 
-}  // namespace un
+// Grid (items, rows): a warp's work item t of row r is the row's output
+// chunks [SPAN·t, SPAN·t + SPAN). Output chunk k (bytes head + 16k on)
+// reads 16 codes of each half, [head + 16k, ..) and [h + head + 16k, ..),
+// each half a Stream: lane k loads its aligned chunk k, takes chunk k + 1
+// from the lane above (lane 31 loads chunk 32 too) and cuts its window. An
+// odd n's last byte, whose low nibble is the code past the end, is left to
+// the tail, so no chunk reads that code. The warp of item 0 also takes the
+// head and tail bytes, one slot a lane (head byte l for lanes l < 16, tail
+// byte l - 16 above: the tail holds at most 16), loaded with its chunks
+// and stored after them.
+__global__ void __launch_bounds__(WARPS * 32)
+pack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+             Job job, long long items) {
+  const long long h = job.half, n = job.n;
+  const int lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  if (t >= items) return;   // whole warps
+  for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    const uint8_t* src = in + r * job.ld_in;
+    uint8_t* dst = out + r * job.ld_out;
+    const Span o = span_of(dst, h - (n & 1));
+    const long long i = lane < 16 ? lane : o.head + 16 * o.full + lane - 16;
+    const bool slot = t == 0 && (lane < 16 ? i < o.head : i < h);
+    const uint8_t bh = slot ? src[i] : 0;
+    const uint8_t bl = slot && i + h < n ? src[i + h] : 0;
+    const Stream a = stream_at(src + o.head, 16 * o.full),
+                 b = stream_at(src + h + o.head, 16 * o.full);
+    uint4 xa[STEPS], ea[STEPS], xb[STEPS], eb[STEPS];
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {   // every load in flight first
+      const long long c = SPAN * t + 32 * u + lane;
+      xa[u] = chunk_of(a, c);
+      xb[u] = chunk_of(b, c);
+      ea[u] = chunk_of(a, c + 1, lane == 31 && a.d != 0);
+      eb[u] = chunk_of(b, c + 1, lane == 31 && b.d != 0);
+    }
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const long long k = SPAN * t + 32 * u + lane;
+      uint4 na = shfl_down4(xa[u], 1), nb = shfl_down4(xb[u], 1);
+      if (lane == 31) {
+        na = ea[u];
+        nb = eb[u];
+      }
+      if (k < o.full)
+        *reinterpret_cast<uint4*>(dst + o.head + 16 * k) = nibbles(
+            window16(xa[u], na, a.d), window16(xb[u], nb, b.d));
+    }
+    if (slot) dst[i] = (uint8_t)(bh << 4 | (bl & 0xF));
+  }
+}
+
+// Grid (items, rows): a warp's work item t of row r is the output chunks
+// [SPAN·t, SPAN·t + SPAN) of each plane. Chunk k of a plane is its
+// codes [head + 16k, ..), with the plane's own head (an odd n, or a row
+// that is not 16-byte aligned, gives the planes different heads): 32
+// input bytes. Both planes are cut from the row's input read as aligned
+// chunks from its first code's chunk, so the loads wait on nothing but
+// the row's address: a plane's bytes start o = s0 + 2·head (0..45) bytes
+// past that chunk (s0 the row's offset), and its chunk k lies in the
+// aligned chunks 2k .. 2k + 4. Lane k loads chunks 2k and 2k + 1, takes
+// 2k + 2 and 2k + 3 from the lane above and 2k + 4 from the lane two
+// above (lane 31 loads the three past the warp, lane 30 takes its fifth
+// from them), and picks each plane's bytes with __byte_perm. The warp of item 0 also takes each plane's head
+// and tail bytes, one slot a lane and plane.
+// At least 8 blocks an SM (64 registers): at 95 registers, 5 blocks an SM,
+// the multi-row batches ran ~4% slower.
+__global__ void __launch_bounds__(WARPS * 32, 8)
+pack16_kernel(const uint16_t* __restrict__ in, uint8_t* __restrict__ out,
+              Job job, long long items) {
+  const long long n = job.n;
+  const int lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  if (t >= items) return;   // whole warps
+  for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    const uint16_t* src = in + r * job.ld_in;
+    uint8_t* dst = out + r * job.ld_out;
+    const Stream s = stream_at(reinterpret_cast<const uint8_t*>(src), 2 * n);
+    uint4 x[STEPS][2], e[STEPS][3];
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {   // every load in flight first
+      const long long c = SPAN * t + 32 * u + lane;
+      x[u][0] = chunk_of(s, 2 * c);
+      x[u][1] = chunk_of(s, 2 * c + 1);
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        e[u][j] = chunk_of(s, 2 * c + 2 + j, lane == 31);
+    }
+    const Span hi = span_of(dst, n), lo = span_of(dst + n, n);
+    const long long ih = lane < 16 ? lane : hi.head + 16 * hi.full + lane - 16;
+    const long long il = lane < 16 ? lane : lo.head + 16 * lo.full + lane - 16;
+    const bool bh = t == 0 && (lane < 16 ? ih < hi.head : ih < n);
+    const bool bl = t == 0 && (lane < 16 ? il < lo.head : il < n);
+    const uint16_t ch = bh ? src[ih] : 0, cl = bl ? src[il] : 0;
+    const int oh = s.d + 2 * (int)hi.head, ol = s.d + 2 * (int)lo.head;
+    const bool far = oh >= 32 || ol >= 32;   // chunk 2k + 4 is read
+#pragma unroll
+    for (int u = 0; u < STEPS; ++u) {
+      const long long k = SPAN * t + 32 * u + lane;
+      uint4 w[5] = {x[u][0], x[u][1], shfl_down4(x[u][0], 1),
+                    shfl_down4(x[u][1], 1), e[u][2]};
+      if (far) {
+        w[4] = shfl_down4(x[u][0], 2);
+        const uint4 e31 = shfl4(e[u][0], 31);
+        if (lane == 30) w[4] = e31;
+      }
+      if (lane == 31) {
+        w[2] = e[u][0];
+        w[3] = e[u][1];
+        w[4] = e[u][2];
+      }
+      if (k < hi.full)
+        *reinterpret_cast<uint4*>(dst + hi.head + 16 * k) =
+            plane(w, oh, 0x7531);
+      if (k < lo.full)
+        *reinterpret_cast<uint4*>(dst + n + lo.head + 16 * k) =
+            plane(w, ol, 0x6420);
+    }
+    if (bh) dst[ih] = (uint8_t)(ch >> 8);
+    if (bl) dst[n + il] = (uint8_t)(cl & 0xFF);
+  }
+}
 
 // Grid (items, rows): a warp's work item t of row r is the row's output
-// chunks [SPAN4·t, SPAN4·t + SPAN4) of each of its two streams (codes
+// chunks [SPAN·t, SPAN·t + SPAN) of each of its two streams (codes
 // [0, h) and [h, n)). Both read the packed bytes [0, h): chunk k of the
 // hi stream starts eh (0..30) bytes into packed chunk k (counted from the
 // row's first aligned chunk), the lo stream's el, so lane k loads
@@ -303,13 +353,12 @@ __device__ __forceinline__ uint4 low_nibbles(uint4 x) {
 // The warp of item 0 also takes each stream's head and tail bytes, one
 // slot a lane (head byte l for lanes l < 16, tail byte l - 16 above),
 // loaded with its chunks and stored after them.
-__global__ void __launch_bounds__(un::WARPS4 * 32)
+__global__ void __launch_bounds__(WARPS * 32)
 unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                Job job, long long items) {
-  using namespace un;
   const long long h = job.half, n = job.n;
   const int lane = threadIdx.x & 31;
-  const long long t = (long long)blockIdx.x * WARPS4 + threadIdx.x / 32;
+  const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (t >= items) return;   // whole warps
   for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
     const uint8_t* src = in + r * job.ld_in;
@@ -325,16 +374,16 @@ unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     const int eh = s0 + (int)hi.head, el = s0 + (int)lo.head;
     const uint8_t* base = align_down(src);
     const long long avail = s0 + h;   // chunk c holds packed bytes: 16c < avail
-    uint4 x[STEPS4], e[STEPS4];
+    uint4 x[STEPS], e[STEPS];
 #pragma unroll
-    for (int u = 0; u < STEPS4; ++u) {   // every load in flight first
-      const long long c = SPAN4 * t + 32 * u + lane;
+    for (int u = 0; u < STEPS; ++u) {   // every load in flight first
+      const long long c = SPAN * t + 32 * u + lane;
       x[u] = chunk(base + 16 * c, 16 * c < avail);
       e[u] = chunk(base + 16 * (c + 2), lane >= 30 && 16 * (c + 2) < avail);
     }
 #pragma unroll
-    for (int u = 0; u < STEPS4; ++u) {
-      const long long k = SPAN4 * t + 32 * u + lane;
+    for (int u = 0; u < STEPS; ++u) {
+      const long long k = SPAN * t + 32 * u + lane;
       uint4 n1 = shfl_down4(x[u], 1), n2 = shfl_down4(x[u], 2);
       const uint4 e30 = shfl4(e[u], 30);
       if (lane == 31) n1 = e30;
@@ -358,10 +407,9 @@ unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 // tile 0 also takes the head and tail codes, one slot a thread (head code
 // i for threads i < 8, tail code i - 8 for threads 8..15), loaded before
 // the staging and stored after it.
-__global__ void __launch_bounds__(un::THREADS)
+__global__ void __launch_bounds__(THREADS)
 unpack16_kernel(const uint8_t* __restrict__ in, uint16_t* __restrict__ out,
                 Job job, long long tiles) {
-  using namespace un;
   __shared__ uint4 hs[TC / 2 + 1], ls[TC / 2 + 1];
   const long long n = job.n;
   const long long t = blockIdx.x;
@@ -388,7 +436,7 @@ unpack16_kernel(const uint8_t* __restrict__ in, uint16_t* __restrict__ out,
     uint8_t* d8 = reinterpret_cast<uint8_t*>(dst) + o.head;
 #pragma unroll
     for (int m = 0; m < CPT; ++m) {
-      const int k = i + m * un::THREADS;
+      const int k = i + m * THREADS;
       if (k < cnt) {
         const uint2 hb = window8(hs, oh + 8 * k), lb = window8(ls, ol + 8 * k);
         // code j = high byte j << 8 | low byte j, little-endian in memory
@@ -402,12 +450,13 @@ unpack16_kernel(const uint8_t* __restrict__ in, uint16_t* __restrict__ out,
   }
 }
 
-// Grid (items, rows): an item of `per_item` whole output chunks of the
-// row's widest stream for each `team` of threads, rows strided past 65535.
-template <typename Out>
-int launch_unpack(void (*kernel)(const uint8_t*, Out*, Job, long long),
-                  const uint8_t* in, Out* out, Job job, long long len,
-                  int per_item, int team, int threads, void* stream) {
+// Grid (items, rows): an item of `per_item` whole 16-byte chunks of the
+// row's widest output stream (`len` bytes) for each `team` of threads,
+// rows strided past 65535.
+template <typename In, typename Out>
+int launch_rows(void (*kernel)(const In*, Out*, Job, long long), const In* in,
+                Out* out, Job job, long long len, int per_item, int team,
+                int threads, void* stream) {
   if (job.rows < 1 || job.n < 1) return (int)cudaErrorInvalidValue;
   long long items = (len / 16 + per_item - 1) / per_item;
   if (items < 1) items = 1;
@@ -428,8 +477,8 @@ extern "C" int pack_codes4(const uint8_t* codes, uint8_t* out,
                            long long rows, long long n, long long ld_in,
                            long long ld_out, void* stream) {
   const long long h = (n + 1) / 2;
-  return launch(pack4_kernel, codes, out, Job{rows, n, h, ld_in, ld_out},
-                (h + 15) / 16, stream);
+  return launch_rows(pack4_kernel, codes, out, Job{rows, n, h, ld_in, ld_out},
+                     h, SPAN, 32, WARPS * 32, stream);
 }
 
 // packed [rows, >= ceil(n/2)] -> codes [rows, >= n] uint8
@@ -437,24 +486,24 @@ extern "C" int unpack_codes4(const uint8_t* packed, uint8_t* out,
                              long long rows, long long n, long long ld_in,
                              long long ld_out, void* stream) {
   const long long h = (n + 1) / 2;
-  return launch_unpack(unpack4_kernel, packed, out,
-                       Job{rows, n, h, ld_in, ld_out}, h, un::SPAN4, 32,
-                       un::WARPS4 * 32, stream);
+  return launch_rows(unpack4_kernel, packed, out,
+                     Job{rows, n, h, ld_in, ld_out}, h, SPAN, 32, WARPS * 32,
+                     stream);
 }
 
 // codes [rows, >= n] uint16 (ld_in in codes) -> out [rows, >= 2n] uint8
 extern "C" int pack_codes16(const uint16_t* codes, uint8_t* out,
                             long long rows, long long n, long long ld_in,
                             long long ld_out, void* stream) {
-  return launch(pack16_kernel, codes, out, Job{rows, n, n, ld_in, ld_out},
-                (n + 15) / 16, stream);
+  return launch_rows(pack16_kernel, codes, out, Job{rows, n, n, ld_in, ld_out},
+                     n, SPAN, 32, WARPS * 32, stream);
 }
 
 // packed [rows, >= 2n] uint8 -> codes [rows, >= n] uint16 (ld_out in codes)
 extern "C" int unpack_codes16(const uint8_t* packed, uint16_t* out,
                               long long rows, long long n, long long ld_in,
                               long long ld_out, void* stream) {
-  return launch_unpack(unpack16_kernel, packed, out,
-                       Job{rows, n, n, ld_in, ld_out}, 2 * n, un::TC,
-                       un::THREADS, un::THREADS, stream);
+  return launch_rows(unpack16_kernel, packed, out,
+                     Job{rows, n, n, ld_in, ld_out}, 2 * n, TC, THREADS,
+                     THREADS, stream);
 }

@@ -12,19 +12,21 @@ writes 1.2 MB (about 1.1 µs at 3.35 TB/s); 16-bit codes read 5 MB and write
 5 MB (about 3 µs).
 
 Design: one launch formats every row of a [rows, n] batch (one row per
-shard's slab). Packing: each thread 16 packed bytes per step, each stream
-of a row with the widest access (128, 64 or 32 bits) its row's address
-allows. Unpacking: every load and store of a row's bulk is 16 bytes wide
-and 16-byte aligned whatever n and the row stride (an odd n, or a row of a
-wider container, leaves a stream off a 16-byte boundary); the input is
-realigned by funnel shifts, for 4-bit codes in registers (a lane takes
-its neighbours' chunks by warp shuffles), for 16-bit codes from a span of
-both planes staged in shared memory with cp.async; consecutive threads
-store consecutive chunks, and each stream's head and tail (under 16
-bytes) go byte by byte. The 4-bit
-pack reads the code past an odd end as 0 instead of padding a copy, and
-unpacking reads each row at its own stride, so the head of a wider wire
-container needs no copy. The layout is the wire contract, so kernel and
+shard's slab), rows on the grid's second dimension. Every load and store
+of a row's bulk is 16 bytes wide and 16-byte aligned whatever n and the
+row strides (an odd n, a row stride or a row of a wider container leaves
+a stream off a 16-byte boundary): each output stream is cut into its
+aligned 16-byte chunks, consecutive threads storing consecutive chunks,
+and the input is loaded as aligned chunks and realigned by funnel shifts.
+Packing realigns in registers (a lane takes its neighbour's chunk by a
+warp shuffle): 4-bit codes join the two halves' nibbles on 32-bit words,
+16-bit codes pick each plane's bytes with ``__byte_perm``. Unpacking
+4-bit codes does the same in registers; 16-bit codes are cut from a span
+of both planes staged in shared memory with cp.async. Each stream's head
+and tail (under 16 bytes; an odd n's last 4-bit byte joins the tail) go
+byte by byte. The 4-bit pack reads the code past an odd end as 0
+instead of padding a copy, and unpacking reads each row at its own
+stride, so the head of a wider wire container needs no copy. The layout is the wire contract, so kernel and
 plain version are held equal byte for byte. 8-bit codes are their own
 container: no launch, as on the TPU.
 """

@@ -71,8 +71,9 @@ def test_every_port_name_starts_a_kernel(name):
 @pytest.mark.parametrize("kernel,prefix", [
     ("admm_pgrad_narrow", "admm_pgrad_"), ("admm_pgrad_tc", "admm_pgrad_"),
     ("unpack4_kernel", "unpack4_kernel"),
-    ("unpack16_kernel", "unpack16_kernel")])
+    ("unpack16_kernel", "unpack16_kernel"), ("pack4_kernel", "pack4_kernel"),
+    ("pack16_kernel", "pack16_kernel")])
 def test_redesigned_kernels_keep_their_groups(kernel, prefix):
-    assert ("pack_codes.cu" if "unpack" in kernel else "admm_pgrad.cu",
+    assert ("pack_codes.cu" if "pack" in kernel else "admm_pgrad.cu",
             kernel) in KERNELS
     assert prefix in NAMES

@@ -791,23 +791,38 @@ def test_cuda_fista_zlast_wide_rows(cuda, V, width, n_classes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 16])
-@pytest.mark.parametrize("rows,n,pad,off", [
-    (1, 2485 * 1000, 0, 0), (1, 1001, 0, 0), (3, 1001, 7, 0),
-    (4, 4096, 16, 0), (2, 1, 0, 0), (5, 33, 3, 0), (10, 2485 * 1000, 0, 0),
-    (6, 4104, 0, 0), (4, 4100, 0, 0), (3, 1002, 2, 0),
+@pytest.mark.parametrize("rows,n,pad,off,in_off", [
+    (1, 2485 * 1000, 0, 0, 0), (1, 1001, 0, 0, 0), (3, 1001, 7, 0, 0),
+    (4, 4096, 16, 0, 0), (2, 1, 0, 0, 0), (5, 33, 3, 0, 0),
+    (10, 2485 * 1000, 0, 0, 0), (6, 4104, 0, 0, 0), (4, 4100, 0, 0, 0),
+    (3, 1002, 2, 0, 0),
     # unpacking from containers whose first row starts 1, 2, 4 or 8 bytes
     # off a 16-byte boundary, at several waves of blocks
-    (2, 2_000_001, 0, 1), (2, 2_000_001, 3, 2), (2, 2_000_000, 0, 4),
-    (2, 2_000_000, 5, 8)])
-def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad, off):
-    """Every access width (row strides that leave rows 8, 4 or 1 bytes off
-    a 16-byte boundary, as the ring's [10, 2,485,000] batch does), odd n,
-    batched rows, and unpacking from the head of wider rows, the container
-    itself ``off`` bytes off a 16-byte boundary."""
+    (2, 2_000_001, 0, 1, 0), (2, 2_000_001, 3, 2, 0), (2, 2_000_000, 0, 4, 0),
+    (2, 2_000_000, 5, 8, 0),
+    # packing from codes whose first row starts 1, 2, 4 or 8 bytes off a
+    # 16-byte boundary (16-bit codes: 2 for 1, a uint16 row starts at an
+    # even byte), odd and even n
+    (2, 2_000_001, 0, 0, 1), (2, 2_000_000, 3, 0, 2), (2, 2_000_001, 0, 0, 4),
+    (2, 2_000_000, 5, 3, 8),
+    # rows that are all head and tail (n 1..33), from misaligned starts
+    (3, 1, 0, 0, 1), (4, 2, 1, 0, 2), (3, 7, 2, 1, 4), (5, 15, 0, 0, 8),
+    (2, 16, 3, 0, 1), (4, 17, 1, 2, 2), (3, 31, 0, 0, 4), (6, 32, 5, 0, 1),
+    (3, 33, 2, 4, 8)])
+def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad, off,
+                                             in_off):
+    """Every row offset (row strides that leave rows 8, 4 or 1 bytes off a
+    16-byte boundary, as the ring's [10, 2,485,000] batch does), odd n,
+    batched rows, packing from codes whose first row starts ``in_off``
+    bytes off a 16-byte boundary, and unpacking from the head of wider
+    rows, the container itself ``off`` bytes off a 16-byte boundary."""
     rng = np.random.default_rng(n + rows)
     dt = torch.uint8 if bits <= 8 else torch.uint16
-    wide = torch.from_numpy(rng.integers(0, 2 ** bits, (rows, n + pad))
-                            .astype(np.int32)).to(dt).to(cuda)
+    skip = (in_off + 1) // 2 if bits > 8 else in_off    # codes before row 0
+    flat_codes = torch.from_numpy(rng.integers(
+        0, 2 ** bits, skip + rows * (n + pad)).astype(np.int32)).to(dt).to(cuda)
+    assert flat_codes.data_ptr() % 16 == 0
+    wide = flat_codes[skip:].view(rows, n + pad)
     codes = wide[:, :n]
     if rows == 1:
         codes = codes[0]

@@ -4,8 +4,10 @@ against its single-process ring.
 
 * Packing: the plain ``pack_codes`` / ``unpack_codes`` equal the
   reference's ``ops.pack_codes`` byte for byte, on its jnp path and on its
-  Pallas kernel in interpret mode (bits 4/8/16, odd and ragged n), and the
-  row-batched form packs each row as the flat form does.
+  Pallas kernel in interpret mode (bits 4/8/16, odd and ragged n), the
+  row-batched form packs each row as the flat form does, and strided row
+  views (each row further off a 16-byte boundary) pack row by row as the
+  reference's kernel does.
 * Byte functions (``psum_mode``, ``psum_wire_bytes``, ``PaddedWire``,
   ``shard_rows``, ``wire_bytes_per_iteration``,
   ``container_wire_bytes_per_iteration``): equal to the reference's,
@@ -91,6 +93,30 @@ def test_row_batched_pack_packs_each_row(bits, n):
     wide[:, :packed.shape[1]] = packed
     assert torch.equal(ops.unpack_codes(wide, bits, n).to(torch.int32),
                        codes.to(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [4, 16])
+@pytest.mark.parametrize("n", [17, 128])
+@pytest.mark.parametrize("skew", [0, 1, 2, 3])
+def test_strided_rows_pack_as_the_reference_kernel(bits, n, skew):
+    """Row views of a wider buffer (``wide[:, :n]``) whose stride leaves
+    each row ``skew`` codes further off a 16-byte boundary than the last,
+    odd and even n: each packed row equals the reference's Pallas kernel
+    (interpret mode) on that row."""
+    rng = np.random.default_rng(bits * 131 + n * 7 + skew)
+    per16 = 16 // (1 if bits <= 8 else 2)
+    ld = (n + per16 - 1) // per16 * per16 + skew
+    wide = torch.from_numpy(rng.integers(0, 2 ** bits, (3, ld))
+                            .astype(np.int32)).to(tc._container_dtype(bits))
+    codes = wide[:, :n]
+    got = ops.pack_codes(codes, bits)
+    assert got.shape == (3, tc._body_bytes(bits, n))
+    jdtype = jnp.uint8 if bits <= 8 else jnp.uint16
+    for r in range(3):
+        want = jops.pack_codes(
+            jnp.asarray(codes[r].to(torch.int32).numpy(), jdtype), bits,
+            use_pallas=True, interpret=True)
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(want))
 
 
 def test_codec_int4_payloads_go_through_the_dispatch(monkeypatch):
