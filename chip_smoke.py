@@ -20,10 +20,16 @@ and the script exits non-zero without printing a result:
    time of the smallest kernels.
    ``fista_zlast`` also runs at coauthor_cs's and ogbn_arxiv's last
    layers ([18333, 15], [169343, 40]) and ogbn_arxiv's ring last layer
-   ([169343, 1000], 40 classes), from ``graph.datasets.TABLE_II``; every
-   case must give the same bits on a second call, and the two [V, C]
-   cases print the launch floor (the device time of a one-element
-   ``torch.zeros`` fill) beside the bound.
+   ([169343, 1000], 40 classes), from ``graph.datasets.TABLE_II``, and
+   past the lane-group route's 64 classes (the kernels line's
+   ``fista_zlast_wide``): cora's [2485, 1000] rows with 1000 and 65
+   classes and head-folded with 100, [2485, 4096] with 4096 (the
+   shared-memory route), cora's [2485, 7] and [2485, 100] at 300
+   iterations, and 2048 token rows over tinyllama's 32000-entry
+   vocabulary ([2048, 32000], the streaming route); every case must
+   give the same bits on a second call, and the [V, C] cases print the
+   launch floor (the device time of a one-element ``torch.zeros`` fill)
+   beside the bound.
 3. Train pdADMM-G on cora at 10×1000 for a few iterations through
    ``repro_torch.core.pdadmm.train`` with every launch counter set to 0
    just before; its four kernels must have launched, the objective must be
@@ -141,9 +147,12 @@ and the script exits non-zero without printing a result:
    learning rates (finite losses, ms per epoch, no port kernel launched);
    block-pdADMM (``core.block_admm``) on 9 stacked relu(p @ W_l) blocks
    [1, 2485, 1000] behind a seeded relu(X @ W_in), 5 iterations by the CE
-   route (one ``fista_zlast`` launch an iteration, 7 classes) against the
-   generic route (objectives at rtol 1e-4, z_last within 1e-4 × its max),
-   each route's ms per iteration; and the test accuracies side by side.
+   route (one ``fista_zlast`` launch an iteration) against the generic
+   route (objectives at rtol 1e-4, z_last within 1e-4 × its max), each
+   route's ms per iteration, once at cora's 7 classes and once at
+   ``n_classes=None``, the CE over all 1000 columns (the kernel's register
+   route, whose launches the kernels line reports); and the test
+   accuracies side by side.
 9. ``lm_phase``: the dense LM served at tinyllama-1.1b's full width (22
    layers, d 2048, 32 query / 4 KV heads, bf16, seeded random weights):
    ``ModelBundle.prefill`` of 4 prompts of 2048 tokens with every launch
@@ -355,6 +364,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -389,6 +399,10 @@ FISTA_ITERS = 15
 # None = the classes alone, a one-host last layer)
 FISTA_TABLE_CASES = (("coauthor_cs", None), ("ogbn_arxiv", None),
                      ("ogbn_arxiv", 1000))
+# token rows of the streaming-route solve over LM_ARCH's vocabulary
+FISTA_TOKEN_ROWS = 2048
+# classes of the shared-memory-route solve on cora's rows (48 KB a row)
+FISTA_SMEM_CLASSES = 4096
 TRAJ_RTOL = 1e-3
 EPOCHS = 5          # iterations of each training run (the reference trains 200)
 MAX_DOUBLINGS = 12  # the p-update's backtracking trials (subproblems.update_p)
@@ -581,6 +595,8 @@ SOURCES = {
                      "src/repro/kernels/relu_zupdate.py:28"),
     "fista_zlast": ("src/repro_torch/kernels/csrc/fista_zlast.cu",
                     "src/repro/kernels/fista_zlast.py:88"),
+    "fista_zlast_wide": ("src/repro_torch/kernels/csrc/fista_zlast.cu",
+                         "src/repro/kernels/fista_zlast.py:88"),
     "backtrack_resnorm": ("src/repro_torch/kernels/csrc/backtrack_resnorm.cu",
                           "src/repro/kernels/backtrack_phi.py:44"),
     "grid_project": ("src/repro_torch/kernels/csrc/quantize_grid.cu",
@@ -774,12 +790,12 @@ def with_floor(row: dict, floor_ms: float) -> dict:
     return row
 
 
-def fista_work(nr: int, w: int, nc: int) -> tuple:
+def fista_work(nr: int, w: int, nc: int, steps: int = FISTA_ITERS + 1) -> tuple:
     """(bytes, flops) of one z_L solve on [nr, w] with nc classes: a, z_old
     read and z_L written once, labels and mask; 16 flops a class column and
-    step; a proximal column 4 in the first step and 7 in each later one
-    (y = z + m(z − z₋), g = ν(y − a), z⁺ = y − step·g, each rounded)."""
-    steps = FISTA_ITERS + 1
+    step (the expf counted as one); a proximal column 4 in the first step
+    and 7 in each later one (y = z + m(z − z₋), g = ν(y − a), z⁺ = y −
+    step·g, each rounded)."""
     return (4 * (3 * nr * w + 2 * nr),
             nr * (16 * nc * steps + (w - nc) * (4 + 7 * (steps - 1))))
 
@@ -815,59 +831,118 @@ def fista_inputs(ds, gen, C: int, h: int):
                rand(nr, w), rand(nr, w), lab, msk, nc)
 
 
-def fista_rows(ds, gen, C: int, h: int, nu: float) -> list:
-    """``case`` for fista_zlast at every ``fista_inputs`` shape, each also
-    called twice more for the same bits; the [V, C] rows carry the launch
-    floor."""
+def fista_wide_inputs(ds, gen, h: int):
+    """The z_L solves past 64 classes (the block-a-row routes) and past
+    255 steps, one at a time: cora's rows at h wide with h classes
+    (block-pdADMM's CE route at d = h, first: the kernels line's head
+    row), with 65 and head-folded with 100; cora's rows at 4096 classes
+    (the shared-memory route); cora's [V, C] and [V, 100] at 300
+    iterations; 2048 token rows over tinyllama-1.1b's 32000-entry
+    vocabulary (the streaming route: 262 MB a tensor). Yields (label, a,
+    z_old, labels, mask, classes, n_iters)."""
+    from repro_torch.configs.base import get_arch
+    dev = ds.labels.device
+    V, C = ds.labels.shape[0], ds.n_classes
+    mask = ds.masks["train"]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 3.0
+
+    def labels(nr, nc):
+        return torch.randint(0, nc, (nr,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    for w, nc, n_iters in ((h, h, FISTA_ITERS), (h, 65, FISTA_ITERS),
+                           (h, 100, FISTA_ITERS),
+                           (FISTA_SMEM_CLASSES, FISTA_SMEM_CLASSES,
+                            FISTA_ITERS), (C, C, 300), (100, 100, 300)):
+        yield (f"[{V},{w}] {nc} classes x{n_iters + 1} steps", rand(V, w),
+               rand(V, w), labels(V, nc), mask, nc, n_iters)
+    vocab = get_arch(LM_ARCH).vocab
+    nr = FISTA_TOKEN_ROWS
+    msk = (torch.rand(nr, generator=gen, device=dev) < 0.9).float()
+    yield (f"[{nr},{vocab}] {vocab} classes x{FISTA_ITERS + 1} steps "
+           f"({LM_ARCH} vocabulary)", rand(nr, vocab), rand(nr, vocab),
+           labels(nr, vocab), msk, vocab, FISTA_ITERS)
+
+
+def fista_rows(ds, gen, C: int, h: int, nu: float) -> tuple:
+    """``case`` for fista_zlast at every ``fista_inputs`` shape (the
+    lane-group route) and every ``fista_wide_inputs`` shape (the others),
+    each also called twice more for the same bits; the [V, C] rows carry
+    the launch floor. Returns (the lane-group rows at 16 steps, the rows
+    past 64 classes or 255 steps: the kernels line's ``fista_zlast_wide``)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fista_zlast import fista_zlast
+    from repro_torch.kernels.fista_zlast import fista_zlast, route
     print("fista_zlast:", flush=True)
     floor_ms = launch_floor_ms(ds.labels.device)
     print(f"  launch floor (device ms of a one-element torch.zeros fill): "
           f"{floor_ms:.4f}", flush=True)
-    rows = []
-    for label, a, z0, lab, msk, nc in fista_inputs(ds, gen, C, h):
+    lanes, wide = [], []
+    solves = itertools.chain(
+        ((*x, FISTA_ITERS) for x in fista_inputs(ds, gen, C, h)),
+        fista_wide_inputs(ds, gen, h))
+    for label, a, z0, lab, msk, nc, n_iters in solves:
         nr, w = a.shape
 
-        def kern(a=a, z0=z0, lab=lab, msk=msk, nc=nc):
-            return fista_zlast(a, z0, lab, msk, nu=nu, n_iters=FISTA_ITERS,
+        def kern(a=a, z0=z0, lab=lab, msk=msk, nc=nc, n_iters=n_iters):
+            return fista_zlast(a, z0, lab, msk, nu=nu, n_iters=n_iters,
                                n_classes=nc)
         row = case(
             label, kern,
-            lambda a=a, z0=z0, lab=lab, msk=msk, nc=nc: ref.fista_zlast_ref(
-                a, z0, lab, msk, nu=nu, n_iters=FISTA_ITERS, n_classes=nc),
-            None, *fista_work(nr, w, nc),
+            lambda a=a, z0=z0, lab=lab, msk=msk, nc=nc, n_iters=n_iters:
+            ref.fista_zlast_ref(a, z0, lab, msk, nu=nu, n_iters=n_iters,
+                                n_classes=nc),
+            None, *fista_work(nr, w, nc, n_iters + 1),
             fista_check if w == nc else fista_wide_check(nc))
         if not torch.equal(kern(), kern()):
             raise AssertionError(f"fista_zlast {label}: a second call gave "
                                  f"other bits")
         row["repeat_bitwise"] = True
+        row["kernel_route"] = route(nc)
         if w == nc:
             row["launch_floor_ms"] = floor_ms
-        rows.append(row)
-    return rows
+        (lanes if route(nc) == "lanes" and n_iters == FISTA_ITERS
+         else wide).append(row)
+    return lanes, wide
 
 
-def fista_entry(lib, nu: float):
+def fista_entry(lib, nu: float, host_moms: bool = False):
     """A caller of ``lib``'s ``fista_zlast_f32`` (the C entry point every
     version of the kernel exports) as the port's wrapper calls it, with no
-    launch count: the same host path for each library timed."""
+    launch count: the same host path for each library timed. Sources
+    before the wide route (``host_moms``) take the momentum weights as
+    host floats and no scratch; the wide rows' scratch is never needed at
+    the lane-group shapes timed here."""
     import ctypes
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.fista_zlast import momentum_schedule
+    from repro_torch.kernels.fista_zlast import (momentum_buffer,
+                                                 momentum_schedule)
     fn = lib.fista_zlast_f32
-    fn.argtypes = build.SIGNATURES["fista_zlast_f32"]
     fn.restype = ctypes.c_int
-    moms = momentum_schedule(FISTA_ITERS)
-    moms_c = (ctypes.c_float * len(moms))(*moms)
+    if host_moms:
+        _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_F),
+                       _I, _F, _F, _P]
+        moms = momentum_schedule(FISTA_ITERS)
+        moms_c = (ctypes.c_float * len(moms))(*moms)
+    else:
+        fn.argtypes = build.SIGNATURES["fista_zlast_f32"]
 
     def call(a, z0, lab, msk, nc):
         out = torch.empty_like(a)
-        build.check(fn(a.data_ptr(), z0.data_ptr(), lab.data_ptr(),
-                       msk.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1],
-                       nc, moms_c, len(moms), 1.0 / (1.0 + nu), nu,
-                       build.stream_handle(a)), "fista_zlast_f32")
+        V, N = a.shape
+        ptrs = (a.data_ptr(), z0.data_ptr(), lab.data_ptr(), msk.data_ptr(),
+                out.data_ptr())
+        if host_moms:
+            err = fn(*ptrs, V, N, nc, moms_c, len(moms), 1.0 / (1.0 + nu),
+                     nu, build.stream_handle(a))
+        else:
+            m = momentum_buffer(FISTA_ITERS, a.device)
+            err = fn(*ptrs, None, 0, V, N, nc, m.data_ptr(), m.numel(),
+                     1.0 / (1.0 + nu), nu, build.stream_handle(a))
+        build.check(err, "fista_zlast_f32")
         return out
     return call
 
@@ -914,9 +989,11 @@ def fista_ab(csrc, ds, nu, h) -> list:
     import ctypes
 
     from repro_torch.kernels import build
-    lib = build_one(os.path.join(csrc, "fista_zlast.cu"),
-                    str(build.BUILD_ROOT.parent / "ab_parent_lib"))
-    versions = {"parent": fista_entry(ctypes.CDLL(lib), nu),
+    src = os.path.join(csrc, "fista_zlast.cu")
+    with open(src) as fh:
+        host_moms = "struct Momentum" in fh.read()
+    lib = build_one(src, str(build.BUILD_ROOT.parent / "ab_parent_lib"))
+    versions = {"parent": fista_entry(ctypes.CDLL(lib), nu, host_moms),
                 "this": fista_entry(build.library(), nu)}
     gen = torch.Generator(device=ds.labels.device).manual_seed(1)
     C = ds.n_classes
@@ -929,8 +1006,11 @@ def fista_ab(csrc, ds, nu, h) -> list:
         torch.cuda.synchronize()
         (fista_check if a.shape[1] == nc else fista_wide_check(nc))(
             got, want, float((got - want).abs().max()))
+        same = torch.equal(got, want)
+        print(f"  {label}: bitwise the parent's: {same}", flush=True)
         del got, want
         out.append(ab_turns(label, runs, bound(*fista_work(*a.shape, nc))[0]))
+        out[-1]["bitwise_parent"] = same
     return out
 
 
@@ -1365,7 +1445,8 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
             lambda a=a, q=q, z0=z0: ref.relu_zupdate_ref(a, q, z0), None,
             16 * n, 27 * n, zupdate_check_for(a, q, z0)))
 
-    rows["fista_zlast"] = fista_rows(ds, gen, C, h, nu)
+    rows["fista_zlast"], rows["fista_zlast_wide"] = fista_rows(ds, gen, C, h,
+                                                             nu)
 
     print("backtrack_resnorm:", flush=True)
     bt = []
@@ -3089,18 +3170,22 @@ def gd_phase(X, ds, dims) -> dict:
     return out
 
 
-def block_phase(X, ds, h: int, nu: float, rho: float) -> dict:
+def block_phase(X, ds, h: int, nu: float, rho: float,
+                n_classes=None) -> dict:
     """block-pdADMM at full width: BLOCK_LAYERS stacked relu(p @ W_l) blocks
-    on x0 = relu(X @ W_in), cora's labels and train mask, 7 classes;
+    on x0 = relu(X @ W_in), cora's labels and train mask; the CE over
+    ``n_classes`` columns (None: all h, the CE route's default);
     BLOCK_ITERS iterations by the CE route (one ``fista_zlast`` launch an
-    iteration, on [V, h] rows with 7 classes) and by the generic route,
-    held against each other; then ms per iteration of each, in turns."""
+    iteration, on [V, h] rows) and by the generic route, held against each
+    other; then ms per iteration of each, in turns."""
     from repro_torch.core.block_admm import init_block_state, make_block_iterate
     from repro_torch.core.pdadmm import ADMMConfig
     from repro_torch.kernels import ops
+    from repro_torch.kernels.fista_zlast import route
     dev = X.device
     gen = torch.Generator(device=dev).manual_seed(11)
-    K0, C = X.shape[1], ds.n_classes
+    K0 = X.shape[1]
+    C = h if n_classes is None else n_classes
     W_in = torch.randn((K0, h), generator=gen, device=dev) * (2.0 / K0) ** 0.5
     W = torch.randn((BLOCK_LAYERS, h, h), generator=gen, device=dev) \
         * (2.0 / h) ** 0.5
@@ -3121,7 +3206,7 @@ def block_phase(X, ds, h: int, nu: float, rho: float) -> dict:
     routes = {
         "ce": make_block_iterate(block_fn, risk_fn, cfg,
                                  fista_iters=FISTA_ITERS, labels=labels,
-                                 label_mask=mask, n_classes=C),
+                                 label_mask=mask, n_classes=n_classes),
         "generic": make_block_iterate(block_fn, risk_fn, cfg,
                                       fista_iters=FISTA_ITERS)}
 
@@ -3159,6 +3244,7 @@ def block_phase(X, ds, h: int, nu: float, rho: float) -> dict:
         samples[name].append((time.perf_counter() - t0) / BLOCK_ITERS * 1e3)
     out = {"layers": BLOCK_LAYERS, "iterations": BLOCK_ITERS,
            "shape": [BLOCK_LAYERS, 1, X.shape[0], h], "classes": C,
+           "n_classes_arg": n_classes, "fista_route": route(C),
            "launches": counts, "objective_ce": obj_ce,
            "objective_generic": obj_gen, "z_last_max_abs_err": z_err,
            "z_last_tol": z_tol,
@@ -3166,7 +3252,8 @@ def block_phase(X, ds, h: int, nu: float, rho: float) -> dict:
            "ms_per_iter_generic": float(np.mean(samples["generic"])),
            "ms_samples": samples}
     print(f"block-pdADMM ({BLOCK_LAYERS} blocks [{X.shape[0]}, {h}], {C} "
-          f"classes): objective CE {obj_ce}, generic {obj_gen}; z_last max "
+          f"classes, fista_zlast route {route(C)}): objective CE {obj_ce}, "
+          f"generic {obj_gen}; z_last max "
           f"|Δ| {z_err:.3e} (tolerance {z_tol:.3e}); fista_zlast launches "
           f"{counts['fista_zlast']}; ms per iteration CE "
           f"{out['ms_per_iter_ce']:.3f}, generic "
@@ -3200,7 +3287,8 @@ def baseline_phase(X, ds, dims, cfg, runs) -> dict:
         out[key] = greedy_phase(X, ds, h, cfg_q, GQ_KERNELS, label)
     out["grid8"] = dataclasses.asdict(grid8)
     out["gd"] = gd_phase(X, ds, dims)
-    out["block"] = block_phase(X, ds, h, cfg.nu, cfg.rho)
+    out["block"] = block_phase(X, ds, h, cfg.nu, cfg.rho, ds.n_classes)
+    out["block_d"] = block_phase(X, ds, h, cfg.nu, cfg.rho)
 
     no_growth = runs["ft"]["paper_gq"]["test_acc"]
     table = {m: out["gd"][m]["test_acc"] for m, _ in GD_METHODS}
@@ -5642,7 +5730,12 @@ def main() -> int:
     run_of.update(backtrack_resnorm="GQ", grid_project="GQ",
                   grid_encode="GQ_u_wire", grid_decode="GQ_u_wire",
                   pack_codes="mixed", unpack_codes="mixed",
-                  flash_attention="LM_prefill")
+                  flash_attention="LM_prefill", fista_zlast_wide="block_d")
+    # the wide route's launches: block-pdADMM's CE route at h classes,
+    # where every fista_zlast launch takes it
+    block_d = runs["baselines"]["block_d"]
+    runs["block_d"] = {"iterations": block_d["iterations"], "launches": {
+        "fista_zlast_wide": block_d["launches"]["fista_zlast"]}}
     kernels = []
     for name, cases in rows.items():
         head = cases[0]

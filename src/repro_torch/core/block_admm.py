@@ -72,8 +72,10 @@ def make_block_iterate(block_fn: Callable, risk_fn: Callable,
     risk is the masked softmax-CE and the z_L solve is ``ops.fista_zlast``
     over the flattened token rows (risk_fn must compute the same CE; it
     still gives the objective). On the card that is the CUDA kernel, which
-    takes at most ``kernels.fista_zlast.MAX_CLASSES`` classes and raises
-    above them (``n_classes=None`` means d classes). With ``labels=None``
+    takes any class count up to d (``n_classes=None`` means d classes):
+    up to 64 on its lane-group route, above that on a block a row, the row
+    in registers, shared memory or global memory by its width
+    (``kernels.fista_zlast.route``). With ``labels=None``
     the solve is ``subproblems.fista_prox`` on ``torch.func.grad(risk_fn)``.
     """
     nu, rho = config.nu, config.rho

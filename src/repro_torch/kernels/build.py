@@ -36,8 +36,8 @@ SIGNATURES = {
     "admm_pgrad_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _LL, _LL, _LL, _F, _F, _I, _P],
     "relu_zupdate_f32": [_P, _P, _P, _P, _LL, _P],
-    "fista_zlast_f32": [_P, _P, _P, _P, _P, _I, _I, _I,
-                        ctypes.POINTER(_F), _I, _F, _F, _P],
+    "fista_zlast_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                        _F, _F, _P],
     "backtrack_resnorm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _I, _P],
     "grid_project_f32": [_P, _P, _LL, _F, _F, _F, _I, _P],

@@ -118,6 +118,9 @@ class LocalRing:
     def finish(self, handle) -> List[torch.Tensor]:
         return handle
 
+    def drain(self) -> None:
+        """Nothing is ever in flight here (see ``ProcessGroupRing.drain``)."""
+
     # -- collectives ---------------------------------------------------------
     def psum(self, x, axes):
         """Sum over the named shard axes; those axes keep size 1. The sum
@@ -193,6 +196,7 @@ class ProcessGroupRing:
         self.device = resolve_device(device)
         self.rank = dist.get_rank()
         self.shifted_bytes = 0
+        self.in_flight = []     # shift handles not yet finished
         D, S = mesh.data, mesh.model
         self.coord = {"data": self.rank // S, "model": self.rank % S}
         self.groups = {}
@@ -230,13 +234,28 @@ class ProcessGroupRing:
         for i, (t, b) in enumerate(zip(sent, bufs)):
             works.append(self.dist.isend(t, dst_r, tag=tag * 16 + i))
             works.append(self.dist.irecv(b, src_r, tag=tag * 16 + i))
-        return sent, bufs, works
+        handle = (sent, bufs, works)
+        self.in_flight.append(handle)
+        return handle
 
     def finish(self, handle):
         _, bufs, works = handle
         for w in works:
             w.wait()
+        self.in_flight = [h for h in self.in_flight if h is not handle]
         return bufs
+
+    def drain(self) -> None:
+        """Finish every shift still in flight: a carried pair that its
+        caller drops (superseded by a re-prime, or the tail of a run).
+        Gloo pairs a send with a receive by peer and tag in posting order,
+        and a transfer reads and writes its tensors until it completes; a
+        handle dropped unfinished would leave its buffers to the garbage
+        collector mid-transfer and its messages to be matched by the next
+        shift on that tag. Seen as a gloo timeout in the collective after
+        such a run, on a loaded host."""
+        while self.in_flight:
+            self.finish(self.in_flight[0])
 
     def _reduce(self, x, axes, op):
         out = x.clone()

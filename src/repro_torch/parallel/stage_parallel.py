@@ -1178,6 +1178,7 @@ def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
         if good is None or bits != cur_bits:
             if overlap and inflight is not None and ledger is not None:
                 charge_pair(e, cur_bits, "dropped")
+            ring.drain()        # the dropped pair's transfers end first
             good = prime_good(bits, state)
             inflight = prime_fly(bits, state, tick - 1) if overlap else None
             cur_bits = bits
@@ -1425,6 +1426,7 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                         _record_container_qu_pair(ledger, e, mesh, L, V, h,
                                                   wire, prev_q_bits,
                                                   "dropped")
+                    ring.drain()
                     inflight = primer(state.q, state.u, widths)
                     prev_q_bits = q_bits
                 (state, inflight), m = step((state, inflight), *data,
@@ -1466,6 +1468,7 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                     if inflight is not None and ledger is not None:
                         _record_qu_pair(ledger, e, mesh, L, V, h,
                                         *codecs_for(cur_bits), "dropped")
+                    ring.drain()
                     inflight = prime(bits, state)
                     cur_bits = bits
                 (state, inflight), m = step((state, inflight), *data)
@@ -1481,5 +1484,6 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                             *codecs_for(cur_bits), "inflight")
     hist["n_compiled_steps"] = len(step_cache)
     hist["overlap"] = overlap
+    ring.drain()        # the tail pair in flight under overlap
     return gather_stack(state, ring), hist
 

@@ -12,7 +12,9 @@ three iterations:
 * a quantized case: p on a 4-bit grid of step 1/4, q not (the paper's
   G-Q setting; the step is a power of two, so the reference's division by
   it and the port's multiply by its reciprocal agree);
-* a ``torch.func`` case whose params are a dict of stacked tensors.
+* a ``torch.func`` case whose params are a dict of stacked tensors;
+* the CE route at d = 80 classes (``n_classes=None``), as the card's
+  block-a-row route takes it.
 
 On a card (``cuda`` marker; skipped without one; the card has no JAX, so
 the reference is imported only by the tests that use it):
@@ -20,9 +22,10 @@ the reference is imported only by the tests that use it):
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_block_admm.py
 
 the CE route on CUDA equals its CPU route at the ``fista_zlast`` tolerance
-(atol 1e-5 + rtol 1e-5; f32), it raises the kernel's ``ValueError`` above
-64 classes with nothing run on the CPU in its place, and a grid under the
-CUDA p step projects outside ``vmap`` through the ``grid_project`` kernel.
+(atol 1e-5 + rtol 1e-5; f32), also at d = 80 classes (the kernel's
+block-a-row route) with nothing run on the CPU in its place, and a grid
+under the CUDA p step projects outside ``vmap`` through the
+``grid_project`` kernel.
 """
 import numpy as np
 import pytest
@@ -182,6 +185,17 @@ def test_block_iterate_f64_matches_jax(x64, quantized, dict_params, ce):
         assert float(st.u.abs().max()) > 0
 
 
+def test_block_ce_route_at_d_classes_f64_matches_jax(x64):
+    """The CE route with ``n_classes=None`` at d = 80: a softmax over all 80
+    columns, past the kernel's lane-group route (at most 64 classes)."""
+    W, x0, labels, mask = _problem(seed=5, d=80)
+    cfg_j, cfg_t = _configs(False)
+    sj, oj = _run_jax(W, x0, labels, mask, cfg_j, True, False)
+    st, ot = _run_torch(W, x0, labels, mask, cfg_t, True, False)
+    _assert_states_close(sj, st, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ot, oj, rtol=1e-10)
+
+
 @pytest.mark.parametrize("quantized,dict_params", CASES, ids=CASE_IDS)
 def test_block_routes_agree_f64(quantized, dict_params):
     """Inside the port: the CE route computes the generic route's iteration
@@ -255,22 +269,26 @@ def test_cuda_block_ce_route_matches_its_cpu_route(cuda, quantized):
 
 
 @pytest.mark.cuda
-def test_cuda_block_ce_route_raises_above_64_classes(cuda, monkeypatch):
+def test_cuda_block_ce_route_runs_at_d_classes(cuda, monkeypatch):
+    """d = 80 classes (``n_classes=None``): the kernel's block-a-row route,
+    with nothing run on the CPU in its place, equal to the CPU route."""
     from repro_torch.kernels import ref
 
     def no_cpu(*a, **k):
         raise AssertionError("the plain version ran in the kernel's place")
     monkeypatch.setattr(ref, "fista_zlast_ref", no_cpu)
     W, x0, labels, mask = _problem(seed=3, d=80)
-    with pytest.raises(ValueError, match="exceed the kernel's cap of 64"):
-        _run_torch(W, x0, labels, mask, _configs_port(False), True, False,
-                   device=cuda, dtype=torch.float32)
-    # with n_classes at the cap the same rows take the kernel
-    labels = labels % 64
-    st, objs = _run_torch(W, x0, labels, mask, _configs_port(False), True,
-                          False, device=cuda, dtype=torch.float32,
-                          n_classes=64)
-    assert np.all(np.isfinite(objs))
+    ops.reset_launch_counts()
+    sg, og = _run_torch(W, x0, labels, mask, _configs_port(False), True,
+                        False, device=cuda, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fista_zlast"] == ITERS
+    monkeypatch.undo()
+    sc, oc = _run_torch(W, x0, labels, mask, _configs_port(False), True,
+                        False, device="cpu", dtype=torch.float32)
+    np.testing.assert_allclose(sg.z[-1].cpu().numpy(), sc.z[-1].numpy(),
+                               rtol=FISTA_TOL, atol=FISTA_TOL)
+    np.testing.assert_allclose(og, oc, rtol=FISTA_TOL)
 
 
 @pytest.mark.cuda

@@ -158,9 +158,10 @@ def _problem():
     return Xp, labels, {"train": torch.ones(V)}
 
 
-CFGS = {"G": ADMMConfig(nu=1.0, rho=1.0, fista_iters=3),
-        "GQ": ADMMConfig(nu=1.0, rho=1.0, fista_iters=3, quantize_p=True,
-                         quantize_q=True, grid=uniform_grid(8, -4.0, 4.0))}
+G_KW = dict(nu=1.0, rho=1.0, fista_iters=3)
+CFGS = {"G": ADMMConfig(**G_KW),
+        "GQ": ADMMConfig(**G_KW, quantize_p=True, quantize_q=True,
+                         grid=uniform_grid(8, -4.0, 4.0))}
 
 
 def _init(ref, cname="G"):
@@ -706,36 +707,43 @@ def test_ckpt_rotation_uncommitted_skip_and_tmp_sweep(tmp_path):
 
 # --- the sentinel step on a process-group ring (gloo) --------------------------
 
+# The workers import torch and the port only (the problem's constants and
+# ``_problem`` are written into their code): no JAX, which they never use.
+# A collective that hangs raises inside the worker after WORKER_HANG_S,
+# with its traceback in the worker's log, before the parent's 240-s wait.
+WORKER_HANG_S = 200
 WORKER = r"""
 import sys, json
+from datetime import timedelta
 sys.path.insert(0, "src")
 import numpy as np, torch, torch.distributed as dist
 rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
-                        world_size=2)
-sys.path.insert(0, "tests")
-from test_torch_faults import _problem, CFGS, L, C, CHAOS
+                        world_size=2, timeout=timedelta(seconds=WORKER_HANG_S))
 from repro_torch.comm import faults as F
 from repro_torch.comm.ledger import CommLedger
+from repro_torch.core.pdadmm import ADMMConfig
 from repro_torch.parallel import stage_parallel as SP
 from repro_torch.parallel.ring import ProcessGroupRing, StageMesh
+CFG = ADMMConfig(**G_KW)
 Xp, labels, masks = _problem()
 mesh = StageMesh(1, 2)
 res = {}
-init_st = SP.init_stack(0, Xp, L, CFGS["G"])
+init_st = SP.init_stack(0, Xp, L, CFG)
 for overlap in (False, True):
     ring = ProcessGroupRing(mesh, "cpu")
     led = CommLedger()
     st, hist = SP.distributed_train(mesh, None, Xp, labels, masks, L, C,
-                                    CFGS["G"], 6, init=init_st, ring=ring,
+                                    CFG, 6, init=init_st, ring=ring,
                                     ledger=led, overlap=overlap,
                                     faults=F.FaultPlan(**CHAOS))
     f = hist["faults"]
     f["trace"] = [list(t) for t in f["trace"]]
     res[str(int(overlap))] = {"objective": hist["objective"], "faults": f,
-                              "per_edge_wire": led.per_edge_wire()}
+                              "per_edge_wire": led.per_edge_wire(),
+                              "in_flight": len(ring.in_flight)}
 try:
-    SP.distributed_train(mesh, 0, Xp, labels, masks, L, C, CFGS["G"], 1,
+    SP.distributed_train(mesh, 0, Xp, labels, masks, L, C, CFG, 1,
                          ring=ProcessGroupRing(mesh, "cpu"), ckpt=out + ".d")
 except NotImplementedError as e:
     res["ckpt_raises"] = str(e)
@@ -748,20 +756,41 @@ print("WORKER_OK")
 """
 
 
+def _worker_code() -> str:
+    import inspect
+    consts = (f"V, H, L, C = {V}, {H}, {L}, {C}\nCHAOS = {CHAOS!r}\n"
+              f"G_KW = {G_KW!r}\nWORKER_HANG_S = {WORKER_HANG_S}\n")
+    return consts + inspect.getsource(_problem) + WORKER
+
+
 def test_sentinel_step_on_a_process_group_ring(tmp_path):
     out = tmp_path / "pg.json"
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(r), str(tmp_path / "init"),
-         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    code = _worker_code()
+    # each worker's output goes to a file: a pipe that nobody reads while
+    # the parent waits on the other worker could fill and stall the pair
+    logs = [(tmp_path / f"w{r}.out", tmp_path / f"w{r}.err") for r in range(2)]
+    procs = []
+    for r, (so, se) in enumerate(logs):
+        with open(so, "w") as fo, open(se, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), str(tmp_path / "init"),
+                 str(out)], cwd=ROOT, env=env, stdout=fo, stderr=fe))
     try:
-        logs = [p.communicate(timeout=240) for p in procs]
+        for p in procs:
+            try:
+                p.wait(timeout=240)
+            except subprocess.TimeoutExpired:
+                pass
     finally:
         for p in procs:
             p.kill()
-    for p, (so, se) in zip(procs, logs):
-        assert p.returncode == 0 and "WORKER_OK" in so, so[-2000:] + se[-3000:]
+            p.wait()
+    for r, (p, (so, se)) in enumerate(zip(procs, logs)):
+        so, se = so.read_text(), se.read_text()
+        assert p.returncode == 0 and "WORKER_OK" in so, (
+            f"worker {r}: return code {p.returncode}\n" + so[-2000:]
+            + se[-3000:])
     got = json.loads(out.read_text())
     assert "ROADMAP" in got["ckpt_raises"]
     Xp, labels, masks = _problem()
@@ -773,6 +802,8 @@ def test_sentinel_step_on_a_process_group_ring(tmp_path):
                                     ledger=led, overlap=overlap,
                                     faults=F.FaultPlan(**CHAOS))
         want = got[str(int(overlap))]
+        # every shift finished: under overlap the carried tail pair too
+        assert want["in_flight"] == 0
         f = dict(h["faults"])
         f["trace"] = [list(t) for t in f["trace"]]
         assert want["faults"] == f

@@ -29,7 +29,8 @@ from repro_torch.kernels.admm_pgrad import admm_pgrad as cuda_admm_pgrad
 from repro_torch.kernels.backtrack_phi import \
     backtrack_resnorm as cuda_backtrack_resnorm
 from repro_torch.kernels.fista_zlast import fista_zlast as cuda_fista_zlast
-from repro_torch.kernels.fista_zlast import momentum_schedule
+from repro_torch.kernels.fista_zlast import momentum_buffer, momentum_schedule
+from repro_torch.kernels.fista_zlast import route as fista_route
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.fused_linear import fused_linear as cuda_fused_linear
 from repro_torch.kernels.relu_zupdate import relu_zupdate as cuda_relu_zupdate
@@ -149,21 +150,23 @@ def test_relu_zupdate_plain_matches_jax(jx, shape):
 
 
 def test_momentum_schedule_is_the_reference_schedule(jx):
-    for n in (0, 1, 15):
+    for n in (0, 1, 15, 300):
         assert momentum_schedule(n) == jx.momentum_schedule(n)
+        # the kernel's buffer: each weight rounded to f32 once
+        want = torch.from_numpy(np.asarray(jx.momentum_schedule(n),
+                                           dtype=np.float32))
+        assert torch.equal(momentum_buffer(n, "cpu"), want)
 
 
 @pytest.mark.parametrize("n_iters", [0, 15])
 @pytest.mark.parametrize("width,n_classes", [
     (8, 8), (8, 5),
     (3, 3), (16, 15), (40, 40),      # pubmed's, coauthor_cs's, ogbn_arxiv's classes
-    (64, 7)])                        # head-folded: a row wider than its classes
+    (64, 7),                         # head-folded: a row wider than its classes
+    (80, 80), (200, 130)])           # the kernel's block-a-row route (C > 64)
 def test_fista_zlast_plain_matches_jax(jx, n_iters, width, n_classes):
     V = 128
-    a, z0 = _np(4, (V, width), (V, width), scale=2.0)
-    rng = np.random.default_rng(5)
-    labels = rng.integers(0, n_classes, V).astype(np.int32)
-    mask = (rng.random(V) < 0.6).astype(np.float32)
+    a, z0, labels, mask = _fista_np(V, width, n_classes)
     kw = dict(nu=0.01, n_iters=n_iters, n_classes=n_classes)
     want_ref = np.asarray(jx.ref.fista_zlast_ref(*_j(a, z0, labels, mask), **kw))
     want_pl = np.asarray(jx.fista_zlast(*_j(a, z0, labels, mask), bm=128,
@@ -171,6 +174,26 @@ def test_fista_zlast_plain_matches_jax(jx, n_iters, width, n_classes):
     got = tref.fista_zlast_ref(*_t(a, z0, labels, mask), **kw).numpy()
     np.testing.assert_allclose(got, want_ref, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, want_pl, rtol=0, atol=1e-5)
+
+
+def _fista_np(V, width, n_classes):
+    a, z0 = _np(4, (V, width), (V, width), scale=2.0)
+    rng = np.random.default_rng(5)
+    labels = rng.integers(0, n_classes, V).astype(np.int32)
+    mask = (rng.random(V) < 0.6).astype(np.float32)
+    return a, z0, labels, mask
+
+
+def test_fista_zlast_plain_matches_jax_past_255_steps(jx):
+    """300 iterations, past the kernel's former cap of 256 steps. f32 on
+    both sides with exps that differ by ulps: over 300 steps (values up to
+    |z| ~ 4) that reaches ~4e-6 of the value, so 1e-5 absolute plus 1e-5
+    of the value, the card tests' tolerance."""
+    a, z0, labels, mask = _fista_np(64, 20, 12)
+    kw = dict(nu=0.01, n_iters=300, n_classes=12)
+    want = np.asarray(jx.ref.fista_zlast_ref(*_j(a, z0, labels, mask), **kw))
+    got = tref.fista_zlast_ref(*_t(a, z0, labels, mask), **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 64, 128),
@@ -410,15 +433,37 @@ def test_grid_kernel_scalars_are_the_plain_versions():
 
 
 def test_fista_zlast_wrapper_refuses_width_above_cap():
-    """The cap is on the classes (the softmax width); the row may be any
-    width — the distributed runtime's head-folded [V, h] layer."""
+    """The only cap on the classes (the softmax width) is the row's width:
+    any count from 1 to N reaches the CUDA check, whatever route it takes
+    (the distributed runtime's head-folded [V, h] layer at 7 classes,
+    block-pdADMM's CE route at h), and more classes than columns raise."""
     a = torch.zeros(4, 1000)
-    with pytest.raises(ValueError, match="cap"):
-        cuda_fista_zlast(a, a, torch.zeros(4, dtype=torch.int32),
-                         torch.ones(4), nu=0.1, n_iters=1, n_classes=65)
-    with pytest.raises(ValueError, match="CUDA"):      # width 1000 accepted
-        cuda_fista_zlast(a, a, torch.zeros(4, dtype=torch.int32),
-                         torch.ones(4), nu=0.1, n_iters=1, n_classes=7)
+    args = (a, a, torch.zeros(4, dtype=torch.int32), torch.ones(4))
+    for n_classes in (7, 65, 1000):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_fista_zlast(*args, nu=0.1, n_iters=1, n_classes=n_classes)
+    for n_classes in (0, 1001):
+        with pytest.raises(ValueError, match="n_classes"):
+            cuda_fista_zlast(*args, nu=0.1, n_iters=1, n_classes=n_classes)
+    assert [fista_route(c) for c in (1, 64, 65, 2048, 2049, 19349, 19350)] \
+        == ["lanes", "lanes", "registers", "registers", "shared", "shared",
+            "streaming"]
+
+
+def test_fista_zlast_routes_match_the_source():
+    """The wrapper's route bounds (which allocate the streaming route's
+    scratch) are the CUDA source's, read from its constants."""
+    import re
+
+    from repro_torch.kernels import fista_zlast as fz
+    text = (build.CSRC / "fista_zlast.cu").read_text()
+    c = {k: int(v) for k, v in
+         re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert fz.LANE_CLASSES == c["LANE_CLASSES"]
+    assert fz.REG_CLASSES == c["WIDE_THREADS"] * c["WIDE_PER"]
+    # the reduction slots (two floats a warp) are static shared memory
+    assert fz.SMEM_CLASSES == ((c["SMEM_LIMIT"] - 2 * (c["MEM_THREADS"] // 32)
+                                * 4) // 12)
 
 
 def test_build_plan_compiles_every_source_for_sm90a(tmp_path, monkeypatch):
@@ -687,7 +732,15 @@ def _fista_inputs(device, V, width, n_classes):
     (300, 1001, 7, 15),                      # odd width: row starts drift
     (300, 1000, 40, 15),                     # two columns a lane, wide rows
     (70001, 8, 7, 15),                       # V above gridDim.y's 65535
-    (70001, 300, 7, 15)])                    # row slots run out: the grid strides
+    (70001, 300, 7, 15),                     # row slots run out: the grid strides
+    # a block a row: its class columns in registers (65 and 128: one column
+    # a thread; 1000: four), head-folded with a ragged tail, past 255 steps
+    (300, 65, 65, 15), (300, 128, 128, 15), (300, 1000, 1000, 15),
+    (300, 1001, 100, 15), (300, 40, 40, 300), (300, 1000, 1000, 300),
+    (70001, 66, 65, 15),                     # rows past the block slots
+    (60, 5003, 4099, 15),                    # in shared memory (48 KB+)
+    (24, 20003, 20000, 15),                  # streaming, a ragged tail
+    (300, 20000, 20000, 4)])                 # streaming rows past the slots
 def test_cuda_fista_zlast_matches_plain(cuda, V, width, n_classes, n_iters):
     a, z0, labels, mask = _fista_inputs(cuda, V, width, n_classes)
     kw = dict(nu=0.01, n_iters=n_iters, n_classes=n_classes)
@@ -704,9 +757,12 @@ def test_cuda_fista_zlast_matches_plain(cuda, V, width, n_classes, n_iters):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,width,n_classes", [(2485, 7, 7), (300, 1001, 40)])
+@pytest.mark.parametrize("V,width,n_classes", [
+    (2485, 7, 7), (300, 1001, 40), (300, 1000, 1000), (60, 5003, 4099),
+    (24, 20003, 20000)])
 def test_cuda_fista_zlast_is_deterministic(cuda, V, width, n_classes):
-    """No atomics; the group's shuffle reductions run in one fixed order."""
+    """No atomics; the group's shuffle reductions and the block-wide ones
+    run in one fixed order."""
     a, z0, labels, mask = _fista_inputs(cuda, V, width, n_classes)
     kw = dict(nu=0.01, n_iters=15, n_classes=n_classes)
     assert torch.equal(cuda_fista_zlast(a, z0, labels, mask, **kw),
