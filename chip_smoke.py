@@ -132,6 +132,28 @@ and the script exits non-zero without printing a result:
    Test accuracies of G, G-Q on the uniform grid and the paper's setting
    are printed side by side, and those of the two G-Q settings after the
    paper's 100 iterations.
+7b. ``graph_phase``, the compiled driver (``core.graphs``: one iteration
+   captured as a CUDA graph and replayed by ``pdadmm.run_chunked(...,
+   jit=True)``) against the eager loop (``jit=False``) on every path that
+   rides it: G, G-Q, G-Q with 8-bit u codecs, the G and G-Q rings of mesh
+   (1, 10) with overlap off and on and the G ring with ``donate=True``
+   (``run_chunked`` on the step), one ``train_adaptive`` control step,
+   ``train_adaptive`` with a control step every iteration over 4/8/16-bit
+   grids (a graph per schedule, all over one state's buffers) and
+   ``greedy_train`` over the schedule (2, 5) (their entry points). Each
+   runs GRAPH_ITERS (5) iterations a stage from one state in both forms:
+   states and metrics bitwise equal, the launch counters (and a ring's
+   shifted bytes) equal, one replay per iteration, the peak MiB of each
+   form (the graph's first call captures); then ms per iteration in turns
+   (graph, eager, eager, graph, graph, eager; medians), and a profile of
+   each form: device busy ms, idle share and host CUDA API calls per
+   iteration. The graph's launches are read from the CUDA driver: each
+   kernel wrapper's head kernel among each graph's nodes, times its
+   replays, with the launches outside the graphs, held against the eager
+   wrappers' counts (what each form's device trace lacks of them is kept). ``train_adaptive``'s and ``greedy_train``'s graph form
+   captures inside every call, so its ms include the capture. Every
+   earlier phase runs the eager loop (``jit=False``), so its numbers and
+   the ``kernels`` line's launches are the wrappers' own counts.
 8. ``baseline_phase``, the paper's comparison methods at cora 10×1000:
    the kernels held against their plain versions at the shapes greedy
    growth adds (the 5-layer stage's ×3 stack, its [4, V, h] and the
@@ -319,8 +341,10 @@ events, at phase 2's six ``fista_zlast`` shapes, its ``admm_pgrad`` shapes
 and every ``unpack_codes`` and ``pack_codes`` case, after checking the two
 versions' outputs against each other (unpack and pack bit for bit, pack
 also against its plain version); then G's and G-Q's ms per
-iteration (as phases 3 and 4 time them) with the other tree's package and
-with this one's, each in a process of its own, in the same turns.
+iteration (as phases 3 and 4 time them, and through each tree's default
+``run_chunked`` driver: the parent's eager loop, this tree's CUDA graph)
+with the other tree's package and with this one's, each in a process of
+its own, in the same turns.
 
 With ``--decode-ab`` the script only times the plain (meshless)
 tinyllama-1.1b and granite-moe-3b-a800m bundles' greedy decode at B 4
@@ -363,7 +387,9 @@ redesigned kernel's SASS.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -537,6 +563,27 @@ TRAIN_ACCUM_LOSS_RTOL = 1e-3
 TRAIN_ACCUM_UPDATE_REL_L2 = 5e-2
 TRAIN_RESUME_RTOL = 1e-2       # (e) resumed losses against uninterrupted
 PROFILE_TRIES = 3   # traces of one iteration (see profile_phase, train_full)
+GRAPH_ITERS = 5     # iterations of each graph_phase run
+GRAPH_TURNS = (True, False, False, True, True, False)   # graph, eager, ...
+API_CALL = re.compile(r"^cu(da)?[A-Z]")   # a CUDA runtime or driver API call
+# each kernel wrapper's head kernel, launched once for every call of the
+# wrapper (a wrapper may launch a reduction after it: fused_linear_reduce,
+# resnorm_sum_kernel; the grid wrappers share one kernel): graph_phase
+# counts them in each graph's kernel nodes and in the device traces
+HEAD_KERNELS = {
+    ("fused_linear",): ("fused_linear_tc", "fused_linear_narrow"),
+    ("admm_pgrad",): ("admm_pgrad_tc", "admm_pgrad_narrow"),
+    ("relu_zupdate",): ("relu_zupdate_kernel",),
+    ("fista_zlast",): ("fista_zlast_kernel",),
+    ("backtrack_resnorm",): ("resnorm_partials_tc", "resnorm_partials_rows"),
+    ("grid_project", "grid_encode", "grid_decode"): (
+        "grid_elementwise_kernel",),
+    ("pack_codes",): ("pack4_kernel", "pack16_kernel"),
+    ("unpack_codes",): ("unpack4_kernel", "unpack16_kernel"),
+}
+# a name demangled ("void pack4_kernel<...>") or mangled ("12pack4_kernel")
+HEAD_PATTERNS = {"+".join(w): re.compile(r"(?<![A-Za-z_])(" + "|".join(
+    names) + ")") for w, names in HEAD_KERNELS.items()}
 STAGES = 10         # the ring: mesh (data 1, model 10), one layer per stage
 MIXED_CONTROLLER = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
                         min_dwell=1, hysteresis=0.0, signal="per_edge",
@@ -1205,11 +1252,31 @@ def kernel_ab(csrc, X, dims, nu, rho) -> dict:
     return res
 
 
+def driver_ms_per_iter(X, ds, cfg, state, n=5) -> list:
+    """ms per iteration through ``pdadmm.run_chunked`` as the tree's
+    ``train`` calls it (its default driver: eager before the compiled
+    driver, a CUDA graph after): AB_TRAIN_RUNS samples of ``n``
+    iterations, host clock, each ending in the metrics' copy to the host
+    (a sync), after one call that warms (and captures)."""
+    from repro_torch.core import pdadmm
+    step = functools.partial(pdadmm.iterate, config=cfg)
+    args = (X, ds.labels, ds.masks["train"])
+    state, _ = pdadmm.run_chunked(step, state, args, n)
+    out = []
+    for _ in range(AB_TRAIN_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = pdadmm.run_chunked(step, state, args, n)
+        out.append((time.perf_counter() - t) / n * 1e3)
+    return out
+
+
 def train_child(src: str, path: str) -> int:
     """``--train-child``: G's and G-Q's ms per iteration through the
     kernels, as ``train_phase`` times them (AB_TRAIN_RUNS samples of 5
-    iterations from a trained state), with the ``repro_torch`` package
-    under ``src``."""
+    iterations from a trained state), and through the tree's default
+    chunked driver (``driver_ms_per_iter``), with the ``repro_torch``
+    package under ``src``."""
     src = os.path.abspath(src)
     sys.path.insert(0, src)
     import repro_torch
@@ -1234,6 +1301,7 @@ def train_child(src: str, path: str) -> int:
         state = train_run(X, ds, dims, cfg, EPOCHS)[0]
         out[label] = [ms_per_iter(X, ds, cfg, state)
                       for _ in range(AB_TRAIN_RUNS)]
+        out[label + "_driver"] = driver_ms_per_iter(X, ds, cfg, state)
     write_record(path, out)
     return 0
 
@@ -1241,10 +1309,13 @@ def train_child(src: str, path: str) -> int:
 def train_ab(parent_root: str) -> dict:
     """``--ab``'s training part: G's and G-Q's ms per iteration with
     another tree's package (``PARENT_ROOT/src``) and with this tree's,
-    each in a process of its own, in turns (AB_ORDER)."""
+    each in a process of its own, in turns (AB_ORDER): ``iterate`` in a
+    loop, and each tree's default chunked driver (``*_driver``: the
+    parent's eager loop against this tree's CUDA graph)."""
     import tempfile
     d = tempfile.mkdtemp()
-    res = {"G": {"parent": [], "this": []}, "GQ": {"parent": [], "this": []}}
+    keys = ("G", "GQ", "G_driver", "GQ_driver")
+    res = {k: {"parent": [], "this": []} for k in keys}
     try:
         for i, name in enumerate(AB_ORDER):
             src = (os.path.join(os.path.abspath(parent_root), "src")
@@ -1258,10 +1329,10 @@ def train_ab(parent_root: str) -> dict:
                                      f"{run.returncode}")
             with open(path) as f:
                 got = json.load(f)
-            for key in ("G", "GQ"):
+            for key in keys:
                 res[key][name] += got[key]
-            print(f"  {name}: G ms per iteration {got['G']}, G-Q "
-                  f"{got['GQ']}", flush=True)
+            print(f"  {name}: ms per iteration " + ", ".join(
+                f"{key} {got[key]}" for key in keys), flush=True)
         for key, v in res.items():
             print(f"{key} ms per iteration, median: parent "
                   f"{float(np.median(v['parent'])):.3f}, this tree "
@@ -1713,19 +1784,23 @@ def accept_margin(state, args, cfg, layer: int, t: float) -> float:
 
 
 def train_run(X, ds, dims, cfg, epochs):
-    """``pdadmm.train`` from seed 0; for G-Q with a per-epoch callback that
-    keeps τ (the G run keeps the chunked driver, one host sync per run).
-    Returns (state, history, τ per iteration [epochs][L] or [], seconds)."""
+    """``pdadmm.train`` from seed 0 by the eager loop (``jit=False``, where
+    the tree has the switch: the wrappers count every launch as it is
+    made); for G-Q with a per-epoch callback that keeps τ. Returns (state,
+    history, τ per iteration [epochs][L] or [], seconds)."""
+    import inspect
     from repro_torch.core import pdadmm
     taus = []
     keep_tau = None
     if cfg.quantize_p:
         def keep_tau(e, s, m):
             taus.append([float(t) for t in s.tau])
+    eager = ({"jit": False} if "jit" in inspect.signature(
+        pdadmm.train).parameters else {})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, hist = pdadmm.train(0, X, ds.labels, ds.masks, dims, cfg, epochs,
-                               device=X.device, callback=keep_tau)
+                               device=X.device, callback=keep_tau, **eager)
     torch.cuda.synchronize()
     return state, hist, taus, time.perf_counter() - t0
 
@@ -2131,7 +2206,8 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, hist = SP.distributed_train(mesh, None, *args, L, C, c, epochs,
-                                        ledger=led, init=init, ring=ring)
+                                        ledger=led, init=init, ring=ring,
+                                        jit=False)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -2145,9 +2221,10 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
             raise AssertionError(f"{name}: objective not finite: {obj}")
         c_plain = dataclasses.replace(c, use_kernels=False)
         _, h_plain = SP.distributed_train(mesh, None, *args, L, C, c_plain,
-                                          epochs, init=init)
+                                          epochs, init=init, jit=False)
         st_ov, h_ov = SP.distributed_train(mesh, None, *args, L, C, c,
-                                           epochs, init=init, overlap=True)
+                                           epochs, init=init, overlap=True,
+                                           jit=False)
         print(f"  objective kernels {obj.tolist()}", flush=True)
         print(f"  objective plain   {h_plain['objective']}", flush=True)
         np.testing.assert_allclose(obj, h_plain["objective"], rtol=TRAJ_RTOL)
@@ -2209,7 +2286,7 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
     _, hist = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
                                    controller=ctl, grids_by_bits=grids,
                                    ledger=led, mixed_width=True, init=init,
-                                   ring=ring)
+                                   ring=ring, jit=False)
     torch.cuda.synchronize()
     t_mixed = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -2239,7 +2316,7 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
     _, h_plain = SP.distributed_train(
         mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
         epochs, controller=ctl_plain, grids_by_bits=grids, mixed_width=True,
-        init=init)
+        init=init, jit=False)
     print(f"  objective plain   {h_plain['objective']}; schedules "
           f"{'equal' if h_plain['schedules'] == hist['schedules'] else 'differ'}",
           flush=True)
@@ -2255,7 +2332,7 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
                                       ControllerConfig(**MIXED_CONTROLLER))
         SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
                              controller=ctl_prof, grids_by_bits=grids,
-                             mixed_width=True, init=init)
+                             mixed_width=True, init=init, jit=False)
     per_launch = launch_ms_by_kernel("mixed width", mixed_run,
                                      PACK_DEVICE_KERNELS)
     out["mixed"] = {"launches": counts, "iterations": epochs,
@@ -2400,7 +2477,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
                           stage_ring_edges(STAGES, V, h),
                           ControllerConfig(**MIXED_CONTROLLER)))
         SP.distributed_train(mesh, None, *args, L, C, c, 1, ledger=led,
-                             init=init, overlap=ov, **kw)
+                             init=init, overlap=ov, **kw, jit=False)
         dag_bytes = {e.edge: e.wire_bytes * links for e in dag.comm_events
                      if e.prim == "ppermute"}
         led_bytes = ledger_iteration_bytes(led)
@@ -2461,13 +2538,13 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
                                    ring=LocalRing(mesh, dev))
     _, hist = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
                                    init=inits["G"], overlap="replay",
-                                   cost_table=costs)
+                                   cost_table=costs, jit=False)
     if hist["overlap"] != choice:
         raise AssertionError(f"overlap='replay' ran {hist['overlap']}, "
                              f"choose_overlap_for says {choice}")
     _, h_plain = SP.distributed_train(
         mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
-        epochs, init=inits["G"])
+        epochs, init=inits["G"], jit=False)
     np.testing.assert_allclose(hist["objective"], h_plain["objective"],
                                rtol=TRAJ_RTOL)
     print(f"  overlap='replay': chose overlap={choice}; objective "
@@ -2495,7 +2572,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
                                  controller=walltime_ctl(cm),
                                  grids_by_bits=grids, ledger=led_w,
                                  mixed_width=True, init=inits["G"],
-                                 ring=ring)
+                                 ring=ring, jit=False)
     widest = (max(MIXED_CONTROLLER["allowed_bits"]),) * STAGES
     if any(tuple(sched) != widest for sched in hw["schedules"]):
         raise AssertionError(f"walltime schedules {hw['schedules']} are not "
@@ -2503,7 +2580,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
     _, hw_plain = SP.distributed_train(
         mesh, None, *args, L, C, dataclasses.replace(cfg, use_kernels=False),
         epochs, controller=walltime_ctl(cm), grids_by_bits=grids,
-        mixed_width=True, init=inits["G"])
+        mixed_width=True, init=inits["G"], jit=False)
     np.testing.assert_allclose(hw["objective"], hw_plain["objective"],
                                rtol=TRAJ_RTOL)
     led_b = CommLedger()
@@ -2512,7 +2589,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
                              stage_ring_edges(STAGES, V, h),
                              ControllerConfig(**MIXED_CONTROLLER)),
                          grids_by_bits=grids, ledger=led_b, mixed_width=True,
-                         init=inits["G"])
+                         init=inits["G"], jit=False)
     per_w = led_w.summary()["total_bytes"] / epochs
     per_b = led_b.summary()["total_bytes"] / epochs
     print(f"  walltime mixed ring: schedules all {widest}; predicted "
@@ -2537,7 +2614,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
                                       **MIXED_CONTROLLER), cost_model=cu)
     _, hu = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
                                  controller=ctl_u, grids_by_bits=grids,
-                                 init=inits["G"], ring=ring)
+                                 init=inits["G"], ring=ring, jit=False)
     cand = {b: cu((b,)) * 1e3 for b in sorted(grids)}
     print(f"  walltime uniform codec: widths {hu['schedules']}; predicted "
           f"ms per candidate {cand}", flush=True)
@@ -2739,13 +2816,13 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
     try:
         # (a) health and a zero-rate plan: today's ring, bit for bit
         plain = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
-                                     init=init)
+                                     init=init, jit=False)
         for label, kw in (("health", dict(health=True)),
                           ("zero-rate plan", dict(
                               faults=FT.FaultPlan(seed=FT_ZERO_SEED)))):
             ops.reset_launch_counts()
             got = SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
-                                       init=init, **kw)
+                                       init=init, **kw, jit=False)
             counts = ops.launch_counts()
             missing = [k for k in BASE_KERNELS if counts[k] == 0]
             if missing:
@@ -2767,7 +2844,7 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             SP.distributed_train(mesh, None, *args, L, C, cfg, epochs,
-                                 init=init, **kw)
+                                 init=init, **kw, jit=False)
             torch.cuda.synchronize()
             loop_ms[label] = (time.perf_counter() - t0) / epochs * 1e3
         slab = torch.randn((1, STAGES, 1) + tuple(Xp.shape), device=dev)
@@ -2800,7 +2877,8 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
             ops.reset_launch_counts()
             st, h = SP.distributed_train(mesh, None, *args, L, C, cfg_q,
                                          FT_TICKS, init=init_q, faults=plan,
-                                         overlap=overlap, ledger=led)
+                                         overlap=overlap, ledger=led,
+                                         jit=False)
             counts = ops.launch_counts()
             missing = [k for k in GQ_KERNELS if counts[k] == 0]
             if missing:
@@ -2825,7 +2903,7 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
                                      f"{want.total_wire_bytes()}")
             again = SP.distributed_train(mesh, None, *args, L, C, cfg_q,
                                          FT_TICKS, init=init_q, faults=plan,
-                                         overlap=overlap)
+                                         overlap=overlap, jit=False)
             ft_check_equal(f"chaos repeat (overlap {overlap})", again,
                            (st, h))
             if not all(math.isfinite(o) for o in h["objective"]):
@@ -2848,7 +2926,8 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
         d = os.path.join(tmp, "rollback")
         _, h = SP.distributed_train(mesh, None, *args, L, C, cfg, FT_TICKS,
                                     init=init, faults=FT.FaultPlan(**FT_SNEAKY),
-                                    ckpt=d, ckpt_every=2, ledger=led)
+                                    ckpt=d, ckpt_every=2, ledger=led,
+                                    jit=False)
         shutil.rmtree(d)
         f = h["faults"]
         print(f"ft (c) rollback: {FT_SNEAKY}: {f['injected']} sneaky slabs "
@@ -2866,16 +2945,18 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
         # (d) resume: 4 + a save + a fresh resume to 8 == 8, bit for bit
         d = os.path.join(tmp, "resume")
         _, h4 = SP.distributed_train(mesh, None, *args, L, C, cfg, 4,
-                                     init=init, ckpt=d, ckpt_every=4)
+                                     init=init, ckpt=d, ckpt_every=4,
+                                     jit=False)
         s8r, h8r = SP.distributed_train(mesh, None, *args, L, C, cfg, 8,
-                                        init=init, ckpt=d, resume=True)
+                                        init=init, ckpt=d, resume=True,
+                                        jit=False)
         s8, h8 = SP.distributed_train(mesh, None, *args, L, C, cfg, 8,
-                                      init=init, health=True)
+                                      init=init, health=True, jit=False)
         ft_check_equal("resume", (s8r, {"objective": h4["objective"]
                                         + h8r["objective"]}), (s8, h8))
         mesh5 = StageMesh(1, STAGES // 2)
         _, h5 = SP.distributed_train(mesh5, None, *args, L, C, cfg, 6,
-                                     init=init, ckpt=d, resume=True)
+                                     init=init, ckpt=d, resume=True, jit=False)
         shutil.rmtree(d)
         if len(h5["objective"]) != 2 or not all(
                 math.isfinite(o) for o in h5["objective"]):
@@ -2904,7 +2985,8 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
             led = CommLedger()
             _, h = train_adaptive(0, X, ds.labels, ds.masks, dims, config,
                                   epochs, controller=ctl, ledger=led,
-                                  grids_by_bits={8: grid}, device=dev, **kw)
+                                  grids_by_bits={8: grid}, device=dev, **kw,
+                                  jit=False)
             return h, led
         ops.reset_launch_counts()
         ha, led_a = adaptive(cfg_paper)
@@ -2952,7 +3034,7 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
         from repro_torch.core import pdadmm
         for key, c in (("GQ_paper", cfg_paper), ("GQ_uniform", cfg_q)):
             _, h = pdadmm.train(0, X, ds.labels, ds.masks, dims, c,
-                                GAMLP.epochs, device=dev)
+                                GAMLP.epochs, device=dev, jit=False)
             acc[f"{key}_{GAMLP.epochs}"] = h["test_acc"][-1]
             if not math.isfinite(h["objective"][-1]):
                 raise AssertionError(f"{key}: {GAMLP.epochs} iterations end "
@@ -2972,6 +3054,381 @@ def ft_phase(X, ds, dims, cfg, cfg_q, epochs, runs):
                            "wire_bytes_per_iter": led_a.iteration_bytes(0)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def graph_profile(label, run_once, n_iters: int, ms_per_iter: float) -> dict:
+    """Device busy ms and host CUDA API calls per iteration over one
+    ``run_once()`` of ``n_iters`` iterations (torch.profiler), the idle
+    share of a ``ms_per_iter`` iteration, and the records of each
+    ``HEAD_KERNELS`` group in the trace (over the whole run). A trace with
+    no device event is taken again, up to PROFILE_TRIES times; then the
+    busy time, the idle share and the records are None (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_once()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+        kernels = [ev for ev in device if ev.self_device_time_total > 0]
+        if kernels:
+            break
+    calls = {}
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and API_CALL.match(ev.name):
+            calls[ev.name] = calls.get(ev.name, 0) + 1
+    res = {"api_calls": sum(calls.values()) / n_iters,
+           "api_calls_by_name": calls, "device_busy_ms": None,
+           "device_launches": None, "idle_share": None,
+           "head_launches": None, "source": "torch.profiler"}
+    if kernels:
+        busy = sum(ev.self_device_time_total for ev in kernels) / 1e3
+        res.update(device_busy_ms=busy / n_iters,
+                   device_launches=len(kernels) / n_iters,
+                   idle_share=1.0 - busy / n_iters / ms_per_iter,
+                   head_launches={g: sum(bool(pat.search(ev.name))
+                                         for ev in device)
+                                  for g, pat in HEAD_PATTERNS.items()})
+        return res
+    # no kernel in any trace: the device's span by CUDA events instead
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run_once()
+    end.record()
+    torch.cuda.synchronize()
+    res.update(device_span_ms=start.elapsed_time(end) / n_iters,
+               source="cuda events (the profiler recorded no kernel)")
+    print(f"profile ({label}): no kernel in {PROFILE_TRIES} traces; device "
+          f"span by events {res['device_span_ms']:.3f} ms an iteration",
+          flush=True)
+    return res
+
+
+def graph_kernel_names(graph) -> list:
+    """The kernel names (mangled) of a captured graph's kernel nodes, as
+    the CUDA driver holds them: what each replay launches. ``graph`` was
+    captured with ``core.graphs.debug`` set (it keeps its cudaGraph_t)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class Params(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc:
+            raise RuntimeError(f"{fn}: CUresult {rc}")
+
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        par, name = Params(), ctypes.c_char_p()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+             ctypes.byref(par))
+        if not par.func or cu.cuFuncGetName(ctypes.byref(name),
+                                            ctypes.c_void_p(par.func)):
+            call("cuKernelGetName", ctypes.byref(name),
+                 ctypes.c_void_p(par.kern or par.func))
+        names.append(name.value.decode())
+    return names
+
+
+def head_group(name: str):
+    """The ``HEAD_KERNELS`` group a kernel's name belongs to, or None."""
+    return next((g for g, pat in HEAD_PATTERNS.items() if pat.search(name)),
+                None)
+
+
+def peak_of(fn):
+    """(fn(), peak MiB allocated while it ran, MiB above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak / 2 ** 20, (peak - base) / 2 ** 20
+
+
+def graph_same(label, got, want) -> None:
+    """Two runs' states and metrics (but their seconds), bit for bit."""
+    from torch.utils._pytree import tree_leaves
+    (sg, mg), (se, me) = got, want
+    lg, le = tree_leaves(sg), tree_leaves(se)
+    if len(lg) != len(le):
+        raise AssertionError(f"graph {label}: state trees differ")
+    for i, (a, b) in enumerate(zip(lg, le)):
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+            d = (a.double() - b.double()).abs().max().item()
+            raise AssertionError(f"graph {label}: state leaf {i} "
+                                 f"{tuple(a.shape)} differs from eager by "
+                                 f"max |Δ| {d:.3e}")
+    for k in me:
+        if k.endswith("seconds"):
+            continue
+        a, b = np.asarray(mg[k]), np.asarray(me[k])
+        if not np.array_equal(a, b):
+            raise AssertionError(f"graph {label}: metric {k} differs from "
+                                 f"eager: {a.tolist()} vs {b.tolist()}")
+
+
+def graph_form(label, run, n_iters: int, required=()) -> dict:
+    """One path of ``graph_phase``: ``run(jit, state)`` runs ``n_iters``
+    iterations of the path by the graphed (``jit=True``) or eager driver
+    from ``state`` (None: the path's initial state) and returns
+    ``(state, metrics)``, the state being what the next call may take back.
+    The two forms from one state: the same bits, the same launch counts,
+    one replay per iteration, peak MiB; then ms per iteration in turns
+    (GRAPH_TURNS, medians) and a profile of each form. The graph's
+    launches are read from the CUDA driver: the ``HEAD_KERNELS`` nodes of
+    each graph the first run captured, times its replays, equal to the
+    eager run's wrapper counts group by group. The profiles' device traces
+    count the same kernels in each form; what a trace lacks of the
+    wrappers' count (and the graph's warm-ups, two eager bodies a capture)
+    is kept beside it."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import ops
+    res, outs = {}, {}
+    for jit in (True, False):
+        ops.reset_launch_counts()
+        graphs.replays = 0
+        graphs.debug_programs.clear()
+        graphs.debug = jit      # this run's graphs keep their nodes
+        try:
+            out, peak, above = peak_of(lambda: run(jit, None))
+        finally:
+            graphs.debug = False
+        outs[jit] = out
+        res["graph" if jit else "eager"] = {
+            "launches": ops.launch_counts(), "replays": graphs.replays,
+            "peak_mib": peak, "above_mib": above}
+        if jit:
+            # each captured graph's head nodes × its replays, and the
+            # launches the wrappers made outside the graphs (the counters
+            # less what the replays added to them: an entry point's
+            # initial state, greedy growth's forward pass)
+            nodes, outside = collections.Counter(), ops.launch_counts()
+            for prog in graphs.debug_programs:
+                for name in graph_kernel_names(prog.graph):
+                    if head_group(name) is not None:
+                        nodes[head_group(name)] += prog.replays
+                for k, v in prog.delta[0].items():
+                    outside[k] -= v * prog.replays
+            graphs.debug_programs.clear()
+    g, e = res["graph"], res["eager"]
+    graph_same(label, outs[True], outs[False])
+    want = {"+".join(w): sum(e["launches"][k] for k in w)
+            for w in HEAD_KERNELS}
+    g["graph_node_launches"] = {k: nodes.get(k, 0) for k in want}
+    g["outside_launches"] = {k: v for k, v in outside.items() if v}
+    got = {k: v + sum(outside[w] for w in k.split("+"))
+           for k, v in g["graph_node_launches"].items()}
+    if got != want:
+        raise AssertionError(f"graph {label}: the graphs' kernel nodes × "
+                             f"replays {g['graph_node_launches']} and the "
+                             f"launches outside them {g['outside_launches']}"
+                             f" make {got}; the eager wrappers count {want}")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"graph {label}: launches {g['launches']} vs "
+                             f"eager {e['launches']}")
+    missing = [k for k in required if e["launches"][k] == 0]
+    if missing or g["replays"] != n_iters or e["replays"]:
+        raise AssertionError(f"graph {label}: {g['replays']} replays for "
+                             f"{n_iters} iterations (eager {e['replays']});"
+                             f" kernels never launched: {missing}")
+    states = {jit: outs[jit][0] for jit in (True, False)}
+    del outs
+    samples, wrapped = {True: [], False: []}, {}
+    for jit in GRAPH_TURNS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        states[jit], _ = run(jit, states[jit])
+        samples[jit].append((time.perf_counter() - t) / n_iters * 1e3)
+    # eager first: its wrappers' counts are what both traces are read by
+    for jit in (False, True):
+        r = res["graph" if jit else "eager"]
+        r["ms_per_iter_samples"] = samples[jit]
+        r["ms_per_iter"] = float(np.median(samples[jit]))
+
+        def once(jit=jit):
+            ops.reset_launch_counts()
+            graphs.warmup_launches.clear()
+            states[jit], _ = run(jit, states[jit])
+            wrapped[jit] = (ops.launch_counts(),
+                            dict(graphs.warmup_launches))
+        r["profile"] = graph_profile(label, once, n_iters, r["ms_per_iter"])
+        got = r["profile"]["head_launches"]
+        if got is not None:
+            counted, extra = wrapped[False][0], wrapped[jit][1]
+            # a trace loses device records now and then (1-4 of a run's
+            # 90-225 grid launches seen): what it lacks is kept as read
+            r["trace_lacks"] = {
+                k: sum(counted[w] + extra.get(w, 0) for w in k.split("+"))
+                - v for k, v in got.items()}
+            r["trace_lacks"] = {k: v for k, v in r["trace_lacks"].items()
+                                if v}
+            if r["trace_lacks"]:
+                print(f"graph {label}: the {'graph' if jit else 'eager'} "
+                      f"form's trace lacks {r['trace_lacks']} of the "
+                      f"wrappers' count", flush=True)
+    g["warmup_launches"] = wrapped[True][1]
+    per_iter = {k: v / n_iters for k, v in g["graph_node_launches"].items()
+                if v}
+    print(f"graph {label}: bitwise equal to eager over {n_iters} iterations,"
+          f" counters equal ({sum(g['launches'].values())}), {g['replays']}"
+          f" replays; head kernels a replay launches (the graphs' nodes; "
+          f"with {g['outside_launches']} outside the graphs, as the eager "
+          f"wrappers count): {per_iter}", flush=True)
+    for name in ("graph", "eager"):
+        r, p = res[name], res[name]["profile"]
+        busy = ("not measured" if p["device_busy_ms"] is None else
+                f"{p['device_busy_ms']:.3f}")
+        idle = ("not measured" if p["idle_share"] is None else
+                f"{p['idle_share']:.3f}")
+        print(f"  {name}: ms per iteration {r['ms_per_iter']:.3f} (turns "
+              f"{[round(x, 3) for x in r['ms_per_iter_samples']]}); device "
+              f"busy {busy} ms, idle share {idle}, host CUDA API calls "
+              f"{p['api_calls']:.1f} an iteration; peak {r['peak_mib']:.1f}"
+              f" MiB ({r['above_mib']:.1f} above the base)", flush=True)
+    return res
+
+
+def graph_phase(X, ds, dims, cfg, cfg_q) -> dict:
+    """The compiled ADMM driver (``core.graphs``) against the eager loop on
+    the paths that ride ``pdadmm.run_chunked``: G, G-Q, G-Q with 8-bit u
+    codecs, the G and G-Q rings of mesh (1, 10) with overlap off and on
+    (and G with ``donate=True``), one ``train_adaptive`` control step,
+    ``train_adaptive`` with a control step every iteration over 4/8/16-bit
+    grids, and ``greedy_train``'s (2, 5) schedule, each by
+    ``graph_form``."""
+    from repro_torch.comm.codecs import GridCodec
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig, admm_edges,
+                                             train_adaptive)
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.core import graphs, pdadmm
+    from repro_torch.core.greedy import greedy_train
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+    from torch.utils._pytree import tree_map
+
+    dev, n = X.device, GRAPH_ITERS
+    args = (X, ds.labels, ds.masks["train"])
+    # programs the earlier phases left alive (0: each died with its step)
+    out = {"programs_alive_at_start": len(graphs.programs())}
+    print(f"graph: {out['programs_alive_at_start']} captured programs alive "
+          f"from earlier phases; {torch.cuda.memory_allocated() / 2 ** 20:.1f}"
+          f" MiB allocated, {torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB "
+          f"reserved", flush=True)
+
+    def chunked(step, s0, a, donate=False, ring=None, moved=None):
+        def run(jit, st):
+            if st is None:      # a donated eager step writes into its input
+                st = tree_map(torch.clone, s0) if donate else s0
+            b0 = ring.shifted_bytes if ring is not None else 0
+            res = pdadmm.run_chunked(step, st, a, n, jit=jit)
+            if ring is not None:
+                moved[jit].add(ring.shifted_bytes - b0)
+            return res
+        return run
+
+    u_codecs = (GridCodec(uniform_grid(8, -1.0, 1.0)),) * (len(dims) - 2)
+    for label, c, kw, required in (
+            ("G", cfg, {}, BASE_KERNELS), ("GQ", cfg_q, {}, GQ_KERNELS),
+            ("GQ_u_wire", cfg_q, {"u_codecs": u_codecs},
+             GQ_KERNELS + WIRE_KERNELS)):
+        step = functools.partial(pdadmm.iterate, config=c, **kw)
+        s0 = pdadmm.init_state(0, X, dims, c, device=dev)
+        out[label] = graph_form(label, chunked(step, s0, args), n, required)
+        graphs.release(step)
+        del step, s0
+
+    Xp = ring_problem(X, ds, dev)
+    mesh = StageMesh(1, STAGES)
+    L, C = STAGES, ds.n_classes
+    for label, c, overlap, donate, required in (
+            ("G_ring", cfg, False, False, BASE_KERNELS),
+            ("G_ring_overlap", cfg, True, False, BASE_KERNELS),
+            ("G_ring_donate", cfg, False, True, BASE_KERNELS),
+            ("GQ_ring", cfg_q, False, False, GQ_KERNELS + WIRE_KERNELS),
+            ("GQ_ring_overlap", cfg_q, True, False,
+             GQ_KERNELS + WIRE_KERNELS)):
+        ring = LocalRing(mesh, dev)
+        step, _ = SP.make_distributed_step(mesh, L, C, c, overlap=overlap,
+                                           donate=donate, ring=ring)
+        data = tuple(ring.to_local(x, "rows") for x in
+                     (Xp, ds.labels, ds.masks["train"]))
+        st = SP.shard_stack(SP.init_stack(0, Xp, L, c), ring)
+        if overlap:
+            st = (st, SP.make_overlap_primer(
+                mesh, SP.codec_for_grid(c.grid if c.quantize_q else None),
+                ring=ring)(st.q, st.u))
+        moved = {True: set(), False: set()}
+        out[label] = graph_form(label, chunked(step, st, data, donate, ring,
+                                               moved), n, required)
+        if len(moved[True] | moved[False]) != 1:
+            raise AssertionError(f"graph {label}: the shifts' bytes a run "
+                                 f"{moved}: graph and eager differ")
+        out[label]["shifted_bytes_per_iter"] = moved[True].pop() / n
+        graphs.release(step)
+        del step, st, ring
+
+    grid = cfg_q.grid
+    V = X.shape[0]
+
+    def adaptive(jit, st):
+        ctl = BitWidthController(admm_edges(dims, V)[:len(dims) - 2],
+                                 ControllerConfig(allowed_bits=(8,),
+                                                  min_bits=8, max_bits=8))
+        return train_adaptive(0, X, ds.labels, ds.masks, dims, cfg, n,
+                              controller=ctl, ledger=CommLedger(),
+                              grids_by_bits={8: grid}, control_interval=n,
+                              device=dev, jit=jit)
+    out["adaptive"] = graph_form("adaptive (one control step)", adaptive, n,
+                                 GQ_KERNELS)
+
+    # a control step every iteration over 4/8/16-bit grids: each schedule
+    # the controller picks gets its graph, all over one state's buffers
+    grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
+    visited = {True: [], False: []}
+
+    def adaptive_mixed(jit, st):
+        ctl = BitWidthController(admm_edges(dims, V)[:len(dims) - 2],
+                                 ControllerConfig(**MIXED_CONTROLLER))
+        st, h = train_adaptive(0, X, ds.labels, ds.masks, dims, cfg, n,
+                               controller=ctl, ledger=CommLedger(),
+                               grids_by_bits=grids, control_interval=1,
+                               device=dev, jit=jit)
+        visited[jit].append(h["schedules"])
+        return st, h
+    out["adaptive_mixed"] = graph_form(
+        "adaptive (4/8/16 bits, a control step an iteration)",
+        adaptive_mixed, n, GQ_KERNELS)
+    out["adaptive_mixed"]["schedules"] = visited[True][0]
+    print(f"  schedules (graph and eager alike): {visited[True][0]}; "
+          f"{len(set(visited[True][0]))} distinct", flush=True)
+
+    def greedy(jit, st):
+        return greedy_train(0, X, ds.labels, ds.masks, dims[1],
+                            ds.n_classes, (2, 5), n, cfg, device=dev,
+                            jit=jit)
+    out["greedy"] = graph_form("greedy (2, 5)", greedy, 2 * n, BASE_KERNELS)
     return out
 
 
@@ -3076,7 +3533,7 @@ def greedy_phase(X, ds, h: int, cfg, required, label) -> dict:
     ops.reset_launch_counts()
     state, hist = greedy_train(0, X, ds.labels, ds.masks, h, ds.n_classes,
                                schedule, epochs, cfg, device=X.device,
-                               callback=stage_end)
+                               callback=stage_end, jit=False)
     counts = ops.launch_counts()
     missing = [k for k in required if counts[k] == 0]
     if missing:
@@ -3103,7 +3560,8 @@ def greedy_phase(X, ds, h: int, cfg, required, label) -> dict:
 
     cfg_plain = dataclasses.replace(cfg, use_kernels=False)
     _, hist_plain = greedy_train(0, X, ds.labels, ds.masks, h, ds.n_classes,
-                                 schedule, epochs, cfg_plain, device=X.device)
+                                 schedule, epochs, cfg_plain, device=X.device,
+                                 jit=False)
     obj_plain = np.asarray(hist_plain["objective"])
     run = {"schedule": list(schedule), "epochs_per_stage": epochs,
            "launches": counts, "iterations": len(obj), "stages": stages,
@@ -5590,6 +6048,26 @@ def decode_ab(parent_src: str) -> dict:
     return res
 
 
+def graph_smoke() -> dict:
+    """``graph_phase`` alone at cora 10×1000, after the kernels' build:
+    ``python3 -c "import chip_smoke as C; C.graph_smoke()"`` on the card.
+    Prints the card's name and power limit last."""
+    from repro_torch.core.pdadmm import ADMMConfig
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.graph.datasets import synthetic
+    from repro_torch.kernels import build
+    build.library()
+    ds = synthetic("cora", scale=1.0, device=torch.device("cuda"))
+    X = ds.augmented(4)
+    dims = [X.shape[1]] + [1000] * 9 + [ds.n_classes]
+    out = graph_phase(X, ds, dims, ADMMConfig(nu=1e-2, rho=1.0),
+                      ADMMConfig(nu=1e-2, rho=1.0, quantize_p=True,
+                                 quantize_q=True,
+                                 grid=uniform_grid(8, -2.0, 6.0)))
+    print(card_line())
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5710,6 +6188,7 @@ def main() -> int:
     runs["replay"] = replay_phase(X, ds, cfg, cfg_q, EPOCHS)
     runs["contract"] = contract_phase(X, ds, cfg)
     runs["ft"] = ft_phase(X, ds, dims, cfg, cfg_q, EPOCHS, runs)
+    runs["graph"] = graph_phase(X, ds, dims, cfg, cfg_q)
     runs["baselines"] = baseline_phase(X, ds, dims, cfg, runs)
     del X, ds
     torch.cuda.empty_cache()

@@ -317,7 +317,7 @@ def train_adaptive(seed, X, labels, masks, dims, config, epochs: int, *,
                    grids_by_bits: Dict[int, "object"],
                    control_interval: int = 1, ckpt=None, ckpt_every: int = 0,
                    resume: bool = False, recovery=None, fault_hook=None,
-                   init=None, device=None):
+                   init=None, device=None, jit: bool = True):
     """pdADMM-G-Q training with the controller assigning each boundary's
     p/q exchange (and, with an ``admm_edges``-shaped controller, its u
     exchange) a bit-width every iteration; every payload goes on the
@@ -334,7 +334,10 @@ def train_adaptive(seed, X, labels, masks, dims, config, epochs: int, *,
     transfer of the chunk's metrics, then the controller is replayed over
     the chunk's interior iterations, so its dwell/peak/budget state
     evolves as if consulted every iteration (``control_interval=1`` is the
-    per-iteration loop).
+    per-iteration loop). ``jit`` is ``run_chunked``'s: on the card each
+    schedule's step is captured once as a CUDA graph and replayed in
+    every control step that uses it; every schedule's graph reads and
+    writes one set of state buffers, so a switch copies nothing.
 
     ``seed`` (an int or a CPU ``torch.Generator``) draws the initial state
     on the grid the first iterations train on, unless ``init`` gives one
@@ -450,7 +453,8 @@ def train_adaptive(seed, X, labels, masks, dims, config, epochs: int, *,
         if fault_hook is not None:
             state = fault_hook(e, state)
         state, ms = pdadmm.run_chunked(
-            step_for(sched), state, (X, labels, masks["train"]), c, chunk=c)
+            step_for(sched), state, (X, labels, masks["train"]), c, chunk=c,
+            jit=jit)
         if guard:
             obj_last = float(ms["objective"][-1])
             res_last = float(ms["residual"][-1])

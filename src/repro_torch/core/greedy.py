@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import pdadmm
+from repro_torch.core import graphs, pdadmm
 from repro_torch.core.pdadmm import ADMMConfig, ADMMState, relu
 
 
@@ -74,7 +74,8 @@ def greedy_train(seed, X, labels, masks, hidden: int, n_classes: int,
                  schedule: Sequence[int], epochs_per_stage: int,
                  config: ADMMConfig, *, device=None,
                  state: Optional[ADMMState] = None,
-                 noise: Optional[Sequence] = None, callback=None):
+                 noise: Optional[Sequence] = None, callback=None,
+                 jit: bool = True):
     """schedule: layer counts, e.g. (2, 5, 10). Returns (state, history).
 
     ``seed`` (an int or a CPU ``torch.Generator``) draws the first stage's
@@ -84,7 +85,12 @@ def greedy_train(seed, X, labels, masks, hidden: int, n_classes: int,
     caller can hand the reference's numbers over. The metrics reach the
     host once per ``run_chunked`` chunk; ``history["stage_seconds"]`` is the
     host time of each stage's iterations, ending in that copy (a device
-    sync). ``callback(stage, state)`` runs after each stage's iterations."""
+    sync). ``callback(stage, state)`` runs after each stage's iterations.
+
+    ``jit`` is ``run_chunked``'s: on the card each stage captures one CUDA
+    graph (the layer count changes the signature) and its
+    ``stage_seconds`` include that capture; the stage's graph is freed
+    once its iterations end."""
     device = resolve_device(device)
     X, labels = X.to(device), labels.to(device)
     masks = {k: m.to(device) for k, m in masks.items()}
@@ -110,8 +116,9 @@ def greedy_train(seed, X, labels, masks, hidden: int, n_classes: int,
         t0 = time.perf_counter()
         state, ms = pdadmm.run_chunked(step, state,
                                        (X, labels, masks["train"]),
-                                       epochs_per_stage)
+                                       epochs_per_stage, jit=jit)
         hist["stage_seconds"].append(time.perf_counter() - t0)
+        graphs.release(step)    # the next stage has other dims
         hist["objective"] += [float(x) for x in ms.get("objective", [])]
         hist["residual"] += [float(x) for x in ms.get("residual", [])]
         hist["stage_layers"] += [L] * epochs_per_stage

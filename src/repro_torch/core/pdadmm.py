@@ -466,10 +466,25 @@ def calibrate_grid(seed, X, dims, bits: int, margin_frac: float = 0.05):
 # Chunked training driver
 # ---------------------------------------------------------------------------
 
-def run_chunked(step_fn, state, args, n_iters: int, chunk: int = 32):
+def run_chunked(step_fn, state, args, n_iters: int, chunk: int = 32, *,
+                jit: bool = True):
     """Run ``n_iters`` iterations of ``step_fn(state, *args) -> (state, m)``
     in chunks: the per-iteration metrics stay on the device within a chunk
     and move to the host once per chunk (nothing in an iteration syncs).
+
+    ``jit=True`` (the reference's ``lax.scan`` chunk) runs the iterations
+    of a state on a CUDA device through ``core.graphs``: one iteration is
+    captured as a CUDA graph, cached per ``step_fn`` and signature, and
+    replayed. The state comes back as tensors over buffers that every
+    program over a state of its signature shares. Such a state does not
+    change under a later call unless it is passed back in (then it is not
+    copied again): a call that brings another state while a returned one
+    is still held gets new buffers (and captures anew), and the held
+    state keeps the old storage. A step that donates its input
+    (``make_distributed_step(donate=True)``) writes into those buffers,
+    which skip their copy-back. On the CPU, which has no graphs, and with
+    ``jit=False``, ``step_fn`` is called once per iteration in a Python
+    loop.
 
     Returns ``(state, metrics)`` with metrics stacked host-side over all
     ``n_iters`` (numpy arrays, leading axis = iteration); an empty dict when
@@ -478,6 +493,9 @@ def run_chunked(step_fn, state, args, n_iters: int, chunk: int = 32):
     if n_iters <= 0:
         return state, {}
     chunk = max(1, min(int(chunk), int(n_iters)))
+    from repro_torch.core import graphs
+    if jit and graphs.on_cuda(state):
+        return graphs.run(step_fn, state, args, n_iters, chunk)
     pieces, done = [], 0
     while done < n_iters:
         c = min(chunk, n_iters - done)
@@ -494,10 +512,14 @@ def run_chunked(step_fn, state, args, n_iters: int, chunk: int = 32):
 
 
 def train(seed, X, labels, masks, dims, config: ADMMConfig, epochs: int,
-          *, device=None, callback=None, chunk: int = 32):
+          *, device=None, jit: bool = True, callback=None, chunk: int = 32):
     """Run `epochs` iterations from ``init_state(seed, ...)``; returns
-    (state, history dict). The metrics reach the host once per ``chunk``
-    iterations; a ``callback(epoch, state, metrics)`` runs every epoch."""
+    (state, history dict). The default driver is ``run_chunked(...,
+    jit=True)``: on the card each iteration replays one captured CUDA
+    graph, on the CPU the chunked eager loop runs, and the metrics reach
+    the host once per ``chunk`` iterations. A ``callback(epoch, state,
+    metrics)``, which needs the state every epoch, or ``jit=False`` runs
+    the per-epoch eager loop instead, as the reference's ``train`` does."""
     device = resolve_device(device)
     X, labels = X.to(device), labels.to(device)
     masks = {k: m.to(device) for k, m in masks.items()}
@@ -507,7 +529,7 @@ def train(seed, X, labels, masks, dims, config: ADMMConfig, epochs: int,
     def step(s, *args):
         return iterate(s, *args, config=config)
 
-    if callback is None:
+    if callback is None and jit:
         state, ms = run_chunked(step, state, (X, labels, masks["train"]),
                                 epochs, chunk=chunk)
         hist["objective"] = [float(x) for x in ms.get("objective", [])]
@@ -517,7 +539,8 @@ def train(seed, X, labels, masks, dims, config: ADMMConfig, epochs: int,
             state, m = step(state, X, labels, masks["train"])
             hist["objective"].append(float(m["objective"]))
             hist["residual"].append(float(m["residual"]))
-            callback(e, state, m)
+            if callback is not None:
+                callback(e, state, m)
     hist["val_acc"].append(float(forward_accuracy(state, X, labels,
                                                   masks["val"])))
     hist["test_acc"].append(float(forward_accuracy(state, X, labels,

@@ -55,6 +55,18 @@ def reset_launch_counts() -> None:
             mod.launches = 0
 
 
+def add_launch_counts(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (kernel name -> launches) to the
+    counters: the launches a CUDA graph replay made without running the
+    wrappers (``core.graphs``)."""
+    for name, n in counts.items():
+        mod = KERNEL_MODULES[name]
+        if isinstance(mod.launches, dict):
+            mod.launches[name] += n * times
+        else:
+            mod.launches += n * times
+
+
 # the step recorders listening to kernel scopes (innermost last)
 _recorders = []
 

@@ -37,6 +37,7 @@ keep their own copy, and a host read returns data shard 0's).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import List, Sequence
 
 import torch
@@ -45,6 +46,13 @@ from repro_torch import resolve_device
 
 AXES = ("data", "model")
 SPECS = ("rows", "layers_rows", "layers")
+# every LocalRing alive: a CUDA graph replay advances their byte counts
+# (core.graphs), since a replay runs no Python
+_LOCAL_RINGS = weakref.WeakSet()
+
+
+def live_local_rings() -> list:
+    return list(_LOCAL_RINGS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,7 @@ class LocalRing:
         self.mesh = mesh
         self.device = resolve_device(device)
         self.shifted_bytes = 0
+        _LOCAL_RINGS.add(self)
 
     # -- where this process sits ------------------------------------------
     def axis_size(self, axis: str) -> int:

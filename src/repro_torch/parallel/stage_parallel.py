@@ -1277,7 +1277,8 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                       faults=None, health: bool = False, ckpt=None,
                       ckpt_every: int = 0, resume: bool = False,
                       recovery=None, ring=None,
-                      init: Optional[StackState] = None, cost_table=None):
+                      init: Optional[StackState] = None, cost_table=None,
+                      jit: bool = True):
     """End-to-end stage-parallel training; returns ``(state, hist)`` with
     ``state`` the global stack (:func:`gather_stack`).
 
@@ -1290,7 +1291,11 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
     on the device within a chunk (one host transfer per ``chunk``
     iterations). With ``overlap=True`` the in-flight q/u pair is part of
     the carry (primed once before the loop); results are bitwise those of
-    ``overlap=False``.
+    ``overlap=False``. ``jit`` is ``run_chunked``'s: on a ``LocalRing`` on
+    the card the step is captured once as a CUDA graph and replayed (the
+    in-flight pair is part of the graph's state); a ``ProcessGroupRing``
+    always runs the eager loop (its shifts are gloo messages on the CPU).
+    The controller, mixed-width and fault-tolerant loops below run eagerly.
 
     With a ``controller`` (+ ``grids_by_bits``) the p/q wire width is
     chosen each epoch from the global primal residual, one cached step per
@@ -1445,7 +1450,8 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
         p_codec, q_codec = codecs_for(None)
         step = step_for(None)
         carry = (state, prime(None, state)) if overlap else state
-        carry, ms = run_chunked(step, carry, data, epochs, chunk=chunk)
+        carry, ms = run_chunked(step, carry, data, epochs, chunk=chunk,
+                                jit=jit and isinstance(ring, LocalRing))
         state = carry[0] if overlap else carry
         hist["objective"] = [float(x) for x in ms.get("objective", ())]
         hist["residual"] = [float(x) for x in ms.get("residual", ())]
