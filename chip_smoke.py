@@ -29,7 +29,14 @@ and the script exits non-zero without printing a result:
    vocabulary ([2048, 32000], the streaming route); every case must
    give the same bits on a second call, and the [V, C] cases print the
    launch floor (the device time of a one-element ``torch.zeros`` fill)
-   beside the bound.
+   beside the bound. The row-predicated forms of ``grid_encode``,
+   ``grid_decode``, ``pack_codes`` and ``unpack_codes`` (the mixed-width
+   ring's padded wire: one launch a width, each row a stage's slab of
+   2,485,000 codes, run where the stage's entry of a device table is that
+   width) run on a 4/8/16 mix over 10 stages, with all 10 rows at 4 bits
+   and 8 rows at 16 (the unpredicated rows' shapes), and as launches that
+   match no row (a table without 8-bit stages; an all-8-bit one), each
+   bitwise against its plain version and beside the launch floor.
 3. Train pdADMM-G on cora at 10×1000 for a few iterations through
    ``repro_torch.core.pdadmm.train`` with every launch counter set to 0
    just before; its four kernels must have launched, the objective must be
@@ -60,7 +67,9 @@ and the script exits non-zero without printing a result:
    donated peak lower). Then 5
    iterations of the mixed-width padded wire (a ``BitWidthController`` over
    ``stage_ring_edges``, widths {4, 8, 16}): one step built, the schedules
-   printed, ``pack_codes`` and ``unpack_codes`` launched, the shifts' bytes
+   printed, ``pack_codes`` and ``unpack_codes`` launched, the launches those
+   of ``step_program_plan`` each iteration (a predicated launch a width of
+   the wire, whatever the schedule), the shifts' bytes
    equal to the ledger's physical bytes, the objectives tracking the same
    run with ``use_kernels=False`` at rtol 1e-3; the same iterations again
    under torch.profiler give each pack and unpack kernel's device ms a
@@ -140,7 +149,16 @@ and the script exits non-zero without printing a result:
    (``run_chunked`` on the step), one ``train_adaptive`` control step,
    ``train_adaptive`` with a control step every iteration over 4/8/16-bit
    grids (a graph per schedule, all over one state's buffers) and
-   ``greedy_train`` over the schedule (2, 5) (their entry points). Each
+   ``greedy_train`` over the schedule (2, 5) (their entry points), and
+   ``distributed_train``'s per-iteration loops on the G ring
+   (``graph_loops``, each of its calls capturing inside): the mixed-width
+   ring over its device widths table with 10 and with 20 managed edges,
+   overlap off and on; the per-epoch controller ring at 4/8/16 bits with
+   overlap on (its schedules must switch); and the sentinel loop with
+   ``health=True`` (overlap on), under ``FT_SNEAKY`` for ``FT_TICKS``
+   iterations (a rollback at least, every tick one replay) and with a
+   checkpoint every 2 of 3 iterations and a resume to 5 (``hist``, the
+   ledger's bytes and the ring's shifted bytes held too). Each
    runs GRAPH_ITERS (5) iterations a stage from one state in both forms:
    states and metrics bitwise equal, the launch counters (and a ring's
    shifted bytes) equal, one replay per iteration, the peak MiB of each
@@ -565,6 +583,10 @@ TRAIN_RESUME_RTOL = 1e-2       # (e) resumed losses against uninterrupted
 PROFILE_TRIES = 3   # traces of one iteration (see profile_phase, train_full)
 GRAPH_ITERS = 5     # iterations of each graph_phase run
 GRAPH_TURNS = (True, False, False, True, True, False)   # graph, eager, ...
+SEL_ITERS = 10      # timed calls of each row-predicated kernel case
+# graph_loops: steps a turn of the steady timing (one step's calls after
+# its capture, graph, eager, eager, graph)
+GRAPH_STEADY = 20
 API_CALL = re.compile(r"^cu(da)?[A-Z]")   # a CUDA runtime or driver API call
 # each kernel wrapper's head kernel, launched once for every call of the
 # wrapper (a wrapper may launch a reduction after it: fused_linear_reduce,
@@ -1418,6 +1440,93 @@ def pack_rows(gen, n: int, floor_ms: float) -> tuple:
     return pk, upk
 
 
+def sel_rows(gen, n: int, floor_ms: float) -> dict:
+    """``case`` rows of the row-predicated wire kernels (the mixed-width
+    ring's padded wire: one launch a width of the 4/8/16 wire, each row a
+    stage's slab of n codes, rows of the width's stages written) at the
+    ring's shapes, keyed by wrapper: on a 4/8/16 mix over 10 stages each
+    width's launch; all 10 rows at 4 bits and 8 rows at 16 (the
+    unpredicated rows' [10, n] and [8, n]); and a launch that matches no
+    row (a table without 8-bit stages for the grid kernels, an all-8-bit
+    one for pack and unpack), beside the launch floor. Each bitwise
+    against its plain version on the same table; the bound counts the
+    bytes of the rows the table selects."""
+    from repro_torch.comm.codecs import _body_bytes
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.kernels import pack_codes as pc
+    from repro_torch.kernels import quantize_kernel as qk
+    from repro_torch.kernels import ref
+    dev = gen.device
+    widths = (4, 8, 16)
+    grids = [uniform_grid(b, -2.0, 6.0) for b in widths]
+    cap = _body_bytes(16, n)
+    out = {k: [] for k in ("grid_encode", "grid_decode", "pack_codes",
+                           "unpack_codes")}
+    print("row-predicated wire kernels (a launch a width):", flush=True)
+    for label, table, ks in (
+            ("4/8/16 mix", [0, 1, 2] * 3 + [0], (0, 1, 2)),
+            ("all 4-bit", [0] * STAGES, (0,)),
+            ("all 16-bit", [2] * (STAGES - 2), (2,)),
+            ("no 8-bit stage", [0, 2] * (STAGES // 2), (1,)),
+            ("all 8-bit", [1] * STAGES, (0, 2))):
+        rows = len(table)
+        sel = torch.tensor(table, dtype=torch.int32, device=dev)
+        x = torch.rand((rows, n), generator=gen, device=dev) * 9.0 - 2.5
+        for k in ks:
+            bits, grid = widths[k], grids[k]
+            m = table.count(k)
+            cb = 1 if bits <= 8 else 2
+            nb = _body_bytes(bits, n)
+            name = (f"sel [{rows},{n}] {label}, {bits}-bit launch ({m} of "
+                    f"{rows} rows)")
+            codes = ref.grid_encode_ref(x, grid)
+            packed = torch.zeros((rows, cap), dtype=torch.uint8, device=dev)
+            if bits != 8:
+                packed[:, :nb] = ref.pack_codes_ref(codes, bits)
+            cases = [("grid_encode", lambda b, x=x, g=grid, s=sel, k=k:
+                      qk.grid_encode_sel(x, g, b, s, k),
+                      lambda b, x=x, g=grid, s=sel, k=k:
+                      ref.grid_encode_sel_ref(x, g, b, s, k),
+                      torch.zeros_like(codes), m * n * (4 + cb), 4 * m * n),
+                     ("grid_decode", lambda b, c=codes, g=grid, s=sel, k=k:
+                      qk.grid_decode_sel(c, g, b, s, k),
+                      lambda b, c=codes, g=grid, s=sel, k=k:
+                      ref.grid_decode_sel_ref(c, g, b, s, k),
+                      torch.full((rows, n), -1.0, device=dev),
+                      m * n * (4 + cb), 2 * m * n)]
+            if bits != 8:
+                cases += [
+                    ("pack_codes", lambda b, c=codes, s=sel, k=k, w=bits:
+                     pc.pack_codes_sel(c, w, b, s, k),
+                     lambda b, c=codes, s=sel, k=k, w=bits:
+                     ref.pack_codes_sel_ref(c, w, b, s, k),
+                     torch.zeros((rows, cap), dtype=torch.uint8, device=dev),
+                     m * (cb * n + nb), 2 * m * n),
+                    ("unpack_codes", lambda b, p=packed, s=sel, k=k, w=bits:
+                     pc.unpack_codes_sel(p, w, b, s, k),
+                     lambda b, p=packed, s=sel, k=k, w=bits:
+                     ref.unpack_codes_sel_ref(p, w, b, s, k),
+                     torch.zeros_like(codes), m * (nb + cb * n), 2 * m * n)]
+            for wrapper, kern, plain, base, n_bytes, n_ops in cases:
+                if wrapper in ("pack_codes", "unpack_codes") \
+                        and label == "no 8-bit stage":
+                    continue
+                if wrapper in ("grid_encode", "grid_decode") \
+                        and label == "all 8-bit":
+                    continue
+                # each form writes into a buffer of its own, filled alike
+                bk, bp = base.clone(), base.clone()
+                row = case(name, lambda f=kern, b=bk: f(b),
+                           lambda f=plain, b=bp: f(b), None, n_bytes, n_ops,
+                           bitwise_check, iters=SEL_ITERS)
+                row.update(predicated=True, rows_selected=m,
+                           launch_floor_ms=floor_ms)
+                print(f"    launch floor {floor_ms:.4f} ms; device / floor "
+                      f"{row['device_ms'] / floor_ms:.2f}", flush=True)
+                out[wrapper].append(row)
+    return out
+
+
 def kernel_phase(X, ds, dims, nu, rho, grid):
     from repro_torch.kernels import ref
     from repro_torch.kernels import quantize_kernel as qk
@@ -1588,6 +1697,8 @@ def kernel_phase(X, ds, dims, nu, rho, grid):
 
     rows["pack_codes"], rows["unpack_codes"] = pack_rows(gen, V * h,
                                                          floor_ms)
+    for name, cases in sel_rows(gen, V * h, floor_ms).items():
+        rows[name] += cases
     rows["flash_attention"] = flash_cases(dev)
     return rows
 
@@ -2300,6 +2411,13 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
     if missing:
         raise AssertionError(f"mixed width: kernels never launched: "
                              f"{missing}")
+    # a predicated launch per width of the wire, whatever the schedule
+    plan = SP.step_program_plan(mesh, L, C, cfg, V=V, h=h, ring=ring,
+                                wire=SP.PaddedWire.from_grids(grids))
+    want = {k: epochs * v for k, v in plan.pallas_calls.items()}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"mixed width: launches {counts}, the plan's "
+                             f"{want} (a launch a width per iteration)")
     if not all(math.isfinite(o) for o in hist["objective"]):
         raise AssertionError(f"mixed width: objective not finite: "
                              f"{hist['objective']}")
@@ -2324,9 +2442,9 @@ def dist_phase(X, ds, cfg, cfg_q, epochs):
                                rtol=TRAJ_RTOL)
 
     # the same iterations again under the profiler: each pack and unpack
-    # launch's device ms with its inputs where the step leaves them (each
-    # width group of stages is one launch a direction, so the schedules
-    # give each launch's rows)
+    # launch's device ms with its inputs where the step leaves them (one
+    # predicated launch a packed width and direction, its rows those of the
+    # stages the schedule puts at that width, none at times)
     def mixed_run():
         ctl_prof = BitWidthController(stage_ring_edges(STAGES, V, h),
                                       ControllerConfig(**MIXED_CONTROLLER))
@@ -2489,7 +2607,7 @@ def replay_phase(X, ds, cfg, cfg_q, epochs) -> dict:
         real = replay_launches(mesh, L, C, c, init, data, overlap=ov,
                                wire=w, widths=wd)
         plan = SP.step_program_plan(mesh, L, C, c, V=V, h=h, overlap=ov,
-                                    wire=w, widths=wd, device=dev)
+                                    wire=w, device=dev)
         if not recorded == real == plan.pallas_calls:
             raise AssertionError(f"replay {name}: launches recorded "
                                  f"{recorded}, real {real}, plan "
@@ -3187,14 +3305,19 @@ def graph_same(label, got, want) -> None:
                                  f"eager: {a.tolist()} vs {b.tolist()}")
 
 
-def graph_form(label, run, n_iters: int, required=()) -> dict:
+def graph_form(label, run, n_iters: int, required=(), steps=None,
+               turns=GRAPH_TURNS, report=None) -> dict:
     """One path of ``graph_phase``: ``run(jit, state)`` runs ``n_iters``
     iterations of the path by the graphed (``jit=True``) or eager driver
     from ``state`` (None: the path's initial state) and returns
     ``(state, metrics)``, the state being what the next call may take back.
-    The two forms from one state: the same bits, the same launch counts,
-    one replay per iteration, peak MiB; then ms per iteration in turns
-    (GRAPH_TURNS, medians) and a profile of each form. The graph's
+    ``steps(metrics)``, where given, is the number of steps a run took
+    (a sentinel loop's ticks, rolled-back attempts included): the
+    replays it must make and the count ms and calls are divided by;
+    ``report(metrics)`` what the result keeps of the first eager run's
+    metrics. The two forms from one state: the same bits, the same launch counts,
+    one replay per step, peak MiB; then ms per step in ``turns``
+    (medians) and a profile of each form. The graph's
     launches are read from the CUDA driver: the ``HEAD_KERNELS`` nodes of
     each graph the first run captured, times its replays, equal to the
     eager run's wrapper counts group by group. The profiles' device traces
@@ -3247,18 +3370,23 @@ def graph_form(label, run, n_iters: int, required=()) -> dict:
         raise AssertionError(f"graph {label}: launches {g['launches']} vs "
                              f"eager {e['launches']}")
     missing = [k for k in required if e["launches"][k] == 0]
-    if missing or g["replays"] != n_iters or e["replays"]:
+    count = n_iters if steps is None else steps(outs[False][1])
+    if missing or g["replays"] != count or e["replays"]:
         raise AssertionError(f"graph {label}: {g['replays']} replays for "
-                             f"{n_iters} iterations (eager {e['replays']});"
+                             f"{count} steps (eager {e['replays']});"
                              f" kernels never launched: {missing}")
+    res["steps"] = count
+    if report is not None:
+        res["report"] = report(outs[False][1])
     states = {jit: outs[jit][0] for jit in (True, False)}
     del outs
     samples, wrapped = {True: [], False: []}, {}
-    for jit in GRAPH_TURNS:
+    for jit in turns:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        states[jit], _ = run(jit, states[jit])
-        samples[jit].append((time.perf_counter() - t) / n_iters * 1e3)
+        states[jit], m = run(jit, states[jit])
+        took = n_iters if steps is None else steps(m)
+        samples[jit].append((time.perf_counter() - t) / took * 1e3)
     # eager first: its wrappers' counts are what both traces are read by
     for jit in (False, True):
         r = res["graph" if jit else "eager"]
@@ -3271,7 +3399,7 @@ def graph_form(label, run, n_iters: int, required=()) -> dict:
             states[jit], _ = run(jit, states[jit])
             wrapped[jit] = (ops.launch_counts(),
                             dict(graphs.warmup_launches))
-        r["profile"] = graph_profile(label, once, n_iters, r["ms_per_iter"])
+        r["profile"] = graph_profile(label, once, count, r["ms_per_iter"])
         got = r["profile"]["head_launches"]
         if got is not None:
             counted, extra = wrapped[False][0], wrapped[jit][1]
@@ -3287,9 +3415,9 @@ def graph_form(label, run, n_iters: int, required=()) -> dict:
                       f"form's trace lacks {r['trace_lacks']} of the "
                       f"wrappers' count", flush=True)
     g["warmup_launches"] = wrapped[True][1]
-    per_iter = {k: v / n_iters for k, v in g["graph_node_launches"].items()
+    per_iter = {k: v / count for k, v in g["graph_node_launches"].items()
                 if v}
-    print(f"graph {label}: bitwise equal to eager over {n_iters} iterations,"
+    print(f"graph {label}: bitwise equal to eager over {count} steps,"
           f" counters equal ({sum(g['launches'].values())}), {g['replays']}"
           f" replays; head kernels a replay launches (the graphs' nodes; "
           f"with {g['outside_launches']} outside the graphs, as the eager "
@@ -3306,6 +3434,225 @@ def graph_form(label, run, n_iters: int, required=()) -> dict:
               f"{p['api_calls']:.1f} an iteration; peak {r['peak_mib']:.1f}"
               f" MiB ({r['above_mib']:.1f} above the base)", flush=True)
     return res
+
+
+def graph_loops(Xp, ds, cfg) -> dict:
+    """``graph_phase``'s paths through ``distributed_train``'s
+    per-iteration loops on the G ring of mesh (1, 10), each by
+    ``graph_form`` through the entry point (so the graph form captures
+    inside every call): the mixed-width ring over its device widths table
+    (``MIXED_CONTROLLER``'s 4/8/16 bits) with 10 managed edges and with
+    20, overlap off and on; the per-epoch controller ring at 4/8/16 bits
+    with overlap on, whose schedules must switch; and the sentinel loop
+    with ``health=True`` (overlap on), under ``FT_SNEAKY`` (a rollback at
+    least; ``FT_TICKS`` iterations) and with a checkpoint every 2
+    iterations of 3 and a resume to 5. Each run's ``hist`` (objectives,
+    schedules, fault counts, steps built), the ledger's bytes and the
+    ring's shifted bytes are held bitwise against the eager loop with the
+    state; one replay a step (a tick, for the sentinel loop)."""
+    import tempfile
+    from repro_torch.comm import faults as FT
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig,
+                                             stage_ring_edges)
+    from repro_torch.comm.ledger import CommLedger
+    from repro_torch.core.quantize import uniform_grid
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    t_phase = time.perf_counter()
+    dev, n = Xp.device, GRAPH_ITERS
+    mesh = StageMesh(1, STAGES)
+    L, C = STAGES, ds.n_classes
+    V, h = Xp.shape
+    grids = {b: uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
+    uniform = {k: v for k, v in MIXED_CONTROLLER.items() if k != "signal"}
+    init = SP.init_stack(0, Xp, L, cfg)
+    out = {}
+
+    def loop(kw, epochs, ckpt=False, fresh=False):
+        # fresh: every run from the initial state (a fault plan's rollbacks
+        # depend on the state its flips strike)
+        def run(jit, st):
+            st = None if fresh else st
+            kwargs = dict(kw)
+            if "edges" in kwargs:
+                kwargs.update(controller=BitWidthController(
+                    stage_ring_edges(STAGES, V, h) * kwargs.pop("edges"),
+                    ControllerConfig(**MIXED_CONTROLLER)),
+                    grids_by_bits=grids)
+            if kwargs.pop("uniform", False):
+                kwargs.update(controller=BitWidthController(
+                    [2 * V * h], ControllerConfig(**uniform)),
+                    grids_by_bits=grids)
+            ring, led = LocalRing(mesh, dev), CommLedger()
+            train = functools.partial(
+                SP.distributed_train, mesh, None, Xp, ds.labels, ds.masks,
+                L, C, cfg, init=init if st is None else st, ledger=led,
+                ring=ring, jit=jit, **kwargs)
+            if ckpt:
+                d = tempfile.mkdtemp()
+                try:
+                    train(epochs, ckpt=d, ckpt_every=2)
+                    st, hist = train(epochs + 2, ckpt=d, resume=True)
+                finally:
+                    shutil.rmtree(d, ignore_errors=True)
+            else:
+                st, hist = train(epochs)
+            hist = dict(hist, ledger_bytes=led.total_bytes(),
+                        ledger_wire_bytes=led.total_wire_bytes(),
+                        shifted_bytes=ring.shifted_bytes)
+            return st, hist
+        return run
+
+    def ticks(hist):
+        return hist["faults"]["ticks"]
+
+    def loop_report(hist):
+        keep = {k: hist[k] for k in (
+            "n_compiled_steps", "ledger_bytes", "ledger_wire_bytes",
+            "shifted_bytes")}
+        keep["schedules"] = [list(x) if isinstance(x, tuple) else x
+                             for x in hist["schedules"]]
+        if "faults" in hist:
+            keep["faults"] = {k: hist["faults"][k] for k in (
+                "injected", "detected", "recovered", "rolled_back", "ticks")}
+        return keep
+
+    for label, kw, epochs, steps, turns in (
+            ("mixed_10_edges", dict(mixed_width=True, edges=1), n, None,
+             GRAPH_TURNS),
+            ("mixed_10_edges_overlap", dict(mixed_width=True, edges=1,
+                                            overlap=True), n, None,
+             GRAPH_TURNS),
+            ("mixed_20_edges", dict(mixed_width=True, edges=2), n, None,
+             GRAPH_TURNS[:4]),
+            ("mixed_20_edges_overlap", dict(mixed_width=True, edges=2,
+                                            overlap=True), n, None,
+             GRAPH_TURNS[:4]),
+            ("controller_overlap", dict(uniform=True, overlap=True), n, None,
+             GRAPH_TURNS),
+            ("sentinel_health_overlap", dict(health=True, overlap=True), n,
+             ticks, GRAPH_TURNS),
+            ("sentinel_rollback", dict(faults=FT.FaultPlan(**FT_SNEAKY)),
+             FT_TICKS, ticks, (True, False)),
+            ("sentinel_ckpt_resume", dict(health=True), 3, None,
+             (True, False))):
+        ckpt = label.endswith("ckpt_resume")
+        # 3 ticks with a save at 2, then a resume from 2 to 5
+        n_steps = 6 if ckpt else epochs
+        res = graph_form(label, loop(kw, epochs, ckpt,
+                                     fresh=label == "sentinel_rollback"),
+                         n_steps,
+                         BASE_KERNELS + (WIRE_KERNELS + PACK_KERNELS
+                                         if "mixed" in label else ()),
+                         steps=steps, turns=turns, report=loop_report)
+        hist = res["report"]
+        schedules = [tuple(x) if isinstance(x, list) else x
+                     for x in hist["schedules"]]
+        if "mixed" in label and (hist["n_compiled_steps"] != 1
+                                 or len(set(schedules)) < 2):
+            raise AssertionError(f"graph {label}: {hist['n_compiled_steps']}"
+                                 f" steps built, schedules {schedules}")
+        if label == "controller_overlap" and len(set(schedules)) < 2:
+            raise AssertionError(f"graph {label}: the schedules never "
+                                 f"switched: {schedules}")
+        if label == "sentinel_rollback" and \
+                hist["faults"]["rolled_back"] < 1:
+            raise AssertionError(f"graph {label}: no rollback: "
+                                 f"{hist['faults']}")
+        print(f"  {label}: schedules {schedules[:6]}"
+              f"{' ...' if len(schedules) > 6 else ''}; steps built "
+              f"{hist['n_compiled_steps']}, ledger {hist['ledger_bytes']} "
+              f"logical / {hist['ledger_wire_bytes']} physical B, shifted "
+              f"{hist['shifted_bytes']} B; faults {hist.get('faults')}",
+              flush=True)
+        out[label] = res
+    out["steady"] = loop_steady(Xp, ds, cfg, grids)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"graph loops: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def loop_steady(Xp, ds, cfg, grids) -> dict:
+    """ms per step of three of ``graph_loops``' steps as their loops call
+    them (``stage_parallel._Calls``: the widths table or the tick's
+    controls rewritten, one call, the metrics read on the host), over
+    GRAPH_STEADY steps after the first (the replayed form's capture), the
+    replayed and the eager form in turns: the mixed-width step (a 4/8/16
+    mix of widths), the controller ring's 8-bit step with overlap, and
+    the sentinel step with ``health=True`` and overlap."""
+    from repro_torch.comm import faults as FT
+    from repro_torch.core import graphs
+    from repro_torch.parallel import stage_parallel as SP
+    from repro_torch.parallel.ring import LocalRing, StageMesh
+
+    mesh = StageMesh(1, STAGES)
+    L, C = STAGES, ds.n_classes
+    wire = SP.PaddedWire.from_grids(grids)
+    codec = SP.codec_for_grid(grids[8])
+    mix = [(4, 8, 16)[s % 3] for s in range(STAGES)]
+    out = {}
+    for label in ("mixed", "controller_8bit_overlap",
+                  "sentinel_health_overlap"):
+        ring = LocalRing(mesh, Xp.device)
+        data = tuple(ring.to_local(x, "rows")
+                     for x in (Xp, ds.labels, ds.masks["train"]))
+        st = SP.shard_stack(SP.init_stack(0, Xp, L, cfg), ring)
+        if label == "mixed":
+            step = SP.make_distributed_step(mesh, L, C, cfg, wire=wire,
+                                            ring=ring)[0]
+            table = wire.widths_table(mix, mix, Xp.device)
+            carry, args = st, data + (table,)
+
+            def before(replay, args, t):
+                wire.widths_table(mix, mix, out=args[-1])
+                return args
+        elif label.startswith("controller"):
+            step = SP.make_distributed_step(mesh, L, C, cfg, overlap=True,
+                                            p_codec=codec, q_codec=codec,
+                                            ring=ring)[0]
+            carry = (st, SP.make_overlap_primer(mesh, codec, ring=ring)(
+                st.q, st.u))
+            args = data
+
+            def before(replay, args, t):
+                return args
+        else:
+            step = SP.make_distributed_step(mesh, L, C, cfg, overlap=True,
+                                            health=True, ring=ring)[0]
+            good = SP.make_sentinel_primer(mesh, ring=ring)(st.q, st.u,
+                                                            st.p)
+            fly = SP.make_overlap_primer(mesh, sentinel=True, ring=ring)(
+                st.q, st.u, -1)
+            carry = ((st, good), fly)
+            args = data + (FT.null_controls(STAGES, device=Xp.device),)
+
+            def before(replay, args, t):
+                # the replayed form rewrites its controls, as the loop does
+                ctl = FT.null_controls(STAGES, seqno=t, device=Xp.device,
+                                       into=args[-1] if replay else None)
+                return args[:-1] + (ctl,)
+        samples = {True: [], False: []}
+        for replay in (True, False, False, True):
+            calls = SP._Calls(replay)
+            c, m = calls(step, carry, before(replay, args, 0))
+            float(m["objective"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(1, GRAPH_STEADY + 1):
+                c, m = calls(step, c, before(replay, args, t))
+                float(m["objective"])          # the loop's host read
+            samples[replay].append((time.perf_counter() - t0)
+                                   / GRAPH_STEADY * 1e3)
+            del c, m, calls
+        graphs.release(step)
+        out[label] = {"graph": samples[True], "eager": samples[False]}
+        print(f"graph steady {label}: ms per step over {GRAPH_STEADY} "
+              f"steps after the capture: replayed {samples[True]}, eager "
+              f"{samples[False]}", flush=True)
+        del step, carry, args, st, ring, data
+    return out
 
 
 def graph_phase(X, ds, dims, cfg, cfg_q) -> dict:
@@ -3388,6 +3735,7 @@ def graph_phase(X, ds, dims, cfg, cfg_q) -> dict:
         out[label]["shifted_bytes_per_iter"] = moved[True].pop() / n
         graphs.release(step)
         del step, st, ring
+    out.update(graph_loops(Xp, ds, cfg))
 
     grid = cfg_q.grid
     V = X.shape[0]

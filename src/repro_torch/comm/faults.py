@@ -61,7 +61,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.comm.codecs import WirePayload
-from repro_torch.comm.transport import decode_slab, encode_slab
+from repro_torch.comm.transport import (decode_slab, encode_slab,
+                                       stage_entries, to_device)
 
 # edge order of every per-edge mask and counter in this module
 EDGES = ("q_fwd", "u_fwd", "p_bwd")
@@ -99,19 +100,22 @@ class GoodSlabs(NamedTuple):
     p: torch.Tensor
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` with no stream sync (pinned, async)."""
-    t = torch.from_numpy(np.array(a, copy=True, order="C"))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def null_controls(n_stages: int, seqno=0, prev_obj: float = float("inf"),
-                  *, device=None) -> FaultControls:
+                  *, device=None, into: Optional[FaultControls] = None
+                  ) -> FaultControls:
     """All-clear controls: what a ``health=True, faults=None`` step runs on
     every tick. ``seqno`` is an int or an int32 tensor on ``device``.
-    Built by fills on the device, so no host copy and no sync."""
+    Built by fills on the device, so no host copy and no sync. ``into``
+    (all-clear controls made before, whose addresses a captured graph
+    reads) gets the tick's seqno and objective written in and is
+    returned."""
+    if into is not None:
+        if isinstance(seqno, torch.Tensor):
+            into.seqno.copy_(seqno)
+        else:
+            into.seqno.fill_(int(seqno))
+        into.prev_obj.fill_(float(prev_obj))
+        return into
     device = resolve_device(device)
     z = torch.zeros((3, n_stages), dtype=torch.int32, device=device)
     seq = (seqno.to(torch.int32) if isinstance(seqno, torch.Tensor)
@@ -216,22 +220,25 @@ class FaultPlan:
                 or bool(self.blackouts))
 
     def controls(self, tick: int, n_stages: int, *,
-                 prev_obj: float = float("inf"),
-                 device=None) -> FaultControls:
+                 prev_obj: float = float("inf"), device=None,
+                 into: Optional[FaultControls] = None) -> FaultControls:
         """The control block for one tick, on ``device`` (default: the
-        card)."""
-        device = resolve_device(device)
+        card), each field copied from pinned host memory without a sync;
+        into the tensors of ``into`` (an earlier tick's block, whose
+        addresses a captured graph reads) when given."""
         drops, flips, sneaky, delays, key = self._draw(tick, n_stages)
         draws = flip_draws(key, self.flips_per_event, sneaky, flips)
-        return FaultControls(
-            seqno=_to_device(np.asarray(tick, np.int32), device),
-            prev_obj=_to_device(np.asarray(prev_obj, np.float32), device),
-            flip=_to_device(flips.astype(np.int32), device),
-            sneaky=_to_device(sneaky.astype(np.int32), device),
-            drop=_to_device(drops, device),
-            delay=_to_device(delays, device),
-            key=_to_device(key.astype(np.int64), device),
-            draws=_to_device(draws, device))
+        host = FaultControls(
+            seqno=np.asarray(tick, np.int32),
+            prev_obj=np.asarray(prev_obj, np.float32),
+            flip=flips.astype(np.int32), sneaky=sneaky.astype(np.int32),
+            drop=drops, delay=delays, key=key.astype(np.int64),
+            draws=draws)
+        if into is not None:
+            return FaultControls(*(to_device(a, b.device, b)
+                                   for a, b in zip(host, into)))
+        device = resolve_device(device)
+        return FaultControls(*(to_device(a, device) for a in host))
 
     def events(self, tick: int, n_stages: int):
         """Host-side list of the events injected at ``tick``:
@@ -411,10 +418,7 @@ class SentinelExchange:
     def pick(self, row: torch.Tensor, delta: int = 0) -> torch.Tensor:
         """``row[(s - delta) % n]`` along dim 0 for each local stage s:
         ``delta=0`` the stage's own entry, ``delta=±1`` its source's."""
-        if len(self.stages) == 1:
-            i = (self.stages[0] - delta) % self.n
-            return row[i:i + 1]
-        return torch.roll(row, shifts=delta, dims=0) if delta else row
+        return stage_entries(row, self.stages, self.n, delta)
 
     @staticmethod
     def _per_stage(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

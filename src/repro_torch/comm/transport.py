@@ -30,9 +30,11 @@ Padded wire (:class:`PaddedWire` / :class:`ContainerExchange`): every
 boundary slab ships as a uint8 container sized for the widest allowed
 codec, so the physical message never changes with the schedule; each
 stage's active width is an index into the static width table. The
-reference branches with ``lax.switch`` on a traced index; here the width
-table is host data and the branch is a host-side choice, one group of
-shards per width in use.
+reference branches with ``lax.switch`` on a traced index; here the table
+is an int32 tensor on the ring's device and every width of the wire is
+one row-predicated launch of each kernel (``kernels.ops.*_sel``) in which
+each stage's rows run at its own width, so the launches of a step do not
+depend on the table and one captured CUDA graph replays any schedule.
 """
 from __future__ import annotations
 
@@ -418,9 +420,41 @@ def record_psum(ledger, iteration: int, edge: str, codec: WireCodec, shape,
 # Padded wire containers (per-boundary mixed bit-widths in one step)
 # ---------------------------------------------------------------------------
 
-def _select(t, stages: List[int], n: int):
-    """t[:, stages] along the model axis (a view when it is all of them)."""
-    return t if stages == list(range(n)) else t[:, stages]
+def to_device(a: np.ndarray, device, out=None) -> torch.Tensor:
+    """A host array on ``device`` with no stream sync (pinned, async on
+    CUDA), into ``out`` when given (a buffer whose address a captured
+    graph reads)."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    if out is None:
+        return t.to(device, non_blocking=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def sel_table(widths, device) -> torch.Tensor:
+    """Width indices (a container step's [2, n_stages] widths table, or one
+    index per stage) as the contiguous int32 tensor on ``device`` the
+    kernels read: a tensor is taken as it is (cast if it must be), host
+    integers go over once (:func:`to_device`)."""
+    if isinstance(widths, torch.Tensor):
+        return widths.to(device=device, dtype=torch.int32).contiguous()
+    return to_device(np.asarray(widths, np.int32), device)
+
+
+def stage_entries(row, stages: List[int], n: int, delta: int = 0):
+    """``row[(s - delta) % n]`` along dim 0 for each local stage s of a
+    ring of ``n`` holding ``stages`` (all of them, or one): ``delta=0`` the
+    stage's own entry, ``delta=±1`` its source's. A view or a roll on the
+    device; no host index."""
+    if len(stages) == 1:
+        i = (stages[0] - delta) % n
+        return row[i:i + 1]
+    if stages != list(range(n)):
+        raise ValueError(f"a ring holding stages {stages} of {n}: expected "
+                         "all or one")
+    return torch.roll(row, shifts=delta, dims=0) if delta else row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,9 +463,12 @@ class PaddedWire:
 
     Each shard's slab ships as :meth:`capacity` bytes, sized for the widest
     width in ``widths``, whatever width it is formatted at. A stage's active
-    width is ``sel``, an index into ``widths``: encode packs that grid's
-    codes (``ops.pack_codes``) into the head of the container and leaves
-    the tail zero; decode reads the active packed length back out.
+    width is ``sel``, an index into ``widths`` (int32 on the device, one
+    per local stage; host integers are taken too): encode packs that
+    grid's codes into the head of the container and leaves the tail zero;
+    decode reads the active packed length back out. Every width of the
+    wire runs as one predicated launch of each kernel over all the shards
+    (8-bit codes are their own container: encoded straight into it).
     """
 
     widths: Tuple[int, ...]              # ascending, e.g. (4, 8, 16)
@@ -464,42 +501,56 @@ class PaddedWire:
         """Schedule bits -> indices into ``widths`` (host integers)."""
         return [self.widths.index(int(b)) for b in bits_seq]
 
-    def _groups(self, sel: Sequence[int]):
-        for k in sorted(set(sel)):
-            yield k, [s for s, v in enumerate(sel) if v == k]
+    def widths_table(self, q_bits: Sequence[int], p_bits: Sequence[int],
+                     device=None, *, out=None) -> torch.Tensor:
+        """The step's widths table of a schedule: int32 [2, n_stages] (q
+        widths, then p) on ``device``, copied without a sync; into ``out``
+        (a table the step's graph reads) when given."""
+        host = np.asarray([self.sel_of_bits(q_bits),
+                           self.sel_of_bits(p_bits)], np.int32)
+        return to_device(host, out.device if out is not None else device,
+                         out)
 
-    def encode(self, x, sel: Sequence[int]):
+    def encode(self, x, sel):
         """Slabs ``x`` [D, S, ...] -> containers uint8 [D, S, capacity];
         ``sel[s]`` is the width index stage ``s`` formats at."""
         D, S = x.shape[:2]
         n = _n_elements(x.shape[2:])
+        sel = sel_table(sel, x.device)
+        rows = x.reshape(D * S, n)          # a view where the slab allows
         out = torch.zeros((D, S, self.capacity(x.shape[2:])),
                           dtype=torch.uint8, device=x.device)
-        for k, stages in self._groups(sel):
-            bits, grid = self.widths[k], self.grids[k]
-            codes = grid.encode(_select(x, stages, S).contiguous())
-            rows = codes.reshape(D * len(stages), n)
-            packed = ops.pack_codes(rows, bits)
-            out[:, stages, :packed.shape[-1]] = \
-                packed.reshape(D, len(stages), -1)
+        flat = out.view(D * S, -1)
+        for k, (bits, grid) in enumerate(zip(self.widths, self.grids)):
+            if 4 < bits <= 8:               # the codes are the container
+                ops.grid_encode_sel(rows, grid, flat, sel, k)
+                continue
+            codes = torch.empty((D * S, n), dtype=grid.code_dtype,
+                                device=x.device)
+            ops.grid_encode_sel(rows, grid, codes, sel, k)
+            ops.pack_codes_sel(codes, bits, flat, sel, k)
         return out
 
-    def decode(self, container, sel: Sequence[int], shape,
-               dtype=torch.float32):
+    def decode(self, container, sel, shape, dtype=torch.float32):
         """Containers [D, S, capacity] -> slabs of ``shape`` [D, S, ...];
         ``sel[s]`` is the width index the container of stage ``s`` was
         formatted at (its sender's)."""
         D, S = container.shape[:2]
         n = _n_elements(shape[2:])
-        out = torch.empty(tuple(shape), dtype=dtype, device=container.device)
-        for k, stages in self._groups(sel):
-            bits, grid = self.widths[k], self.grids[k]
-            rows = _select(container, stages, S).reshape(
-                D * len(stages), container.shape[-1])
-            codes = ops.unpack_codes(rows, bits, n)
-            out[:, stages] = grid.decode(
-                codes.reshape(D, len(stages), *shape[2:]), dtype)
-        return out
+        sel = sel_table(sel, container.device)
+        rows = container.reshape(D * S, container.shape[-1])
+        out = torch.empty((D * S, n), dtype=torch.float32,
+                          device=container.device)
+        for k, (bits, grid) in enumerate(zip(self.widths, self.grids)):
+            if 4 < bits <= 8:
+                ops.grid_decode_sel(rows, grid, out, sel, k)
+                continue
+            codes = torch.empty((D * S, n), dtype=grid.code_dtype,
+                                device=container.device)
+            ops.unpack_codes_sel(rows, bits, codes, sel, k)
+            ops.grid_decode_sel(codes, grid, out, sel, k)
+        out = out.reshape(tuple(shape))
+        return out if dtype == torch.float32 else out.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)

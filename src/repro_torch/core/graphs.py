@@ -14,10 +14,16 @@ runs its iterations on a CUDA device through a :class:`ChunkProgram`:
 * A program's body reads the state from the buffers, runs ``step_fn``
   on them and the ``args`` (whose addresses the graph reads), copies
   every new leaf into its buffer (a leaf that is its own buffer, such as
-  p[0] = X or a donated field, is not copied) and writes the metrics into
-  row k of the program's device history ``[capacity, ...]``, k a device
-  counter that the body advances. The history reaches the host once per
-  chunk.
+  p[0] = X or a donated field, is not copied) and writes the metrics (any
+  tree of tensors) into row k of the program's device history, k a
+  device counter that the body advances. The history is one byte tensor
+  ``[capacity, row bytes]`` holding every metric leaf of a row, so it
+  reaches the host in one copy: once per chunk (:meth:`ChunkProgram.run`)
+  or once per iteration (:meth:`ChunkProgram.iterate`, for the loops
+  that read each iteration's metrics on the host: the controller's
+  residuals, the sentinel verdict). An argument the host rewrites between
+  iterations (a widths table, a tick's fault controls) is a tensor the
+  caller keeps and writes into in place, so the graph reads its address.
 * On a CUDA device the body runs twice on a side stream (first-use work:
   the kernel library, shared-memory opt-ins, the FISTA momentum buffer;
   then once more under ``torch.cuda.set_sync_debug_mode("error")``, so a
@@ -246,7 +252,11 @@ class ChunkProgram:
         self.capacity = int(capacity)
         self.device = buffers.device
         self.row = torch.zeros((1,), dtype=torch.int64, device=self.device)
-        self.history: Dict[str, torch.Tensor] = {}
+        # uint8 [capacity, row bytes]; each metric leaf a view of its bytes
+        self.history = None
+        self._views: List[torch.Tensor] = []
+        self._spans: List[tuple] = []        # (offset, bytes, dtype, shape)
+        self._metrics_spec = None
         self.graph = None
         self.delta = ({}, [])       # counters one replay advances
         self.replays = 0            # graph replays (CUDA) or body runs (CPU)
@@ -263,14 +273,36 @@ class ChunkProgram:
             raise ValueError(f"{_name(step_fn)} changed the state's "
                              f"structure: {new_spec} after {spec}")
         copy_into(bufs, out)
-        if not self.history:
-            self.history = {
-                k: torch.empty((self.capacity,) + tuple(m.shape),
-                               dtype=m.dtype, device=m.device)
-                for k, m in metrics.items()}
-        for k, m in metrics.items():
-            self.history[k].index_copy_(0, self.row, m.unsqueeze(0))
+        leaves, mspec = pytree.tree_flatten(metrics)
+        if self.history is None:
+            self._layout(leaves, mspec)
+        for view, m in zip(self._views, leaves):
+            view.index_copy_(0, self.row, m.unsqueeze(0))
         self.row.add_(1)
+
+    def _layout(self, leaves, spec) -> None:
+        """The byte history: each leaf's bytes at an 8-byte aligned offset
+        of a row, viewed back as its dtype and shape."""
+        offsets, width = [], 0
+        for m in leaves:
+            offsets.append(width)
+            width += -(-m.numel() * m.element_size() // 8) * 8
+        self.history = torch.empty((self.capacity, max(width, 8)),
+                                   dtype=torch.uint8, device=self.device)
+        self._metrics_spec = spec
+        self._spans = [(o, m.numel() * m.element_size(), m.dtype,
+                        tuple(m.shape)) for o, m in zip(offsets, leaves)]
+        self._views = [self.history[:, o:o + nb].view(dtype)
+                       .view((self.capacity,) + shape)
+                       for o, nb, dtype, shape in self._spans]
+
+    def _read(self, c: int):
+        """The first ``c`` rows of the history on the host (one copy): the
+        metrics tree with numpy leaves, each stacked over the rows."""
+        host = self.history[:c].to("cpu", copy=True)
+        leaves = [host[:, o:o + nb].view(dtype).view((c,) + shape).numpy()
+                  for o, nb, dtype, shape in self._spans]
+        return pytree.tree_unflatten(leaves, self._metrics_spec)
 
     def _capture(self, step_fn) -> None:
         dev = self.device
@@ -353,19 +385,26 @@ class ChunkProgram:
             replays += 1
         self.replays += 1
 
-    def run(self, step_fn, n_iters: int) -> dict:
+    def run(self, step_fn, n_iters: int):
         """``n_iters`` iterations; the metrics move to the host once per
-        ``capacity`` rows. Returns numpy metrics stacked over iterations."""
+        ``capacity`` rows. Returns the metrics tree with numpy leaves
+        stacked over iterations."""
         pieces, done = [], 0
         while done < n_iters:
             c = min(self.capacity, n_iters - done)
             self.row.zero_()
             for _ in range(c):
                 self.step(step_fn)
-            pieces.append({k: h[:c].to("cpu", copy=True).numpy()
-                           for k, h in self.history.items()})
+            pieces.append(self._read(c))
             done += c
-        return {k: np.concatenate([p[k] for p in pieces]) for k in pieces[0]}
+        return pytree.tree_map(lambda *xs: np.concatenate(xs), *pieces)
+
+    def iterate(self, step_fn):
+        """One iteration, and its metrics on the host in one copy: the
+        tree the step returns, with numpy leaves."""
+        self.row.zero_()
+        self.step(step_fn)
+        return pytree.tree_map(lambda x: x[0], self._read(1))
 
 
 def program_for(step_fn, state, args, capacity: int) -> ChunkProgram:

@@ -43,10 +43,18 @@ SIGNATURES = {
     "grid_project_f32": [_P, _P, _LL, _F, _F, _F, _I, _P],
     "grid_encode_f32": [_P, _P, _LL, _F, _F, _I, _I, _P],
     "grid_decode_f32": [_P, _P, _LL, _F, _F, _I, _P],
+    "grid_encode_f32_sel": [_P, _P, _LL, _LL, _LL, _LL, _F, _F, _I, _I,
+                            _P, _I, _LL, _P],
+    "grid_decode_f32_sel": [_P, _P, _LL, _LL, _LL, _LL, _F, _F, _I,
+                            _P, _I, _LL, _P],
     "pack_codes4": [_P, _P, _LL, _LL, _LL, _LL, _P],
     "unpack_codes4": [_P, _P, _LL, _LL, _LL, _LL, _P],
     "pack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
     "unpack_codes16": [_P, _P, _LL, _LL, _LL, _LL, _P],
+    "pack_codes4_sel": [_P, _P, _LL, _LL, _LL, _LL, _P, _I, _LL, _P],
+    "unpack_codes4_sel": [_P, _P, _LL, _LL, _LL, _LL, _P, _I, _LL, _P],
+    "pack_codes16_sel": [_P, _P, _LL, _LL, _LL, _LL, _P, _I, _LL, _P],
+    "unpack_codes16_sel": [_P, _P, _LL, _LL, _LL, _LL, _P, _I, _LL, _P],
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, ctypes.POINTER(_LL), _P],
 }
@@ -148,6 +156,36 @@ def require(t, name: str, shape=None, dtype=None) -> None:
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def row_view(t, name: str, dtype):
+    """A 1-D or 2-D CUDA operand of ``dtype`` as [rows, cols] and its row
+    stride in elements (rows contiguous, any row stride)."""
+    if t.dim() not in (1, 2):
+        raise ValueError(f"{name}: expected [n] or [rows, n], got "
+                         f"{tuple(t.shape)}")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    t2 = t if t.dim() == 2 else t.unsqueeze(0)
+    if t2.shape[-1] > 1 and t2.stride(-1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    return t2, (t2.stride(0) if t2.shape[0] > 1 else t2.shape[-1])
+
+
+def stage_table(sel, rows: int, device) -> int:
+    """Check a predicated launch's ``sel`` (int32 [stages] on ``device``,
+    contiguous, ``stages`` dividing ``rows``); returns ``stages``."""
+    if sel.dim() != 1 or sel.dtype != torch.int32 or not sel.is_contiguous():
+        raise ValueError(f"sel: expected a contiguous int32 [stages], got "
+                         f"{tuple(sel.shape)} {sel.dtype}")
+    if sel.device != device:
+        raise ValueError(f"sel: on {sel.device}, the rows on {device}")
+    stages = sel.numel()
+    if stages < 1 or rows % stages:
+        raise ValueError(f"sel: {stages} stages for {rows} rows")
+    return stages
 
 
 def stream_handle(t) -> int:

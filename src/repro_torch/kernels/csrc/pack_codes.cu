@@ -41,6 +41,12 @@
 // stream's head and ragged tail are written byte by byte, one slot a
 // thread, by the warp or block that takes the row's first chunks, their
 // loads issued with its chunks'. Rows run on blockIdx.y.
+//
+// Each kernel has a row-predicated form (SEL), for the mixed-width ring's
+// padded wire: a device table `sel` holds one width index per stage, row r
+// belongs to stage r % stages, and a block whose row's sel is not k skips
+// the row before it loads anything. One launch per packed width of the
+// wire covers every stage, whatever the table says.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -61,7 +67,16 @@ constexpr int TC = THREADS * CPT;       // output chunks of a tile
 
 struct Job {
   long long rows, n, half, ld_in, ld_out;
+  const int* sel;         // the predicated form's width index per stage
+  int k;                  // the width index its rows run at
+  long long stages;       // row r belongs to stage r % stages
 };
+
+// Whether the predicated form skips row r.
+template <bool SEL>
+__device__ __forceinline__ bool skip_row(const Job& job, long long r) {
+  return SEL && job.sel[r % job.stages] != job.k;
+}
 
 // An output stream of `len` bytes at dst: `head` bytes before its first
 // 16-byte boundary (or all of it, if it holds none), then `full` whole
@@ -230,6 +245,7 @@ __device__ __forceinline__ uint4 low_nibbles(uint4 x) {
 // head and tail bytes, one slot a lane (head byte l for lanes l < 16, tail
 // byte l - 16 above: the tail holds at most 16), loaded with its chunks
 // and stored after them.
+template <bool SEL>
 __global__ void __launch_bounds__(WARPS * 32)
 pack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
              Job job, long long items) {
@@ -238,6 +254,7 @@ pack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (t >= items) return;   // whole warps
   for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    if (skip_row<SEL>(job, r)) continue;
     const uint8_t* src = in + r * job.ld_in;
     uint8_t* dst = out + r * job.ld_out;
     const Span o = span_of(dst, h - (n & 1));
@@ -287,6 +304,7 @@ pack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 // and tail bytes, one slot a lane and plane.
 // At least 8 blocks an SM (64 registers): at 95 registers, 5 blocks an SM,
 // the multi-row batches ran ~4% slower.
+template <bool SEL>
 __global__ void __launch_bounds__(WARPS * 32, 8)
 pack16_kernel(const uint16_t* __restrict__ in, uint8_t* __restrict__ out,
               Job job, long long items) {
@@ -295,6 +313,7 @@ pack16_kernel(const uint16_t* __restrict__ in, uint8_t* __restrict__ out,
   const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (t >= items) return;   // whole warps
   for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    if (skip_row<SEL>(job, r)) continue;
     const uint16_t* src = in + r * job.ld_in;
     uint8_t* dst = out + r * job.ld_out;
     const Stream s = stream_at(reinterpret_cast<const uint8_t*>(src), 2 * n);
@@ -353,6 +372,7 @@ pack16_kernel(const uint16_t* __restrict__ in, uint8_t* __restrict__ out,
 // The warp of item 0 also takes each stream's head and tail bytes, one
 // slot a lane (head byte l for lanes l < 16, tail byte l - 16 above),
 // loaded with its chunks and stored after them.
+template <bool SEL>
 __global__ void __launch_bounds__(WARPS * 32)
 unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                Job job, long long items) {
@@ -361,6 +381,7 @@ unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   const long long t = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (t >= items) return;   // whole warps
   for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    if (skip_row<SEL>(job, r)) continue;
     const uint8_t* src = in + r * job.ld_in;
     uint8_t* dst = out + r * job.ld_out;
     const Span hi = span_of(dst, h), lo = span_of(dst + h, n - h);
@@ -407,6 +428,7 @@ unpack4_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 // tile 0 also takes the head and tail codes, one slot a thread (head code
 // i for threads i < 8, tail code i - 8 for threads 8..15), loaded before
 // the staging and stored after it.
+template <bool SEL>
 __global__ void __launch_bounds__(THREADS)
 unpack16_kernel(const uint8_t* __restrict__ in, uint16_t* __restrict__ out,
                 Job job, long long tiles) {
@@ -415,6 +437,7 @@ unpack16_kernel(const uint8_t* __restrict__ in, uint16_t* __restrict__ out,
   const long long t = blockIdx.x;
   const int i = threadIdx.x;
   for (long long r = blockIdx.y; r < job.rows; r += gridDim.y) {
+    if (skip_row<SEL>(job, r)) continue;
     const uint8_t* src = in + r * job.ld_in;
     uint16_t* dst = out + r * job.ld_out;
     const Span o = span_of(dst, 2 * n);   // dst is 2-byte aligned: head even
@@ -477,8 +500,9 @@ extern "C" int pack_codes4(const uint8_t* codes, uint8_t* out,
                            long long rows, long long n, long long ld_in,
                            long long ld_out, void* stream) {
   const long long h = (n + 1) / 2;
-  return launch_rows(pack4_kernel, codes, out, Job{rows, n, h, ld_in, ld_out},
-                     h, SPAN, 32, WARPS * 32, stream);
+  return launch_rows(pack4_kernel<false>, codes, out,
+                     Job{rows, n, h, ld_in, ld_out, nullptr, 0, 1}, h, SPAN,
+                     32, WARPS * 32, stream);
 }
 
 // packed [rows, >= ceil(n/2)] -> codes [rows, >= n] uint8
@@ -486,24 +510,71 @@ extern "C" int unpack_codes4(const uint8_t* packed, uint8_t* out,
                              long long rows, long long n, long long ld_in,
                              long long ld_out, void* stream) {
   const long long h = (n + 1) / 2;
-  return launch_rows(unpack4_kernel, packed, out,
-                     Job{rows, n, h, ld_in, ld_out}, h, SPAN, 32, WARPS * 32,
-                     stream);
+  return launch_rows(unpack4_kernel<false>, packed, out,
+                     Job{rows, n, h, ld_in, ld_out, nullptr, 0, 1}, h, SPAN,
+                     32, WARPS * 32, stream);
 }
 
 // codes [rows, >= n] uint16 (ld_in in codes) -> out [rows, >= 2n] uint8
 extern "C" int pack_codes16(const uint16_t* codes, uint8_t* out,
                             long long rows, long long n, long long ld_in,
                             long long ld_out, void* stream) {
-  return launch_rows(pack16_kernel, codes, out, Job{rows, n, n, ld_in, ld_out},
-                     n, SPAN, 32, WARPS * 32, stream);
+  return launch_rows(pack16_kernel<false>, codes, out,
+                     Job{rows, n, n, ld_in, ld_out, nullptr, 0, 1}, n, SPAN,
+                     32, WARPS * 32, stream);
 }
 
 // packed [rows, >= 2n] uint8 -> codes [rows, >= n] uint16 (ld_out in codes)
 extern "C" int unpack_codes16(const uint8_t* packed, uint16_t* out,
                               long long rows, long long n, long long ld_in,
                               long long ld_out, void* stream) {
-  return launch_rows(unpack16_kernel, packed, out,
-                     Job{rows, n, n, ld_in, ld_out}, 2 * n, TC, THREADS,
-                     THREADS, stream);
+  return launch_rows(unpack16_kernel<false>, packed, out,
+                     Job{rows, n, n, ld_in, ld_out, nullptr, 0, 1}, 2 * n, TC,
+                     THREADS, THREADS, stream);
+}
+
+// The row-predicated forms of the four: the same layouts, and only the
+// rows r with sel[r % stages] == k are written (sel: int32 [stages] on the
+// device).
+extern "C" int pack_codes4_sel(const uint8_t* codes, uint8_t* out,
+                               long long rows, long long n, long long ld_in,
+                               long long ld_out, const int* sel, int k,
+                               long long stages, void* stream) {
+  if (sel == nullptr || stages < 1) return (int)cudaErrorInvalidValue;
+  const long long h = (n + 1) / 2;
+  return launch_rows(pack4_kernel<true>, codes, out,
+                     Job{rows, n, h, ld_in, ld_out, sel, k, stages}, h, SPAN,
+                     32, WARPS * 32, stream);
+}
+
+extern "C" int unpack_codes4_sel(const uint8_t* packed, uint8_t* out,
+                                 long long rows, long long n, long long ld_in,
+                                 long long ld_out, const int* sel, int k,
+                                 long long stages, void* stream) {
+  if (sel == nullptr || stages < 1) return (int)cudaErrorInvalidValue;
+  const long long h = (n + 1) / 2;
+  return launch_rows(unpack4_kernel<true>, packed, out,
+                     Job{rows, n, h, ld_in, ld_out, sel, k, stages}, h, SPAN,
+                     32, WARPS * 32, stream);
+}
+
+extern "C" int pack_codes16_sel(const uint16_t* codes, uint8_t* out,
+                                long long rows, long long n, long long ld_in,
+                                long long ld_out, const int* sel, int k,
+                                long long stages, void* stream) {
+  if (sel == nullptr || stages < 1) return (int)cudaErrorInvalidValue;
+  return launch_rows(pack16_kernel<true>, codes, out,
+                     Job{rows, n, n, ld_in, ld_out, sel, k, stages}, n, SPAN,
+                     32, WARPS * 32, stream);
+}
+
+extern "C" int unpack_codes16_sel(const uint8_t* packed, uint16_t* out,
+                                  long long rows, long long n,
+                                  long long ld_in, long long ld_out,
+                                  const int* sel, int k, long long stages,
+                                  void* stream) {
+  if (sel == nullptr || stages < 1) return (int)cudaErrorInvalidValue;
+  return launch_rows(unpack16_kernel<true>, packed, out,
+                     Job{rows, n, n, ld_in, ld_out, sel, k, stages}, 2 * n, TC,
+                     THREADS, THREADS, stream);
 }

@@ -177,6 +177,25 @@ def grid_decode(codes, grid, out_dtype=torch.float32):
         return _qk.grid_decode(codes, grid, out_dtype)
 
 
+def grid_encode_sel(x, grid, out, sel, k: int):
+    """Wire codes of the rows of x [rows, n] into out[:, :n] where row r's
+    stage (r % len(sel)) has sel == k; one launch whatever ``sel`` holds
+    (the padded wire's width branch)."""
+    with scope("grid_encode", x, sel, launches=x.numel() > 0):
+        if _on_cpu(x):
+            return ref.grid_encode_sel_ref(x, grid, out, sel, k)
+        return _qk.grid_encode_sel(x, grid, out, sel, k)
+
+
+def grid_decode_sel(codes, grid, out, sel, k: int):
+    """Grid values of each row's first out.shape[-1] codes into ``out``
+    where the row's stage has sel == k; one launch."""
+    with scope("grid_decode", codes, sel, launches=out.numel() > 0):
+        if _on_cpu(codes):
+            return ref.grid_decode_sel_ref(codes, grid, out, sel, k)
+        return _qk.grid_decode_sel(codes, grid, out, sel, k)
+
+
 def pack_codes(codes, bits: int):
     """Integer codes [n] or [rows, n] -> their uint8 wire container, each
     row on its own (4-bit half-split nibbles, 8-bit identity, 16-bit
@@ -197,6 +216,24 @@ def unpack_codes(packed, bits: int, n: int):
         if _on_cpu(packed):
             return ref.unpack_codes_ref(packed, bits, n)
         return _pc.unpack_codes(packed, bits, n)
+
+
+def pack_codes_sel(codes, bits: int, out, sel, k: int):
+    """Pack codes [rows, n] into the head of each row of ``out`` whose
+    stage has sel == k (4 or 16 bits); one launch."""
+    with scope("pack_codes", codes, sel, launches=codes.numel() > 0):
+        if _on_cpu(codes):
+            return ref.pack_codes_sel_ref(codes, bits, out, sel, k)
+        return _pc.pack_codes_sel(codes, bits, out, sel, k)
+
+
+def unpack_codes_sel(packed, bits: int, out, sel, k: int):
+    """Unpack each row's first out.shape[-1] codes into ``out`` where the
+    row's stage has sel == k (4 or 16 bits); one launch."""
+    with scope("unpack_codes", packed, sel, launches=out.numel() > 0):
+        if _on_cpu(packed):
+            return ref.unpack_codes_sel_ref(packed, bits, out, sel, k)
+        return _pc.unpack_codes_sel(packed, bits, out, sel, k)
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0):

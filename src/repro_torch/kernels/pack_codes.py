@@ -28,7 +28,11 @@ byte by byte. The 4-bit pack reads the code past an odd end as 0
 instead of padding a copy, and unpacking reads each row at its own
 stride, so the head of a wider wire container needs no copy. The layout is the wire contract, so kernel and
 plain version are held equal byte for byte. 8-bit codes are their own
-container: no launch, as on the TPU.
+container: no launch, as on the TPU. The row-predicated forms
+(``pack_codes_sel``, ``unpack_codes_sel``: the mixed-width ring's padded
+wire) are the same kernels with a device table of one width index per
+stage: a row whose stage is not at the launch's width is skipped before
+any load, so one launch a packed width covers every stage.
 """
 from __future__ import annotations
 
@@ -41,21 +45,6 @@ from repro_torch.kernels import build
 launches = {"pack_codes": 0, "unpack_codes": 0}
 
 
-def _rows(t, name, dtype):
-    """View a 1-D or 2-D operand as [rows, cols] with its row stride."""
-    if t.dim() not in (1, 2):
-        raise ValueError(f"{name}: expected [n] or [rows, n], got "
-                         f"{tuple(t.shape)}")
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    t2 = t if t.dim() == 2 else t.unsqueeze(0)
-    if t2.shape[-1] > 1 and t2.stride(-1) != 1:
-        raise ValueError(f"{name}: rows must be contiguous")
-    return t2, (t2.stride(0) if t2.shape[0] > 1 else t2.shape[-1])
-
-
 def pack_codes(codes, bits: int):
     """codes: [n] or [rows, n] (uint8 for <= 8 bits, uint16 above; rows
     contiguous, any row stride), each row packed on its own -> uint8 [body]
@@ -63,7 +52,7 @@ def pack_codes(codes, bits: int):
     if bits > 16:
         raise ValueError(f"no integer wire container for {bits}-bit codes")
     code_dtype = torch.uint8 if bits <= 8 else torch.uint16
-    c2, ld_in = _rows(codes, "codes", code_dtype)
+    c2, ld_in = build.row_view(codes, "codes", code_dtype)
     rows, n = c2.shape
     nb = _body_bytes(bits, n)
     if 4 < bits <= 8:            # the codes are their own container
@@ -87,7 +76,7 @@ def unpack_codes(packed, bits: int, n: int):
     uint8 for <= 8 bits and uint16 above."""
     if bits > 16:
         raise ValueError(f"no integer wire container for {bits}-bit codes")
-    p2, ld_in = _rows(packed, "packed", torch.uint8)
+    p2, ld_in = build.row_view(packed, "packed", torch.uint8)
     rows = p2.shape[0]
     nb = _body_bytes(bits, n)
     if p2.shape[1] < nb:
@@ -104,6 +93,60 @@ def unpack_codes(packed, bits: int, n: int):
              else build.library().unpack_codes16)
     err = entry(p2.data_ptr(), out.data_ptr(), rows, n, ld_in, n,
                 build.stream_handle(packed))
+    build.check(err, "unpack_codes")
+    launches["unpack_codes"] += 1
+    return out
+
+
+def pack_codes_sel(codes, bits: int, out, sel, k: int):
+    """The row-predicated pack: codes [rows, n] (as :func:`pack_codes`
+    takes them) into the head of out [rows, >= body] (uint8, any row
+    stride), for the rows r whose stage r % len(sel) has sel == k (sel:
+    int32 [stages] on the card); other rows are left as they are. 4 and
+    16 bits (8-bit codes are their own container). Returns ``out``."""
+    if not (bits <= 4 or 8 < bits <= 16):
+        raise ValueError(f"no predicated pack for {bits}-bit codes")
+    code_dtype = torch.uint8 if bits <= 8 else torch.uint16
+    c2, ld_in = build.row_view(codes, "codes", code_dtype)
+    o2, ld_out = build.row_view(out, "out", torch.uint8)
+    rows, n = c2.shape
+    if o2.shape[0] != rows or o2.shape[1] < _body_bytes(bits, n):
+        raise ValueError(f"out: {tuple(o2.shape)} for {rows} rows of "
+                         f"{_body_bytes(bits, n)} bytes")
+    if n == 0 or rows == 0:
+        return out
+    stages = build.stage_table(sel, rows, codes.device)
+    entry = (build.library().pack_codes4_sel if bits <= 4
+             else build.library().pack_codes16_sel)
+    err = entry(c2.data_ptr(), o2.data_ptr(), rows, n, ld_in, ld_out,
+                sel.data_ptr(), int(k), stages, build.stream_handle(codes))
+    build.check(err, "pack_codes")
+    launches["pack_codes"] += 1
+    return out
+
+
+def unpack_codes_sel(packed, bits: int, out, sel, k: int):
+    """The row-predicated unpack: the first n = out.shape[-1] codes of each
+    row of packed [rows, >= body] (uint8, any row stride) into out [rows,
+    n] (uint8 for 4 bits, uint16 for 16; any row stride), for the rows r
+    whose stage r % len(sel) has sel == k; other rows are left as they
+    are. Returns ``out``."""
+    if not (bits <= 4 or 8 < bits <= 16):
+        raise ValueError(f"no predicated unpack for {bits}-bit codes")
+    code_dtype = torch.uint8 if bits <= 8 else torch.uint16
+    p2, ld_in = build.row_view(packed, "packed", torch.uint8)
+    o2, ld_out = build.row_view(out, "out", code_dtype)
+    rows, n = o2.shape
+    if p2.shape[0] != rows or p2.shape[1] < _body_bytes(bits, n):
+        raise ValueError(f"packed: {tuple(p2.shape)} for {rows} rows of "
+                         f"{_body_bytes(bits, n)} bytes")
+    if n == 0 or rows == 0:
+        return out
+    stages = build.stage_table(sel, rows, packed.device)
+    entry = (build.library().unpack_codes4_sel if bits <= 4
+             else build.library().unpack_codes16_sel)
+    err = entry(p2.data_ptr(), o2.data_ptr(), rows, n, ld_in, ld_out,
+                sel.data_ptr(), int(k), stages, build.stream_handle(packed))
     build.check(err, "unpack_codes")
     launches["unpack_codes"] += 1
     return out

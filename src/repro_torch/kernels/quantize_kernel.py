@@ -12,7 +12,11 @@ decode reads them.
 
 Design: one grid-stride pass, four elements per thread per step with
 128-bit loads where the pointers allow, each input read once and each
-output written once. The arithmetic is the jitted reference's bit for bit
+output written once. The row-predicated forms (``grid_encode_sel``,
+``grid_decode_sel``: the mixed-width ring's padded wire) take rows of
+their own strides on the grid's second dimension and a device table of
+one width index per stage; a row whose stage is not at this width is
+skipped before any load, so one launch a width covers every stage. The arithmetic is the jitted reference's bit for bit
 (``core/quantize.py`` says which, and why), so kernel and plain version are
 held equal bitwise.
 """
@@ -85,3 +89,55 @@ def grid_decode(codes, grid, out_dtype=torch.float32):
     build.check(err, "grid_decode")
     launches["grid_decode"] += 1
     return out if out_dtype == _F32 else out.to(out_dtype)
+
+
+def grid_encode_sel(x, grid, out, sel, k: int):
+    """The row-predicated encode: x float32 [rows, n] (rows contiguous, any
+    row stride) -> the codes of row r into out[r, :n] (``grid.code_dtype``,
+    [rows, >= n], any row stride) for the rows whose stage r % len(sel)
+    has sel == k (sel: int32 [stages] on the card); other rows are left as
+    they are. Returns ``out``."""
+    if grid.bits > 16:
+        raise ValueError(f"no integer code container for {grid.bits} bits")
+    x2, ld_in = build.row_view(x, "x", _F32)
+    o2, ld_out = build.row_view(out, "out", grid.code_dtype)
+    rows, n = x2.shape
+    if o2.shape[0] != rows or o2.shape[1] < n:
+        raise ValueError(f"out: {tuple(o2.shape)} for [{rows}, {n}] codes")
+    if n == 0 or rows == 0:
+        return out
+    stages = build.stage_table(sel, rows, x.device)
+    lo, _, inv = _scalars(grid)
+    err = build.library().grid_encode_f32_sel(
+        x2.data_ptr(), o2.data_ptr(), rows, n, ld_in, ld_out, lo, inv,
+        grid.n_levels, out.element_size(), sel.data_ptr(), int(k), stages,
+        build.stream_handle(x))
+    build.check(err, "grid_encode")
+    launches["grid_encode"] += 1
+    return out
+
+
+def grid_decode_sel(codes, grid, out, sel, k: int):
+    """The row-predicated decode: the first n = out.shape[-1] codes of each
+    row of codes [rows, >= n] (uint8 or uint16, any row stride) -> lo +
+    codes·step into out float32 [rows, n] (any row stride) for the rows
+    whose stage r % len(sel) has sel == k; other rows are left as they
+    are. Returns ``out``."""
+    if codes.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"codes: expected uint8 or uint16, got {codes.dtype}")
+    c2, ld_in = build.row_view(codes, "codes", codes.dtype)
+    o2, ld_out = build.row_view(out, "out", _F32)
+    rows, n = o2.shape
+    if c2.shape[0] != rows or c2.shape[1] < n:
+        raise ValueError(f"codes: {tuple(c2.shape)} for [{rows}, {n}]")
+    if n == 0 or rows == 0:
+        return out
+    stages = build.stage_table(sel, rows, codes.device)
+    lo, step, _ = _scalars(grid)
+    err = build.library().grid_decode_f32_sel(
+        c2.data_ptr(), o2.data_ptr(), rows, n, ld_in, ld_out, lo, step,
+        codes.element_size(), sel.data_ptr(), int(k), stages,
+        build.stream_handle(codes))
+    build.check(err, "grid_decode")
+    launches["grid_decode"] += 1
+    return out

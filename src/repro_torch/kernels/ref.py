@@ -63,6 +63,49 @@ def grid_decode_ref(codes, grid, out_dtype=torch.float32):
                    grid.lo_in(f32), f32).to(out_dtype)
 
 
+def stage_rows(sel, k: int, rows: int, device):
+    """The predicated kernels' row mask, [rows, 1]: row r is stage
+    r % len(sel), and runs where that stage's sel is k."""
+    stage = torch.arange(rows, device=device) % sel.numel()
+    return (sel.to(device)[stage] == k).unsqueeze(-1)
+
+
+def _write_rows(out, keep, new):
+    """out[:, :w] = new where ``keep`` (w = new's width); other rows as
+    they were. Returns ``out``."""
+    head = out[:, :new.shape[-1]]
+    if new.dtype == torch.uint16:       # no CUDA where for uint16: its bits
+        head, new = head.view(torch.int16), new.view(torch.int16)
+    head.copy_(torch.where(keep, new, head))
+    return out
+
+
+def grid_encode_sel_ref(x, grid, out, sel, k: int):
+    """The predicated encode: every row encoded, then kept where its
+    stage's sel is k."""
+    return _write_rows(out, stage_rows(sel, k, x.shape[0], x.device),
+                       grid_encode_ref(x, grid))
+
+
+def grid_decode_sel_ref(codes, grid, out, sel, k: int):
+    """The predicated decode of the first out.shape[-1] codes a row."""
+    vals = grid_decode_ref(codes[:, :out.shape[-1]], grid)
+    return _write_rows(out, stage_rows(sel, k, out.shape[0], out.device),
+                       vals)
+
+
+def pack_codes_sel_ref(codes, bits: int, out, sel, k: int):
+    """The predicated pack, into the head of each kept row of ``out``."""
+    return _write_rows(out, stage_rows(sel, k, codes.shape[0], codes.device),
+                       pack_codes_ref(codes, bits))
+
+
+def unpack_codes_sel_ref(packed, bits: int, out, sel, k: int):
+    """The predicated unpack of the first out.shape[-1] codes a row."""
+    return _write_rows(out, stage_rows(sel, k, out.shape[0], out.device),
+                       unpack_codes_ref(packed, bits, out.shape[-1]))
+
+
 def relu_zupdate_ref(a, q, z_old):
     from repro_torch.core.subproblems import update_z_hidden
     return update_z_hidden(a.float(), q.float(), z_old.float(),

@@ -44,12 +44,14 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.comm import faults as FT
 from repro_torch.comm.codecs import (FP32, AffineCodec, Fp32Codec,
                                      GridCodec, WireCodec, codec_for_grid)
 from repro_torch.comm.transport import (ContainerExchange, NeighborExchange,
-                                        PaddedWire)
+                                        PaddedWire, sel_table,
+                                        stage_entries)
 from repro_torch.core import subproblems as sp
 from repro_torch.core.pdadmm import ADMMConfig, _generator, relu, run_chunked
 from repro_torch import resolve_device
@@ -168,8 +170,12 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     ``config``. ``wire`` (a :class:`PaddedWire`) ships p and q in
     fixed-size containers instead: the step takes a trailing ``widths``
     table (``widths[0][s]`` the q width index of stage s, ``widths[1][s]``
-    the p one; host integers), and each stage's exchanges run at its own
-    width. u always flies fp32.
+    the p one), an int32 ``[2, n_stages]`` tensor on the ring's device
+    (rows of host integers are moved there once a call;
+    ``PaddedWire.widths_table`` builds one), and each stage's exchanges
+    run at its own width. The kernels a step launches do not depend on
+    the table (one predicated launch per width of the wire), so one
+    captured graph replays every schedule. u always flies fp32.
 
     ``health=True`` (or any ``faults=`` plan) builds the SENTINEL step:
     every boundary slab flies with its int32[2] checksum/seqno header
@@ -246,11 +252,8 @@ def make_distributed_step(mesh, L: int, n_classes: int,
 
         sel_q = sel_p = sel_q_prev = sel_p_next = None
         if wire is not None:
-            sel_q = [widths[0][s] for s in stages]
-            sel_p = [widths[1][s] for s in stages]
-            # decodes read the ORIGINATING stage's width
-            sel_q_prev = [widths[0][(s - 1) % n_stages] for s in stages]
-            sel_p_next = [widths[1][(s + 1) % n_stages] for s in stages]
+            sel_q, sel_p, sel_q_prev, sel_p_next = _stage_widths(
+                widths, stages, n_stages, ring.device)
 
         # ---- neighbour exchange (previous iteration's values) -------------
         if sentinel:
@@ -429,6 +432,18 @@ def make_distributed_step(mesh, L: int, n_classes: int,
     return step, ring
 
 
+def _stage_widths(widths, stages, n_stages: int, device) -> tuple:
+    """(sel_q, sel_p, sel_q_prev, sel_p_next) of the local stages, on the
+    device: each stage's q and p width indices, and those of the stage its
+    q comes from and of the stage its p comes from (a decode reads the
+    ORIGINATING stage's width)."""
+    t = sel_table(widths, device)
+    return (stage_entries(t[0], stages, n_stages),
+            stage_entries(t[1], stages, n_stages),
+            stage_entries(t[0], stages, n_stages, +1),
+            stage_entries(t[1], stages, n_stages, -1))
+
+
 def _sentinel_exchanges(ring, p_codec, q_codec, wire, plan):
     """The q, u and p sentinel exchanges of a step (or a primer: plan
     None)."""
@@ -469,8 +484,14 @@ def _health(ring, oks, new_leaves, res_sq, lag, ctl) -> dict:
 
 def _health_row(metrics) -> np.ndarray:
     """One host read of a sentinel step's verdict: ``wire_bad`` (3), the
-    six HEALTH_FLAGS, the objective and the residual, as float64."""
+    six HEALTH_FLAGS, the objective and the residual, as float64 (from
+    device tensors, or from the numpy metrics a replay read)."""
     h = metrics["health"]
+    if isinstance(h["wire_bad"], np.ndarray):
+        return np.concatenate([
+            np.asarray(x, np.float64).reshape(-1)
+            for x in (h["wire_bad"], *(h[k] for k in HEALTH_FLAGS),
+                      metrics["objective"], metrics["residual"])])
     row = torch.cat([h["wire_bad"].to(torch.float64),
                      torch.stack([h[k] for k in HEALTH_FLAGS]).to(
                          torch.float64),
@@ -505,7 +526,8 @@ def make_overlap_primer(mesh, q_codec: WireCodec = FP32, *,
         if wire is None:
             return lambda q, u, seqno: start(q, u, None, seqno)
         return lambda q, u, widths, seqno: start(
-            q, u, [widths[0][s] for s in stages], seqno)
+            q, u, _stage_widths(widths, stages, n_stages, ring.device)[0],
+            seqno)
     ex_q = NeighborExchange(ring, "model", q_codec, TAG_Q)
     ex_u = NeighborExchange(ring, "model", FP32, TAG_U)
     if wire is None:
@@ -514,9 +536,11 @@ def make_overlap_primer(mesh, q_codec: WireCodec = FP32, *,
                     ex_u.start_shift_from_prev(u))
         return prime
     cex = ContainerExchange(ring, "model", wire, TAG_Q)
+    n_stages = mesh.shape["model"]
 
     def prime_container(q, u, widths):
-        return (cex.start_shift_from_prev(q, [widths[0][s] for s in stages]),
+        sel_q = _stage_widths(widths, stages, n_stages, ring.device)[0]
+        return (cex.start_shift_from_prev(q, sel_q),
                 ex_u.start_shift_from_prev(u))
     return prime_container
 
@@ -547,10 +571,8 @@ def make_sentinel_primer(mesh, p_codec: WireCodec = FP32,
     cex_p = ContainerExchange(ring, "model", wire, TAG_P)
 
     def prime_container(q, u, p, widths):
-        sel_q = [widths[0][s] for s in stages]
-        sel_p = [widths[1][s] for s in stages]
-        sel_q_prev = [widths[0][(s - 1) % n_stages] for s in stages]
-        sel_p_next = [widths[1][(s + 1) % n_stages] for s in stages]
+        sel_q, sel_p, sel_q_prev, sel_p_next = _stage_widths(
+            widths, stages, n_stages, ring.device)
         return FT.GoodSlabs(
             q=cex_q.shift_from_prev(q, sel_q, sel_q_prev)[:, :, :1],
             u=ex_u.shift_from_prev(u)[:, :, :1],
@@ -757,8 +779,7 @@ def _widest_widths(wire: PaddedWire, n_stages: int) -> list:
     return [[k] * n_stages, [k] * n_stages]
 
 
-def _kernel_launches(config: ADMMConfig, p_codec, q_codec, wire, widths
-                     ) -> dict:
+def _kernel_launches(config: ADMMConfig, p_codec, q_codec, wire) -> dict:
     """Launches of one ring step on the card."""
     from repro_torch.kernels.ops import _packs
     out = {"fused_linear": 3,            # entry residual, gW, pg
@@ -775,13 +796,14 @@ def _kernel_launches(config: ADMMConfig, p_codec, q_codec, wire, widths
     if config.quantize_q and config.grid is not None:
         add("grid_project")
     if wire is not None:
-        for sel in widths:               # q then p: encode + decode each
-            for k in sorted(set(sel)):
-                add("grid_encode")
-                add("grid_decode")
-                if _packs(wire.widths[k]):
-                    add("pack_codes")
-                    add("unpack_codes")
+        # q and p: one predicated encode and decode per width of the wire
+        # (and a pack and unpack per packed width), whatever the table
+        for bits in wire.widths:
+            add("grid_encode", 2)
+            add("grid_decode", 2)
+            if _packs(bits):
+                add("pack_codes", 2)
+                add("unpack_codes", 2)
         return out
     for codec in (q_codec, p_codec):     # u flies fp32
         if isinstance(codec, Fp32Codec):
@@ -803,14 +825,13 @@ def step_program_plan(mesh, L: int, n_classes: int, config: ADMMConfig, *,
                       wire: Optional[PaddedWire] = None,
                       health: bool = False,
                       faults: Optional[FT.FaultPlan] = None,
-                      widths=None, ring=None, device=None
-                      ) -> StepProgramPlan:
+                      ring=None, device=None) -> StepProgramPlan:
     """Expected program of this ``make_distributed_step`` kwarg point (its
-    signature plus the ``V``/``h`` problem size, the ``widths`` table a
-    padded wire runs at — default every stage at the widest — and the
-    ``ring`` or ``device`` that sets the kernel policy). Pure bookkeeping:
-    nothing is traced. A sentinel step launches the kernels of the plain
-    one (its checksums, verdicts and flips are PyTorch)."""
+    signature plus the ``V``/``h`` problem size, and the ``ring`` or
+    ``device`` that sets the kernel policy). Pure bookkeeping: nothing is
+    traced. A sentinel step launches the kernels of the plain one (its
+    checksums, verdicts and flips are PyTorch); a padded wire's step
+    launches the same kernels whatever its widths table."""
     n_rows = _dp_total(mesh)
     r0 = shard_rows(V, n_rows)[0]
     slab = (1, r0, h)
@@ -842,9 +863,7 @@ def step_program_plan(mesh, L: int, n_classes: int, config: ADMMConfig, *,
     dev = ring.device if ring is not None else resolve_device(device)
     pallas = {}
     if config.use_kernels and dev.type != "cpu":
-        if wire is not None and widths is None:
-            widths = _widest_widths(wire, mesh.shape["model"])
-        pallas = _kernel_launches(config, p_codec, q_codec, wire, widths)
+        pallas = _kernel_launches(config, p_codec, q_codec, wire)
 
     return StepProgramPlan(
         edge_events=tuple(events),
@@ -1075,14 +1094,62 @@ def step_cost_model(mesh, L: int, n_classes: int, config: ADMMConfig,
 _UNSET = object()
 
 
+class _Calls:
+    """How ``distributed_train``'s per-iteration loops (mixed-width,
+    per-epoch controller, sentinel) call a step: ``calls(step, carry,
+    args) -> (carry, metrics)``.
+
+    Eager (``replay=False``): the step itself; metrics are device
+    tensors. Replayed: one CUDA graph replay per call (``core.graphs``),
+    the reference's jitted step. The first call of a step captures its
+    program; the program is kept, so a re-primed carry, a rollback or a
+    resume only loads the program's buffers and never captures again.
+    ``args`` must be the tensors of the first call (the graph reads their
+    addresses): the caller rewrites a widths table or fault controls in
+    place. The carry comes back over the buffers; the metrics come back
+    on the host in one copy (numpy)."""
+
+    def __init__(self, replay: bool):
+        self.replay = replay
+        self.programs = {}
+
+    def __call__(self, step, carry, args):
+        if not self.replay:
+            return step(carry, *args)
+        from repro_torch.core import graphs
+        prog = self.programs.get(step)
+        if prog is None:
+            prog = self.programs[step] = graphs.program_for(step, carry,
+                                                            args, 1)
+        elif any(a is not b for a, b in zip(tree_leaves(args),
+                                            tree_leaves(prog.args))):
+            raise ValueError("a replayed step's arguments must be the "
+                             "tensors it was captured with (rewrite them "
+                             "in place)")
+        prog.buffers.load(carry)
+        m = prog.iterate(step)
+        return prog.buffers.state(), m
+
+
+def _held_carry(fly, ring):
+    """A primed in-flight sentinel slab in the form a faulted overlap
+    step's carry takes (``held`` set, ``late`` all false, which keeps the
+    arrival as it is), so a replayed step's carry keeps one structure."""
+    late = torch.zeros(len(ring.axis_index("model")), dtype=torch.bool,
+                       device=ring.device)
+    return fly._replace(held=(late, [t.clone() for t in fly.handle]))
+
+
 def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
                    epochs, hist, ledger, controller, codecs_for, step_cache,
-                   overlap, faults, ckpt, ckpt_every, resume, recovery):
+                   overlap, faults, ckpt, ckpt_every, resume, recovery,
+                   calls):
     """The sentinel training loop behind ``distributed_train(faults= /
     health= / ckpt=)``: one sentinel step per iteration (last-good
     substitution inside the step), one host read of its verdict, the fault
     accounting, checkpoints, and rollback. ``state`` is in the ring's shard
-    layout. Returns ``(state, hist)``; the policy is in the
+    layout; ``calls`` (:class:`_Calls`) runs each step, replayed or
+    eagerly. Returns ``(state, hist)``; the policy is in the
     ``distributed_train`` docstring."""
     from repro_torch.ckpt.manager import CheckpointManager
     mgr = None
@@ -1115,8 +1182,21 @@ def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
                                                              st.p)
 
     def prime_fly(bits, st, seqno):
-        return make_overlap_primer(mesh, codecs_for(bits)[1], sentinel=True,
-                                   ring=ring)(st.q, st.u, seqno)
+        fly = make_overlap_primer(mesh, codecs_for(bits)[1], sentinel=True,
+                                  ring=ring)(st.q, st.u, seqno)
+        if calls.replay and faults is not None:
+            fly = tuple(_held_carry(f, ring) for f in fly)
+        return fly
+
+    ctl = None      # replayed: the tick's controls, rewritten in place
+
+    def controls(tick, prev_obj):
+        into = ctl if calls.replay else None
+        if faults is not None:
+            return faults.controls(tick, n_stages, prev_obj=prev_obj,
+                                   device=dev, into=into)
+        return FT.null_controls(n_stages, seqno=tick, prev_obj=prev_obj,
+                                device=dev, into=into)
 
     def charge_pair(it, old_bits, suffix):
         # a q/u pair (and its headers) that crossed the link unconsumed
@@ -1182,17 +1262,14 @@ def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
             good = prime_good(bits, state)
             inflight = prime_fly(bits, state, tick - 1) if overlap else None
             cur_bits = bits
-        ctl = (faults.controls(tick, n_stages, prev_obj=prev_obj,
-                               device=dev)
-               if faults is not None
-               else FT.null_controls(n_stages, seqno=tick,
-                                     prev_obj=prev_obj, device=dev))
+        ctl = controls(tick, prev_obj)
         carry = ((state, good), inflight) if overlap else (state, good)
-        out, m = step(carry, *data, ctl)
+        out, m = calls(step, carry, (*data, ctl))
         if overlap:
             (new_state, new_good), new_inflight = out
         else:
             (new_state, new_good), new_inflight = out, None
+        del carry, out
         row = _health_row(m)                 # the iteration's one host read
         wire_bad = [int(x) for x in row[:3]]
         flags = dict(zip(HEALTH_FLAGS, (bool(x) for x in row[3:9])))
@@ -1229,6 +1306,10 @@ def _ft_train_loop(*, mesh, ring, state, data, L, V, h, n_classes, config,
             if mgr is not None and ckpt_every and e % ckpt_every == 0:
                 _save()
         else:
+            # the failed attempt's carry (over a replayed step's buffers)
+            # is dropped, so a step first built after the rollback shares
+            # those buffers instead of taking new ones
+            new_state = new_good = new_inflight = None
             n_rb += 1
             if ledger is not None:
                 ledger.record_fault(tick - 1, "step", "rolled_back", 1)
@@ -1295,7 +1376,14 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
     the card the step is captured once as a CUDA graph and replayed (the
     in-flight pair is part of the graph's state); a ``ProcessGroupRing``
     always runs the eager loop (its shifts are gloo messages on the CPU).
-    The controller, mixed-width and fault-tolerant loops below run eagerly.
+    The controller, mixed-width and fault-tolerant loops below read each
+    iteration's metrics on the host; with ``jit`` on a ``LocalRing`` on the
+    card each of their iterations is one replay of its step's captured
+    graph (the carry in the program's buffers, the widths table or the
+    tick's fault controls rewritten in place before the replay, the
+    metrics read in one copy after it), as the reference jits each of
+    their steps; ``hist``, the ledger and the ring's byte count are the
+    eager loop's.
 
     With a ``controller`` (+ ``grids_by_bits``) the p/q wire width is
     chosen each epoch from the global primal residual, one cached step per
@@ -1364,6 +1452,9 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
             ring.to_local(masks["train"], "rows"))
     hist = {"objective": [], "residual": [], "schedules": []}
     step_cache = {}
+    from repro_torch.core import graphs
+    calls = _Calls(jit and isinstance(ring, LocalRing)
+                   and graphs.on_cuda(state))
 
     def codecs_for(bits):
         if bits is None:
@@ -1396,7 +1487,8 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
             n_classes=n_classes, config=config, epochs=epochs, hist=hist,
             ledger=ledger, controller=controller, codecs_for=codecs_for,
             step_cache=step_cache, overlap=overlap, faults=faults, ckpt=ckpt,
-            ckpt_every=ckpt_every, resume=resume, recovery=recovery)
+            ckpt_every=ckpt_every, resume=resume, recovery=recovery,
+            calls=calls)
     elif mixed_width:
         if controller is None or grids_by_bits is None:
             raise ValueError("mixed_width needs a controller and "
@@ -1415,6 +1507,9 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                   if overlap else None)
         stage_res = [0.0] * n_stages
         inflight, prev_q_bits = None, None
+        # the step's widths table: one tensor, rewritten each iteration
+        table = torch.zeros((2, n_stages), dtype=torch.int32,
+                            device=ring.device)
         for e in range(epochs):
             sig = stage_res if n_edges == n_stages else stage_res + stage_res
             sched = controller.assign(sig, e)
@@ -1422,7 +1517,7 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
             p_bits = sched[:n_stages] if n_edges == n_stages \
                 else sched[n_stages:]
             hist["schedules"].append(sched)
-            widths = [wire.sel_of_bits(q_bits), wire.sel_of_bits(p_bits)]
+            wire.widths_table(q_bits, p_bits, out=table)
             if overlap:
                 if inflight is None or q_bits != prev_q_bits:
                     if inflight is not None and ledger is not None:
@@ -1432,12 +1527,12 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                                                   wire, prev_q_bits,
                                                   "dropped")
                     ring.drain()
-                    inflight = primer(state.q, state.u, widths)
+                    inflight = primer(state.q, state.u, table)
                     prev_q_bits = q_bits
-                (state, inflight), m = step((state, inflight), *data,
-                                            widths)
+                (state, inflight), m = calls(step, (state, inflight),
+                                             (*data, table))
             else:
-                state, m = step(state, *data, widths)
+                state, m = calls(step, state, (*data, table))
             stage_res = [float(v) for v in m["stage_residuals"]]
             keep(m)
             if ledger is not None:
@@ -1477,9 +1572,9 @@ def distributed_train(mesh, seed, Xp, labels, masks, L, n_classes,
                     ring.drain()
                     inflight = prime(bits, state)
                     cur_bits = bits
-                (state, inflight), m = step((state, inflight), *data)
+                (state, inflight), m = calls(step, (state, inflight), data)
             else:
-                state, m = step(state, *data)
+                state, m = calls(step, state, data)
             residual = float(m["residual"])
             keep(m)
             if ledger is not None:

@@ -133,8 +133,7 @@ def test_recorded_launches_equal_the_plan(cname, overlap, wire):
                  else GridCodec(uniform_grid(bits, -2.0, 6.0)))
         kw.update(p_codec=codec, q_codec=codec)
     prog = SP.trace_step_program(mesh, L, C, cfg, widths=widths, **kw)
-    plan = SP.step_program_plan(mesh, L, C, cfg, widths=widths,
-                                device="cuda", **kw)
+    plan = SP.step_program_plan(mesh, L, C, cfg, device="cuda", **kw)
     assert prog.launch_counts() == plan.pallas_calls
     assert SP.step_program_plan(mesh, L, C, cfg, device="cpu",
                                 **kw).pallas_calls == {}

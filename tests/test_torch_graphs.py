@@ -22,12 +22,22 @@ and hold that body:
   on, against the reference's ``distributed_train`` on a (1, 1) mesh at
   ``tests/test_torch_stage_parallel.py``'s tolerances (objectives rtol
   1e-3, states atol 1e-4 + rtol 1e-3), and bit for bit against the
-  port's ``distributed_train`` (its eager loop).
+  port's ``distributed_train`` (its eager loop);
+* ``distributed_train``'s per-iteration loops (the mixed-width ring over
+  its widths table with 4 or 8 managed edges, the per-epoch controller,
+  the sentinel loop with health, with detected faults and stale carries
+  under overlap, with a fault plan that forces a rollback, and with a
+  checkpoint and a resume) through one program body
+  per step (``graphs.on_cuda`` patched to true, so the CPU runs the
+  bodies eagerly), bit for bit against the eager loop: state, ``hist``
+  (schedules, fault counts), ledger and ring bytes; one body run per
+  iteration or tick, and no program made twice for a step.
 
 The card cases (``-m cuda``): the graph equals the eager loop bit for bit
 with the same launch counts and one replay per iteration (also for a
 ``train_adaptive`` whose schedules change width, all of them over one set
-of buffers), and a step that syncs the host makes the capture raise. JAX is imported inside the
+of buffers, and for each of ``distributed_train``'s per-iteration loops),
+and a step that syncs the host makes the capture raise. JAX is imported inside the
 fixtures only, so the card cases run on a host without it
 (``pytest --noconftest -m cuda tests/test_torch_graphs.py``).
 """
@@ -345,6 +355,118 @@ def test_distributed_train_graph_body_tracks_reference(ring_ref, overlap):
                                    atol=1e-4, err_msg=f)
 
 
+UNIFORM_CTL = dict(allowed_bits=(4, 8, 16), min_bits=4, max_bits=16,
+                   min_dwell=1, hysteresis=0.0, thresholds=((0.5, 4), (0.1, 8)))
+MIXED_CTL = dict(UNIFORM_CTL, signal="per_edge")
+# (kwargs of distributed_train, iterations): a fault plan's seed whose
+# sneaky flips force a rollback on this problem (1 in 7 ticks at seed 8)
+LOOPS = {
+    "mixed": (dict(mixed_width=True), 4),
+    "mixed_overlap_8_edges": (dict(mixed_width=True, overlap=True,
+                                   edges=2), 4),
+    "controller_overlap": (dict(overlap=True, uniform_controller=True), 4),
+    "health_overlap": (dict(health=True, overlap=True), 3),
+    "chaos_overlap": (dict(chaos=3, overlap=True), 4),
+    "rollback": (dict(sneaky=8), 6),
+    "ckpt_resume": (dict(health=True, ckpt=True), 3),
+}
+
+
+def _loop_run(kind, device, tmp, Xp, labels, masks, C, dims=(4, 16),
+              jit=True):
+    """One ``distributed_train`` of the ``LOOPS`` case on a LocalRing of
+    mesh (1, 4): (global state, hist, ledger records, ring bytes)."""
+    from repro_torch.comm import faults as FT
+    from repro_torch.comm.controller import (BitWidthController,
+                                             ControllerConfig,
+                                             stage_ring_edges)
+    from repro_torch.comm.ledger import CommLedger
+    kw, epochs = LOOPS[kind]
+    kw = dict(kw)
+    L, h = dims
+    mesh = StageMesh(1, 4)
+    grids = {b: tq.uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)}
+    if kw.get("mixed_width"):
+        edges = stage_ring_edges(4, Xp.shape[0], h) * kw.pop("edges", 1)
+        kw.update(grids_by_bits=grids, controller=BitWidthController(
+            edges, ControllerConfig(**MIXED_CTL)))
+    if kw.pop("uniform_controller", False):
+        kw.update(grids_by_bits=grids, controller=BitWidthController(
+            [2 * Xp.shape[0] * h], ControllerConfig(**UNIFORM_CTL)))
+    if "chaos" in kw:       # detected flips and drops, stale carries
+        kw["faults"] = FT.FaultPlan(seed=kw.pop("chaos"), flip_rate=0.2,
+                                    drop_rate=0.1, delay_rate=0.1)
+    if "sneaky" in kw:
+        kw["faults"] = FT.FaultPlan(seed=kw.pop("sneaky"), sneaky_rate=0.1,
+                                    flips_per_event=6)
+    resume = kw.pop("ckpt", False)
+    ring = LocalRing(mesh, device)
+    led = CommLedger()
+    run = functools.partial(SP.distributed_train, mesh, 3, Xp, labels, masks,
+                            L, C, _cfg(tpd, False), ledger=led, ring=ring,
+                            jit=jit, **kw)
+    if resume:
+        run(epochs, ckpt=str(tmp), ckpt_every=2)
+        st, hist = run(epochs + 2, ckpt=str(tmp), resume=True)
+    else:
+        st, hist = run(epochs)
+    return st, hist, [dataclasses.astuple(r) for r in led.records], \
+        ring.shifted_bytes
+
+
+def _same_loop(got, want):
+    (sg, hg, lg, bg), (se, he, le, be) = got, want
+    assert hg == he and lg == le and bg == be
+    _assert_same(sg, se)
+
+
+@pytest.mark.parametrize("kind", list(LOOPS))
+def test_distributed_train_loop_bodies_equal_eager(kind, monkeypatch,
+                                                   tmp_path):
+    """The per-iteration loops through their program bodies (the replayed
+    form's buffers, argument tensors rewritten in place, byte history read
+    each iteration) equal the eager loop bit for bit."""
+    Xp, ds = _tiny_ring()
+    args = (Xp, ds.labels, ds.masks, ds.n_classes)
+    want = _loop_run(kind, "cpu", tmp_path / "eager", *args)
+    made, steps = [], [0]
+    init, step = graphs.ChunkProgram.__init__, graphs.ChunkProgram.step
+
+    def counted_init(self, step_fn, *a, **kw):
+        made.append(step_fn)
+        init(self, step_fn, *a, **kw)
+
+    def counted_step(self, step_fn):
+        steps[0] += 1
+        step(self, step_fn)
+    monkeypatch.setattr(graphs.ChunkProgram, "__init__", counted_init)
+    monkeypatch.setattr(graphs.ChunkProgram, "step", counted_step)
+    monkeypatch.setattr(graphs, "on_cuda", lambda state: True)
+    got = _loop_run(kind, "cpu", tmp_path / "replayed", *args)
+    _same_loop(got, want)
+    hist = got[1]
+    ticks = (hist["faults"]["ticks"] if "faults" in hist
+             else len(hist["objective"]))
+    if kind == "ckpt_resume":   # 3 ticks, a save at 2, a resume to 5
+        ticks = 2 * LOOPS[kind][1]
+    assert steps[0] == ticks and 0 < len(made) == len(set(made))
+    if kind.startswith("mixed"):
+        assert len(made) == hist["n_compiled_steps"] == 1
+        assert len(set(hist["schedules"])) > 1
+    if kind == "rollback":
+        assert hist["faults"]["rolled_back"] >= 1
+    if kind == "chaos_overlap":
+        assert hist["faults"]["detected"] > 0
+
+
+def _tiny_ring(device="cpu"):
+    ds = td.tiny(V=64, device=device)
+    X = ds.augmented(2)
+    g = torch.Generator().manual_seed(0)
+    P0 = torch.randn((X.shape[1], 16), generator=g) / np.sqrt(X.shape[1])
+    return torch.relu(X @ P0.to(device)), ds
+
+
 # ---------------------------------------------------------------------------
 # The card
 # ---------------------------------------------------------------------------
@@ -466,3 +588,29 @@ def test_cuda_capture_of_a_host_sync_raises(cuda):
 
     with pytest.raises(RuntimeError, match="h2d_step failed at"):
         tpd.run_chunked(h2d_step, x, (x,), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(LOOPS))
+def test_cuda_distributed_train_loops_replay_equal_eager(cuda, kind,
+                                                         tmp_path):
+    """Each per-iteration loop of ``distributed_train`` replays one graph
+    per iteration (tick) on the card, bit for bit the eager loop's, with
+    the same launch counts."""
+    Xp, ds = _tiny_ring(cuda)
+    args = (Xp, ds.labels, ds.masks, ds.n_classes)
+    runs = []
+    for jit in (True, False):
+        ops.reset_launch_counts()
+        graphs.replays = 0
+        out = _loop_run(kind, cuda, tmp_path / str(jit), *args, jit=jit)
+        runs.append((out, ops.launch_counts(), graphs.replays))
+    (got, c_g, r_g), (want, c_e, r_e) = runs
+    _same_loop(got, want)
+    hist = got[1]
+    ticks = (hist["faults"]["ticks"] if "faults" in hist
+             else len(hist["objective"]))
+    if kind == "ckpt_resume":   # 3 ticks, a save at 2, a resume to 5
+        ticks = 2 * LOOPS[kind][1]
+    assert c_g == c_e and c_g["fused_linear"] > 0
+    assert (r_g, r_e) == (ticks, 0)

@@ -903,6 +903,51 @@ def test_cuda_pack_codes_equal_plain_bitwise(cuda, bits, rows, n, pad, off,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sel", [[0, 2, 1, 0, 2, 1, 1, 0, 2, 0],
+                                 [2, 2, 0, 0, 2, 0, 0, 2, 2, 0],
+                                 [1]])
+@pytest.mark.parametrize("n", [2485 * 1000, 1001, 33])
+def test_cuda_predicated_wire_kernels_equal_plain_bitwise(cuda, sel, n):
+    """The row-predicated encode, pack, unpack and decode at each width of
+    a 4/8/16 wire, over 2 x len(sel) rows (stage r % len(sel)): the rows
+    at the width written as the plain versions write them, every other
+    row as it was (a width no stage runs at leaves all as they were)."""
+    grids = [tq.uniform_grid(b, -2.0, 6.0) for b in (4, 8, 16)]
+    rows = 2 * len(sel)
+    sel_t = torch.tensor(sel, dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(n + len(sel))
+    x = torch.from_numpy((rng.random((rows, n)) * 9.0 - 2.5)
+                         .astype(np.float32)).to(cuda)
+    cap = 2 * n + 5                      # rows of a wider, odd container
+    for k, (bits, grid) in enumerate(zip((4, 8, 16), grids)):
+        fill = torch.full((rows, n), 3, dtype=grid.code_dtype, device=cuda)
+        got = cuda_grid.grid_encode_sel(x, grid, fill.clone(), sel_t, k)
+        want = tref.grid_encode_sel_ref(x, grid, fill.clone(), sel_t, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+        box = torch.full((rows, cap), 7, dtype=torch.uint8, device=cuda)
+        if bits != 8:
+            packed = cuda_pack.pack_codes_sel(want, bits, box.clone(), sel_t,
+                                              k)
+            ref_packed = tref.pack_codes_sel_ref(want, bits, box.clone(),
+                                                 sel_t, k)
+            torch.cuda.synchronize()
+            assert torch.equal(packed, ref_packed)
+            codes = cuda_pack.unpack_codes_sel(ref_packed, bits, fill.clone(),
+                                               sel_t, k)
+            ref_codes = tref.unpack_codes_sel_ref(ref_packed, bits,
+                                                  fill.clone(), sel_t, k)
+            torch.cuda.synchronize()
+            assert torch.equal(codes.to(torch.int32),
+                               ref_codes.to(torch.int32))
+        out = torch.full((rows, n), -1.0, device=cuda)
+        dec = cuda_grid.grid_decode_sel(want, grid, out.clone(), sel_t, k)
+        ref_dec = tref.grid_decode_sel_ref(want, grid, out.clone(), sel_t, k)
+        torch.cuda.synchronize()
+        assert torch.equal(dec, ref_dec)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,S,T,D,q_offset", [
     (1, 2, 2, 128, 128, 64, 0), (2, 1, 1, 256, 256, 32, 0),
     (1, 2, 2, 64, 64, 128, 0),                   # tests/test_kernels.py's

@@ -461,6 +461,71 @@ def test_unported_options_raise_and_name_their_slice(tmp_path):
             wire=SP.PaddedWire.from_grids({8: uniform_grid(8, 0, 1)}))
 
 
+# widths tables of a ring of 4 stages (q row, p row; widths 4, 8, 16):
+# the last leaves the 8-bit width unused
+WIDTHS_TABLES = {"mixed": [[0, 1, 2, 0], [2, 1, 0, 1]],
+                 "all_4bit": [[0, 0, 0, 0], [0, 0, 0, 0]],
+                 "no_8bit": [[2, 0, 2, 0], [0, 0, 2, 2]]}
+
+
+def _container_step(overlap, mesh_shape=(1, 4)):
+    Xp, ds = _tiny_problem()
+    mesh = StageMesh(*mesh_shape)
+    ring = LocalRing(mesh, "cpu")
+    wire = SP.PaddedWire.from_grids({b: uniform_grid(b, -2.0, 6.0)
+                                     for b in (4, 8, 16)})
+    cfg = ADMMConfig(nu=1e-2, rho=1.0)
+    step, _ = SP.make_distributed_step(mesh, 4, ds.n_classes, cfg,
+                                       overlap=overlap, wire=wire, ring=ring)
+    st = SP.shard_stack(SP.init_stack(0, Xp, 4, cfg), ring)
+    data = tuple(ring.to_local(x, "rows")
+                 for x in (Xp, ds.labels, ds.masks["train"]))
+    return mesh, ring, wire, step, st, data
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_container_step_takes_a_device_table_or_host_ints(overlap):
+    """The step over an int32 table (``PaddedWire.widths_table``) is bit
+    for bit the step over the same table as rows of host integers, the
+    primed in-flight pair too."""
+    mesh, ring, wire, step, st, data = _container_step(overlap)
+    ints = WIDTHS_TABLES["mixed"]
+    table = wire.widths_table([wire.widths[k] for k in ints[0]],
+                              [wire.widths[k] for k in ints[1]], "cpu")
+    assert table.dtype == torch.int32 and table.tolist() == ints
+    outs = []
+    for widths in (ints, table):
+        carry = st
+        if overlap:
+            carry = (st, SP.make_overlap_primer(mesh, wire=wire, ring=ring)(
+                st.q, st.u, widths))
+        outs.append(step(carry, *data, widths))
+    (a, ma), (b, mb) = outs
+    for x, y in zip(torch.utils._pytree.tree_leaves((a, ma)),
+                    torch.utils._pytree.tree_leaves((b, mb))):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+
+
+@pytest.mark.parametrize("table", list(WIDTHS_TABLES))
+def test_container_step_launches_do_not_depend_on_the_table(table):
+    """The recorder counts the same launches for every table: one
+    predicated encode and decode per width of the wire and edge, a pack
+    and an unpack per packed width, as ``step_program_plan`` states."""
+    mesh = StageMesh(1, 4)
+    wire = SP.PaddedWire.from_grids({b: uniform_grid(b, -2.0, 6.0)
+                                     for b in (4, 8, 16)})
+    cfg = ADMMConfig(nu=1e-2, rho=1.0)
+    kw = dict(V=64, h=16, wire=wire)
+    got = SP.trace_step_program(mesh, 4, 7, cfg, widths=WIDTHS_TABLES[table],
+                                **kw).launch_counts()
+    plan = SP.step_program_plan(mesh, 4, 7, cfg, device="cuda", **kw)
+    assert got == plan.pallas_calls
+    assert {k: got[k] for k in ("grid_encode", "grid_decode", "pack_codes",
+                                "unpack_codes")} == {
+        "grid_encode": 6, "grid_decode": 6, "pack_codes": 4,
+        "unpack_codes": 4}
+
+
 def test_quantized_comm_demo_runs_on_the_cpu(capsys):
     from repro_torch.examples import quantized_comm_demo
     quantized_comm_demo.main(["--device", "cpu", "--epochs", "4"])

@@ -12,6 +12,11 @@ against its single-process ring.
   ``shard_rows``, ``wire_bytes_per_iteration``,
   ``container_wire_bytes_per_iteration``): equal to the reference's,
   ragged V included.
+* The padded wire over a device widths table (one predicated launch per
+  width): each shard's container and decoded slab equal the reference's
+  ``PaddedWire.encode`` / ``decode`` of that slab at its stage's width
+  (its ``lax.switch``) byte for byte, on three tables, one of which
+  leaves a width unused; host integers give the same containers.
 * ``quantized_psum`` on a ``LocalRing`` of data 2 and 4: gather equals
   code_psum bit for bit, and with deterministic rounding both equal the
   reference's jitted ``shard_map`` run (one subprocess with simulated
@@ -253,6 +258,34 @@ def test_padded_wire_round_trips_mixed_widths_per_stage():
         assert torch.equal(y[:, s], grid.project(x[:, s]))
         nb = wire.payload_bytes((1, 5, 7), wire.widths[k])
         assert not c[:, s, nb:].any()
+
+
+# one width index per stage of a ring of 4 (widths 4, 8, 16); "no_8bit"
+# leaves a width of the wire unused
+TABLES = {"mixed": [0, 2, 1, 0], "all_16bit": [2, 2, 2, 2],
+          "no_8bit": [0, 2, 2, 0]}
+
+
+@pytest.mark.parametrize("table", list(TABLES))
+def test_padded_wire_over_a_device_table_equals_reference(table):
+    wj = jt.PaddedWire.from_grids({b: g[0] for b, g in GRIDS.items()})
+    wt = tt.PaddedWire.from_grids({b: g[1] for b, g in GRIDS.items()})
+    sel = TABLES[table]
+    rng = np.random.default_rng(len(table))
+    # slabs [D, S, 1, V, h] with V * h odd; some values off the grid's ends
+    x = (rng.random((2, 4, 1, 5, 7)) * 9.0 - 2.5).astype(np.float32)
+    sel_t = torch.tensor(sel, dtype=torch.int32)
+    c = wt.encode(torch.from_numpy(x), sel_t)
+    y = wt.decode(c, sel_t, x.shape)
+    assert c.shape == (2, 4, wt.capacity((1, 5, 7))) and y.shape == x.shape
+    for d in range(2):
+        for s, k in enumerate(sel):
+            cj = np.asarray(wj.encode(jnp.asarray(x[d, s]), jnp.int32(k)))
+            np.testing.assert_array_equal(c[d, s].numpy(), cj)
+            yj = wj.decode(jnp.asarray(cj), jnp.int32(k), x[d, s].shape)
+            np.testing.assert_array_equal(y[d, s].numpy(), np.asarray(yj))
+    assert torch.equal(wt.encode(torch.from_numpy(x), sel), c)
+    assert torch.equal(wt.decode(c, sel, x.shape), y)
 
 
 # --- quantized psum -------------------------------------------------------------
