@@ -286,6 +286,33 @@ and the script exits non-zero without printing a result:
    ``make_inputs`` batches (frames, tokens, targets) at 4 × 448: losses
    finite, step 0's within [ln V − 0.5, ln V + 1.5], no port kernel, ms per
    step, tokens/s, peak MiB.
+9d. ``decode_graph``, the compiled decode (``serve.engine.decode_program``:
+   one decode step captured as a CUDA graph, the reference's ``jax.jit``
+   of ``serve_step`` over a traced ``length``), inside phases 9–9c for
+   each of their seven bundles (tinyllama-1.1b, granite-moe-3b-a800m,
+   qwen3-moe at 8 layers, qwen2-vl-7b, mamba2-130m, jamba at 2 periods,
+   whisper-tiny) from the prefill's cache or the zero state they decode
+   from, and in ``phi3_phase`` for phi3-mini-3.8b at its published widths
+   and PHI3_LAYERS (8) of its 32 layers, from a 4 × 2048 prefill's K/V
+   quantized into its int8 ``KVCacheQ``. Each: DECODE_GRAPH_TOKENS (16)
+   greedy tokens at B 4 by ``greedy`` with ``jit=False`` (the eager step,
+   tokens kept on the card) and with ``jit=True`` (the engine's program:
+   one replay a token, each step's tokens read on the host in one copy),
+   from two copies of one state. Held: tokens, every step's logits and the
+   final state bit for bit; one replay a token; the capture's warm-up
+   under sync-debug "error" (a host sync raises); the graph's kernel
+   nodes (read from the CUDA driver, demangled) equal by name to the
+   kernels the program's body launches when run eagerly (the second of
+   two eager runs in a profiler trace, between marker kernels; taken
+   again up to PROFILE_TRIES times), so nodes × replays are the eager
+   launches. Recorded: the capture's ms and MiB, ms per token in
+   turns (graph, eager, eager, graph; medians), peak MiB of each form,
+   and a profile of each (device busy ms, idle share, host CUDA API calls
+   a token). Every ``engine_run`` (7 requests on 4 slots) runs the
+   ``ServingEngine`` in both forms, ``jit=False`` and the default (one
+   capture when the engine is made, its ms apart; one replay a step),
+   with the same tokens. Every other decode in the script pins
+   ``jit=False``.
 10. ``lm_train_phase``: the same LM trained, through the port's
    training path (``Trainer``, ``make_accum_train_step``,
    ``ModelBundle.loss``: the plain attention, no port kernel). (a) At full
@@ -369,7 +396,11 @@ tinyllama-1.1b and granite-moe-3b-a800m bundles' greedy decode at B 4
 after a 4 × 2048 prefill,
 with another tree's ``src`` (e.g. a ``git archive`` of the parent commit)
 and with this tree's, each in a process of its own, in turns (parent,
-this, this, parent, twice), four runs of 8 tokens a process.
+this, this, parent, twice), four runs of 8 tokens a process. ``greedy``
+replays the engine's captured step where the tree's package has one
+(``serve.engine.decode_program``, captured in each process's untimed
+first run) and runs the eager step where it has none: a parent without
+it is timed eager against this tree's graph.
 
 Tolerances (f32 on both sides, sums in another order): matmul kernels
 max|kernel − plain| ≤ 1e-5·max|plain|; backtrack_resnorm within rtol 1e-5
@@ -558,6 +589,17 @@ DECODE_AB_ORDER = ("parent", "this", "this", "parent") * 2
 # the dense decode, and the MoE's (its router and dispatch take their
 # own path without a mesh too)
 DECODE_AB_ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m")
+# decode_graph: greedy tokens a run, and the turns of its timing (graph,
+# eager, eager, graph)
+DECODE_GRAPH_TOKENS = 16
+DECODE_GRAPH_TURNS = (True, False, False, True)
+# phi3-mini's int8 KV cache decoded at its published widths (d 3072, 32
+# MHA heads of 96) and 8 of its 32 layers: the layer is what the graph
+# repeats, and full depth's 3.8B seeded weights would only lengthen the
+# phase
+PHI3_ARCH, PHI3_LAYERS = "phi3-mini-3.8b", 8
+# the marker kernel of a traced_kernels window: ~10 µs at 1.98 GHz
+TRACE_MARK_CYCLES = 20_000
 # lm_train_phase: tinyllama-1.1b trained at full width through Trainer.run
 # on one card's share of TRAIN_4K (sequences of 4096, global batch 4), and
 # the checks (c)-(e) at full width with the depth cut to TRAIN_CUT_LAYERS
@@ -4123,13 +4165,39 @@ def timed_ms(fn, n: int) -> float:
 
 
 def greedy(bundle, params, cache, logits, n: int, start: int,
-           pos_next=None):
+           pos_next=None, jit=None, record=None):
     """``n`` greedy tokens with ``serve_step`` from a prefill's cache and
-    logits (the cache is written in place at start, start + 1, ...); the
-    VLM's token t at the 3-D positions ``pos_next + t``."""
+    logits at positions start, start + 1, ...; the VLM's token t at the 3-D
+    positions ``pos_next + t``. ``jit`` (default: where the package has
+    it) replays the engine's captured step
+    (``serve.engine.decode_program``: the cache adopted as its buffers, or
+    copied into them; each step's tokens read on the host, as the engine
+    reads them), else the eager step writes ``cache`` in place and the
+    tokens stay on the card. Returns the tokens [B, n] on the card;
+    ``record`` (a dict) gets each step's logits and the program."""
+    from repro_torch.serve import engine
     vocab = bundle.cfg.vocab
     tok = logits[..., :vocab].argmax(-1).to(torch.int32)
+    if jit is None:
+        jit = hasattr(engine, "decode_program")
+    steps = [] if record is None else record.setdefault("logits", [])
     out = []
+    if jit:
+        batch = {"token": tok}
+        if pos_next is not None:
+            batch["positions"] = pos_next
+        prog = engine.decode_program(bundle, params, cache, batch)
+        if record is not None:
+            record["program"] = prog
+        for t in range(n):
+            tok = prog.step(tok, start + t,
+                            None if pos_next is None else pos_next + t)
+            tok = tok[:, None]
+            out.append(tok)
+            if record is not None:
+                steps.append(prog.logits.clone())
+        return torch.from_numpy(np.concatenate(out, axis=1)).to(
+            logits.device)
     for t in range(n):
         batch = {"token": tok}
         if pos_next is not None:
@@ -4138,29 +4206,298 @@ def greedy(bundle, params, cache, logits, n: int, start: int,
                                           length=start + t)
         tok = logits[..., :vocab].argmax(-1).to(torch.int32)
         out.append(tok)
+        if record is not None:
+            steps.append(logits.clone())
     return torch.cat(out, dim=1)
 
 
 def engine_run(bundle, params) -> dict:
     """``ServingEngine`` on 7 requests of 3-token prompts on 4 slots, 12 new
-    tokens each (``examples/serve_lm.py``'s), every token in the vocab."""
+    tokens each (``examples/serve_lm.py``'s), every token in the vocab, in
+    both forms: the eager step (``jit=False``) and the captured one (the
+    default on the card: one capture when the engine is made, its ms kept
+    apart, one replay a step), with the same tokens."""
+    from repro_torch.core import graphs
     from repro_torch.serve.engine import Request, ServingEngine
-    engine = ServingEngine(bundle, params, slots=4, max_len=128)
-    reqs = [Request(rid=i, prompt=[10 + i, 20 + i, 30 + i], max_new=12)
-            for i in range(7)]
+    res = {"requests": 7, "slots": 4}
+    done = {}
+    for jit in (False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine = ServingEngine(bundle, params, slots=4, max_len=128,
+                               jit=None if jit else False)
+        torch.cuda.synchronize()
+        made = time.perf_counter() - t
+        if (engine.program is not None) != jit:
+            raise AssertionError(f"engine: jit={jit} made program "
+                                 f"{engine.program}")
+        reqs = [Request(rid=i, prompt=[10 + i, 20 + i, 30 + i], max_new=12)
+                for i in range(7)]
+        # a program the bundle already holds at these shapes is reused
+        # (mamba2's state has no length: decode_graph's program serves)
+        mine = 0 if engine.program is None else engine.program.replays
+        replays, calls, step = graphs.replays, [], engine.step
+        engine.step = lambda: (calls.append(1), step())
+        t = time.perf_counter()
+        done[jit] = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = len(calls)
+        del engine.step     # the counter's cycle would keep the engine
+        form = "graph" if jit else "eager"
+        print(f"  engine ({form}): 7 requests on 4 slots in {wall:.3f} s "
+              f"(made in {made * 1e3:.1f} ms): {done[jit]}", flush=True)
+        for rid, toks in done[jit].items():
+            if len(toks) != 12 or not all(0 <= x < bundle.cfg.vocab
+                                          for x in toks):
+                raise AssertionError(f"engine: request {rid} got {toks}")
+        res[form] = {"wall_s": wall, "made_ms": made * 1e3}
+        if jit:
+            res[form]["replays"] = graphs.replays - replays
+            if engine.program.replays - mine != steps or \
+                    res[form]["replays"] != steps:
+                raise AssertionError(f"engine: {res[form]['replays']} "
+                                     f"replays for {steps} steps")
+        del engine
+    if done[True] != done[False]:
+        raise AssertionError(f"engine: the graph's tokens {done[True]} are "
+                             f"not the eager engine's {done[False]}")
+    res["wall_s"] = res["graph"]["wall_s"]
+    res["tokens"] = {str(k): v for k, v in done[True].items()}
+    return res
+
+
+def demangled(name: str) -> str:
+    """A kernel's name as the profiler's traces give it: a mangled name
+    (the CUDA driver's) through the C++ runtime's ``__cxa_demangle``, which
+    CUPTI's traces pass it through too; any other name as it is."""
+    import ctypes
+    if not name.startswith("_Z"):
+        return name
+    cxa = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    cxa.restype = ctypes.c_void_p
+    cxa.argtypes = (ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_int))
+    status = ctypes.c_int()
+    ptr = cxa(name.encode(), None, None, ctypes.byref(status))
+    if status.value or not ptr:
+        return name
+    try:
+        return ctypes.string_at(ptr).decode()
+    finally:
+        ctypes.CDLL(None).free(ctypes.c_void_p(ptr))
+
+
+def traced_kernels(run_once, reset) -> collections.Counter:
+    """The kernels one ``run_once()`` launches on the card, by name, from
+    a torch.profiler trace (copies and fills by the runtime left out).
+    A trace drops the first kernels of its window now and then (on an
+    H100, with a spin kernel ahead of them or not), so the window runs
+    ``reset()``, a marker, ``run_once()`` twice and a marker last (the
+    marker a short ``torch.cuda._sleep``, ``spin_kernel``), and the
+    count is of the kernels between the last two markers in the order
+    they ran on the one stream: the second run alone. Empty where a
+    marker is missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    print(f"  engine: 7 requests on 4 slots in {wall:.3f} s: {done}",
-          flush=True)
-    for rid, toks in done.items():
-        if len(toks) != 12 or not all(0 <= x < bundle.cfg.vocab
-                                      for x in toks):
-            raise AssertionError(f"engine: request {rid} got {toks}")
-    return {"wall_s": wall, "requests": 7, "slots": 4,
-            "tokens": {str(k): v for k, v in done.items()}}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            reset()
+            torch.cuda._sleep(TRACE_MARK_CYCLES)
+            run_once()
+        torch.cuda._sleep(TRACE_MARK_CYCLES)
+        torch.cuda.synchronize()
+    kernels = sorted((ev for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and not ev.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda ev: ev.time_range.start)
+    marks = [i for i, ev in enumerate(kernels) if "spin_kernel" in ev.name]
+    if len(marks) < 2:
+        return collections.Counter()
+    return collections.Counter(ev.name for ev in
+                               kernels[marks[-2] + 1:marks[-1]])
+
+
+def decode_graph(label, bundle, params, state, logits, start: int,
+                 pos_next=None) -> dict:
+    """The compiled decode against the eager one (the module docstring,
+    phase 9d): DECODE_GRAPH_TOKENS greedy tokens from copies of ``state``
+    at ``start`` (the VLM at ``pos_next + t``) by ``greedy`` in each form.
+    Held: tokens, every step's logits and the final state bit for bit, one
+    replay a token, the graph's kernel nodes (from the CUDA driver) equal
+    by name to the kernels the program's body launches run eagerly (a
+    profiler trace of one body, taken again up to PROFILE_TRIES times)
+    and so, × replays, to the eager launches of the run. Recorded: the
+    capture's ms (two eager warm-ups, the second under sync-debug
+    "error", then the capture), ms per token in DECODE_GRAPH_TURNS
+    (medians), each form's peak MiB, and a profile of each form (device
+    busy ms, idle share, host CUDA API calls a token)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    from repro_torch.core import graphs
+    from repro_torch.serve.engine import decode_program
+    n = DECODE_GRAPH_TOKENS
+    vocab = bundle.cfg.vocab
+
+    def copy():
+        return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                        else x, state)
+
+    def tensors(tree):
+        return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+    res = {"tokens": n, "batch": int(logits.shape[0]), "start": start}
+    rec = {False: {}, True: {}}
+    toks, peak, above = {}, {}, {}
+    s_eager, s_graph = copy(), copy()
+    toks[False], peak[False], above[False] = peak_of(lambda: greedy(
+        bundle, params, s_eager, logits, n, start, pos_next, False,
+        rec[False]))
+    batch = {"token": toks[False][:, :1].to(torch.int32)}
+    if pos_next is not None:
+        batch["positions"] = pos_next
+    graphs.debug_programs.clear()
+    graphs.debug = True             # the capture keeps its nodes
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        prog = decode_program(bundle, params, s_graph, batch)
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t) * 1e3
+        capture_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    finally:
+        graphs.debug = False
+        graphs.debug_programs.clear()
+    del s_graph
+    replays = prog.replays
+    toks[True], peak[True], above[True] = peak_of(lambda: greedy(
+        bundle, params, prog.state, logits, n, start, pos_next, True,
+        rec[True]))
+    if rec[True]["program"] is not prog or prog.replays - replays != n:
+        raise AssertionError(f"decode graph {label}: "
+                             f"{prog.replays - replays} replays for {n} "
+                             f"tokens (or a new program)")
+    if not torch.equal(toks[True], toks[False]):
+        raise AssertionError(f"decode graph {label}: tokens {toks[True]} "
+                             f"against eager {toks[False]}")
+    for i, (a, b) in enumerate(zip(rec[True]["logits"], rec[False]["logits"],
+                                   strict=True)):
+        if not torch.equal(a, b):
+            d = float((a - b).abs().max())
+            raise AssertionError(f"decode graph {label}: step {i}'s logits "
+                                 f"differ from eager's by max |Δ| {d:.3e}")
+    for i, (a, b) in enumerate(zip(tensors(prog.state), tensors(s_eager),
+                                   strict=True)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode graph {label}: state leaf {i} "
+                                 f"{tuple(a.shape)} differs from eager's")
+    if bool((toks[True] < 0).any()) or bool((toks[True] >= vocab).any()):
+        raise AssertionError(f"decode graph {label}: a token outside the "
+                             f"vocab")
+    del rec
+    nodes = collections.Counter(demangled(k) for k in graph_kernel_names(
+        prog.program.graph))
+    for attempt in range(PROFILE_TRIES):
+        eager = traced_kernels(lambda: prog.program.step(prog._fn,
+                                                         eager=True),
+                               prog.program.row.zero_)
+        if eager == nodes:
+            break
+    else:
+        raise AssertionError(
+            f"decode graph {label}: the graph's kernel nodes and the body's "
+            f"eager launches differ in {PROFILE_TRIES} traces: nodes only "
+            f"{dict(nodes - eager)}, eager only {dict(eager - nodes)}")
+    res.update(capture_ms=capture_ms, capture_above_mib=capture_peak,
+               sync_debug="error", replays=n,
+               nodes_per_replay=sum(nodes.values()),
+               node_launches=sum(nodes.values()) * n,
+               kernel_names=len(nodes), traces_taken=attempt + 1)
+    states = {True: prog.state, False: s_eager}
+    samples = {True: [], False: []}
+
+    def run(jit):
+        return greedy(bundle, params, states[jit], logits, n, start,
+                      pos_next, jit)
+    for jit in DECODE_GRAPH_TURNS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(jit)
+        torch.cuda.synchronize()
+        samples[jit].append((time.perf_counter() - t) / n * 1e3)
+    for jit in (True, False):
+        r = res["graph" if jit else "eager"] = {
+            "ms_per_token_samples": samples[jit],
+            "ms_per_token": float(np.median(samples[jit])),
+            "peak_mib": peak[jit], "above_mib": above[jit]}
+        r["profile"] = graph_profile(f"decode {label}", lambda jit=jit:
+                                     run(jit), n, r["ms_per_token"])
+    g, e = res["graph"], res["eager"]
+    print(f"decode graph {label}: {n} tokens at B {res['batch']} from "
+          f"{start}, bitwise equal to eager (tokens, logits, state), "
+          f"{n} replays; {res['nodes_per_replay']} kernel nodes a replay "
+          f"({res['kernel_names']} names) = the body's eager launches "
+          f"(trace {res['traces_taken']}); capture {capture_ms:.1f} ms "
+          f"(+{capture_peak:.1f} MiB)", flush=True)
+    for name, r in (("graph", g), ("eager", e)):
+        p = r["profile"]
+        busy = ("not measured" if p["device_busy_ms"] is None else
+                f"{p['device_busy_ms']:.3f}")
+        idle = ("not measured" if p["idle_share"] is None else
+                f"{p['idle_share']:.3f}")
+        print(f"  {name}: ms per token {r['ms_per_token']:.3f} (turns "
+              f"{[round(x, 3) for x in r['ms_per_token_samples']]}); device "
+              f"busy {busy} ms, idle share {idle}, host CUDA API calls "
+              f"{p['api_calls']:.1f} a token; peak {r['peak_mib']:.1f} MiB "
+              f"({r['above_mib']:.1f} above the base)", flush=True)
+    return res
+
+
+def phi3_phase(dev) -> dict:
+    """phi3-mini-3.8b at its published widths and PHI3_LAYERS of its
+    layers (module docstring, phase 9d): a prefill of LM_BATCH ×
+    LM_PROMPT tokens (finite logits), its K/V quantized into the config's
+    int8 ``KVCacheQ`` (``cache_update_q`` per layer, as decode writes
+    it), then ``decode_graph`` from that cache, and the engine in both
+    forms."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import build
+    cfg = dataclasses.replace(get_arch(PHI3_ARCH), n_layers=PHI3_LAYERS)
+    bundle = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                           device=dev, dtype=torch.int32)
+    max_len = LM_PROMPT + DECODE_GRAPH_TOKENS
+    print(f"LM phi3: {cfg.name} at {cfg.n_layers} of "
+          f"{get_arch(PHI3_ARCH).n_layers} layers, {bundle.n_params():,} "
+          f"parameters, int8 KV cache", flush=True)
+    out = {"layers": cfg.n_layers, "n_params": bundle.n_params()}
+    with torch.inference_mode():
+        logits, kv = bundle.prefill(params, {"tokens": tokens}, max_len)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("phi3 prefill: logits not finite")
+        state = bundle.serve_state_shape(ShapeConfig(
+            "decode", max_len, LM_BATCH, "decode"))
+        if not isinstance(state, L.KVCacheQ):
+            raise AssertionError(f"phi3: the decode state is {type(state)}")
+        for i in range(cfg.n_layers):
+            L.cache_update_q(L.KVCacheQ(state.k[i], state.v[i],
+                                        state.k_scale[i], state.v_scale[i],
+                                        0),
+                             kv.k[i, :, :LM_PROMPT], kv.v[i, :, :LM_PROMPT])
+        del kv
+        state = state._replace(length=LM_PROMPT)
+        out["decode_graph"] = decode_graph(cfg.name, bundle, params, state,
+                                           logits, LM_PROMPT)
+        del state, logits
+    out["engine"] = engine_run(bundle, params)
+    return {"LM_phi3": out}
 
 
 def lm_vs_f32(cfg, dev, bundle, plain, params, batch, max_len,
@@ -4284,16 +4621,18 @@ def lm_phase(dev, cfg):
             "max_abs_dlogit": max_d, "rel_l2": rel_l2,
             "rel_l2_to_f32": vs32, "profile": prof}
 
-        greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT)  # warm
+        greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT,
+               jit=False)                                    # warm
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        toks = greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT)
+        toks = greedy(bundle, params, cache, logits, LM_DECODE, LM_PROMPT,
+                      jit=False)
         torch.cuda.synchronize()
         ms_tok = (time.perf_counter() - t) / LM_DECODE * 1e3
         dcounts = ops.launch_counts()
         toks_p = greedy(plain, params, cache_p, logits_p, LM_DECODE,
-                        LM_PROMPT)
+                        LM_PROMPT, jit=False)
         agree = int((toks == toks_p).sum())
         print(f"  decode: {LM_DECODE} greedy tokens at B {LM_BATCH}, "
               f"{ms_tok:.3f} ms per token; launches {dcounts}; kernel and "
@@ -4312,6 +4651,8 @@ def lm_phase(dev, cfg):
         out["LM_decode"] = {"launches": dcounts, "iterations": LM_DECODE,
                             "ms_per_token": ms_tok, "tokens_agree": agree,
                             "tokens": toks.numel(), "profile": dprof}
+        out["LM_decode_graph"] = decode_graph(cfg.name, bundle, params,
+                                              cache, logits, LM_PROMPT)
         del cache, cache_p, logits_p
 
     out["LM_engine"] = engine_run(bundle, params)
@@ -4487,7 +4828,8 @@ def family_decode(dev, cfg, bundle, plain, params, pre, n_prompt,
     vocab = cfg.vocab
 
     def run(b, c, lg):
-        return greedy(b, params, c, lg, LM_DECODE, n_prompt, pos_next)
+        return greedy(b, params, c, lg, LM_DECODE, n_prompt, pos_next,
+                      jit=False)
 
     with route_log() as picks:            # warm-up; the timed run repeats it
         run(bundle, cache, logits)
@@ -4523,7 +4865,9 @@ def family_decode(dev, cfg, bundle, plain, params, pre, n_prompt,
     return {"ms_per_token": ms_tok, "einsum_floor_ms": floor_einsum,
             "floor_ms": floor, "peak_mib": peak,
             "launches": counts, "tokens_agree": agree,
-            "tokens": toks.numel(), "profile": prof}
+            "tokens": toks.numel(), "profile": prof,
+            "graph": decode_graph(cfg.name, bundle, params, cache, logits,
+                                  n_prompt, pos_next)}
 
 
 def family_gather(cfg, bundle, params, batch, max_len, picks) -> dict:
@@ -5018,13 +5362,14 @@ def seq_decode(cfg, bundle, params, make_state, logits) -> dict:
     of one step."""
     from repro_torch.kernels import ops
     with route_log() as picks:            # warm-up; the timed run repeats it
-        greedy(bundle, params, make_state(), logits, LM_DECODE, 0)
+        greedy(bundle, params, make_state(), logits, LM_DECODE, 0,
+               jit=False)
     state = make_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    toks = greedy(bundle, params, state, logits, LM_DECODE, 0)
+    toks = greedy(bundle, params, state, logits, LM_DECODE, 0, jit=False)
     torch.cuda.synchronize()
     ms_tok = (time.perf_counter() - t) / LM_DECODE * 1e3
     counts = ops.launch_counts()
@@ -5043,9 +5388,12 @@ def seq_decode(cfg, bundle, params, make_state, logits) -> dict:
         raise AssertionError(f"decode launched a port kernel: {counts}")
     prof = profile_phase(f"{cfg.name} decode step", lambda: bundle.serve_step(
         params, state, {"token": toks[:, :1]}, length=LM_DECODE), ms_tok)
+    del state
     return {"ms_per_token": ms_tok, "einsum_floor_ms": floor_einsum,
             "floor_ms": floor, "state_bytes": sbytes, "peak_mib": peak,
-            "launches": counts, "tokens": toks.numel(), "profile": prof}
+            "launches": counts, "tokens": toks.numel(), "profile": prof,
+            "graph": decode_graph(cfg.name, bundle, params, make_state(),
+                                  logits, 0)}
 
 
 def decode_vs_forward(dev, cfg, bundle, params, batch) -> dict:
@@ -5236,9 +5584,9 @@ def lm_seq_phase(dev) -> dict:
                 bundle, params, batch, max_len), logits)
             if cfg.moe is not None:
                 toks_e = greedy(bundle, params, seq_state(
-                    bundle, params, batch, max_len), logits, 8, 0)
+                    bundle, params, batch, max_len), logits, 8, 0, jit=False)
                 toks_g = greedy(gather, params, seq_state(
-                    gather, params, batch, max_len), logits, 8, 0)
+                    gather, params, batch, max_len), logits, 8, 0, jit=False)
                 r["gather"]["decode_tokens_agree"] = int(
                     (toks_e == toks_g).sum())
                 print(f"  gather decode: 8 greedy tokens at B {LM_BATCH}, "
@@ -6546,6 +6894,8 @@ def main() -> int:
     runs.update(lm_family_phase(device))
     torch.cuda.empty_cache()
     runs.update(lm_seq_phase(device))
+    torch.cuda.empty_cache()
+    runs.update(phi3_phase(device))
     torch.cuda.empty_cache()
     runs.update(lm_train_phase(device, get_arch(LM_ARCH)))
     torch.cuda.empty_cache()

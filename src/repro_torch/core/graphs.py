@@ -36,8 +36,11 @@ runs its iterations on a CUDA device through a :class:`ChunkProgram`:
   alive): a graph's temporaries are dead between its replays, since it
   reads only the buffers and its args and writes only the buffers and its
   history, all outside the pool, so graphs may share it. The allocator's
-  cache is emptied before each capture (no block may be freed while one
-  runs).
+  cache is emptied and Python's garbage collected before each capture,
+  and the collector is off while one runs: no block may be freed, and no
+  graph destroyed, inside a capture. A call that invalidates a capture
+  without raising is named as the one that broke it (the driver's
+  capture status is read after each torch call of the capture).
 
 Programs are cached per ``step_fn`` (held weakly, as the reference's jit
 is keyed by the static ``step_fn``) and per signature: the tree of the
@@ -59,6 +62,7 @@ phase reads from the CUDA driver.
 """
 from __future__ import annotations
 
+import gc
 import weakref
 from typing import Dict, List
 
@@ -83,6 +87,7 @@ debug_programs: List["ChunkProgram"] = []
 # device -> the side stream of every warm-up and capture there (each new
 # stream would get a cuBLAS workspace of its own)
 _SIDE = {}
+_IS_CAPTURING = None    # the driver's cuStreamIsCapturing, once loaded
 
 
 # ---------------------------------------------------------------------------
@@ -182,21 +187,43 @@ def on_cuda(state) -> bool:
                  if _is_tensor(x)), False)
 
 
+def _capture_invalidated(stream) -> bool:
+    """Whether the capture on ``stream`` was invalidated: a call the
+    capture may not make (a synchronising or allocating one in a library)
+    ends it without raising, and only a later call fails. Asks the CUDA
+    driver (``cuStreamIsCapturing``; status 2 is
+    CU_STREAM_CAPTURE_STATUS_INVALIDATED)."""
+    import ctypes
+    global _IS_CAPTURING
+    if _IS_CAPTURING is None:
+        _IS_CAPTURING = ctypes.CDLL("libcuda.so.1").cuStreamIsCapturing
+    status = ctypes.c_int()
+    rc = _IS_CAPTURING(ctypes.c_void_p(stream.cuda_stream),
+                       ctypes.byref(status))
+    return rc == 0 and status.value == 2
+
+
 class _LastCall(TorchFunctionMode):
     """Remembers the first torch call that raised (the op that broke a
-    warm-up or a capture)."""
+    warm-up or a capture) or, with ``stream`` (a capture's), the first
+    after which the capture on it was invalidated."""
 
     def __init__(self):
         super().__init__()
         self.failed = None
+        self.stream = None
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         try:
-            return func(*args, **(kwargs or {}))
+            out = func(*args, **(kwargs or {}))
         except Exception:
             if self.failed is None:
                 self.failed = func
             raise
+        if self.failed is None and self.stream is not None and \
+                _capture_invalidated(self.stream):
+            self.failed = func
+        return out
 
 
 def _name(fn) -> str:
@@ -207,14 +234,28 @@ def _name(fn) -> str:
 class StateBuffers:
     """One buffer per leaf of a state, each of its own storage, shared by
     every program over a state of this signature (see the module
-    docstring). Non-tensor leaves are static."""
+    docstring). Non-tensor leaves are static. With ``adopt`` the buffers
+    are the caller's own tensors (a leaf whose storage an earlier leaf
+    holds is cloned), as if lent to the caller: no clone of a large state
+    (a KV cache), and the caller's state is never overwritten by another
+    state while the caller holds it."""
 
-    def __init__(self, leaves, spec):
+    def __init__(self, leaves, spec, adopt: bool = False):
         self.spec = spec
-        self.bufs = [x.clone() if _is_tensor(x) else x for x in leaves]
+        self._lent = []             # weak refs to the leaves last returned
+        if not adopt:
+            self.bufs = [x.clone() if _is_tensor(x) else x for x in leaves]
+        else:
+            self.bufs, seen = [], set()
+            for x in leaves:
+                own = _is_tensor(x) and _storage(x) not in seen
+                if own:
+                    seen.add(_storage(x))
+                self.bufs.append(x.detach() if own else
+                                 x.clone() if _is_tensor(x) else x)
+                self._lent.append(weakref.ref(x) if own else None)
         self.device = next((x.device for x in self.bufs if _is_tensor(x)),
                            torch.device("cpu"))
-        self._lent = []             # weak refs to the leaves last returned
 
     def lent_alive(self, leaves) -> bool:
         """Whether a state these buffers lent is still held by someone and
@@ -338,14 +379,21 @@ class ChunkProgram:
         if err is None:
             self.row.zero_()
             # as torch.cuda.graph does: no cached block may be freed while
-            # a capture runs, so free them before
+            # a capture runs, so free them before; and no garbage either
+            # (an unreachable CUDA graph's destructor, run by the cyclic
+            # collector inside a capture, invalidates it), so collect it
+            # before and keep the collector off while the capture runs
             torch.cuda.synchronize(dev)
+            gc.collect()
             torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph(keep_graph=debug)
             # the pool of a graph alive on this device, if there is one
             pool = next((p.graph.pool() for p in programs()
                          if p.graph is not None and p.device == dev), None)
             before = counter_snapshot()
+            tracker.stream = side
+            collecting = gc.isenabled()
+            gc.disable()
             with torch.cuda.stream(side):
                 graph.capture_begin(pool=pool)
                 try:
@@ -359,6 +407,8 @@ class ChunkProgram:
                     except RuntimeError as e:
                         if err is None:
                             err = ("capture", e)
+                    if collecting:
+                        gc.enable()
             main.wait_stream(side)
             self.delta = counter_delta(before, counter_snapshot())
             _undo(before)
@@ -375,8 +425,15 @@ class ChunkProgram:
                 f"{type(e).__name__}: {e}") from e
 
     # -- running -------------------------------------------------------------
-    def step(self, step_fn) -> None:
+    def step(self, step_fn, eager: bool = False) -> None:
+        """One iteration: a replay, or the body run eagerly where there is
+        no graph (counted as a replay). With ``eager`` the body runs
+        eagerly all the same, uncounted: what a replay launches, one
+        launch at a time."""
         global replays
+        if eager:
+            self._body(step_fn)
+            return
         if self.graph is None:
             self._body(step_fn)
         else:
@@ -407,13 +464,22 @@ class ChunkProgram:
         return pytree.tree_map(lambda x: x[0], self._read(1))
 
 
-def program_for(step_fn, state, args, capacity: int) -> ChunkProgram:
+def state_signature(state) -> tuple:
+    """The tree of ``state`` and each leaf's shape, dtype and device: the
+    key of the buffers its programs share."""
+    leaves, spec = pytree.tree_flatten(state)
+    return _state_signature(spec, leaves)
+
+
+def program_for(step_fn, state, args, capacity: int,
+                adopt: bool = False) -> ChunkProgram:
     """The cached program of ``step_fn`` at this state's and args'
     signature over the buffers of the state's signature, built (and
     captured, on CUDA) on a miss. Buffers whose last returned state is
     still held, while this call brings another state, are replaced by new
     ones, and the programs over them go: the held state keeps the old
-    storage."""
+    storage. New buffers clone the state, or with ``adopt`` take its
+    tensors as they are (``StateBuffers``)."""
     leaves, spec = pytree.tree_flatten(state)
     ssig = _state_signature(spec, leaves)
     bufs = _BUFFERS.get(ssig)
@@ -423,7 +489,7 @@ def program_for(step_fn, state, args, capacity: int) -> ChunkProgram:
                 del table[k]
         bufs = None
     if bufs is None:
-        bufs = _BUFFERS[ssig] = StateBuffers(leaves, spec)
+        bufs = _BUFFERS[ssig] = StateBuffers(leaves, spec, adopt)
     sig = (ssig, _args_signature(args))
     table = _PROGRAMS.setdefault(step_fn, {})
     prog = table.get(sig)

@@ -227,17 +227,20 @@ class ModelBundle:
     def serve_step(self, params, state, batch, *, length):
         """One greedy-decode step for every sequence: the new token's KV row
         (or SSM state) is written in place, at ``length`` for a KV cache;
-        mamba2 ignores ``length``, as the reference does. Returns (logits
-        [B,1,Vp] f32, the state one token on)."""
+        mamba2 ignores ``length``, as the reference does. ``length`` is an
+        int or a 0-d int tensor on the bundle's device (the reference's
+        traced ``jnp.int32``), which no family reads on the host. Returns
+        (logits [B,1,Vp] f32, the state one token on)."""
         cfg = self.cfg
+        if not isinstance(length, torch.Tensor):
+            length = int(length)
         if self._mod is transformer:
             return transformer.decode_step(cfg, params,
-                                           state._replace(length=int(length)),
+                                           state._replace(length=length),
                                            batch, moe_impl=self.moe_impl,
                                            rules=self.rules)
         return self._mod.decode_step(cfg, params, state, batch,
-                                     length=int(length),
-                                     moe_impl=self.moe_impl,
+                                     length=length, moe_impl=self.moe_impl,
                                      rules=self.rules)
 
     def prefill(self, params, batch, max_len: int):

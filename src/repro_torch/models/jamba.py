@@ -200,12 +200,15 @@ def init_decode_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     return state
 
 
-def decode_step(cfg, params, state, batch, *, length: int,
+def decode_step(cfg, params, state, batch, *, length,
                 moe_impl="einsum", rules=None, **_):
     """One token for every sequence: the attention's new K/V row written at
-    ``length`` and the mixers' states, each in the period's view of the
-    stacked ``state`` (in place; on a mesh into each rank's shard).
-    Returns (logits [B,1,Vp] f32, the state)."""
+    ``length`` (an int, or a 0-d tensor read on the device) and the
+    mixers' states, each in the period's view of the stacked ``state`` (in
+    place; on a mesh into each rank's shard). Returns (logits [B,1,Vp]
+    f32, the state)."""
+    if not isinstance(length, torch.Tensor):
+        length = int(length)
     x = constrain(embed_tokens(params, batch["token"]), None, ACT, rules)
     positions = _positions(cfg)
     B = x.shape[0]
@@ -215,7 +218,7 @@ def decode_step(cfg, params, state, batch, *, length: int,
             if mixer == "attn":
                 q, k, v = _qkv(cfg, b["attn"], x, rules, split_kv=False)
                 cache = L.cache_update(L.KVCache(st[0][j], st[1][j],
-                                                 int(length)), k, v)
+                                                 length), k, v)
                 o = L.decode_attention(q, cache)
                 x = constrain(x + o.reshape(B, 1, cfg.n_heads * cfg.hd)
                               @ b["attn"]["wo"], None, ACT, rules)

@@ -227,9 +227,13 @@ def _per_head_on_mesh(fn, q, k, v):
 
 
 class KVCache(NamedTuple):
+    """``length`` (the tokens filled) is an int, or a 0-d int tensor on the
+    cache's device as the reference's ``[] int32``: decode then reads and
+    moves the position on the device alone (what a captured decode step
+    needs). Prefill, the dry run and the mesh give an int."""
     k: torch.Tensor  # [..., B, T, Hkv, D]
     v: torch.Tensor
-    length: int      # tokens filled
+    length: int      # tokens filled: an int or a 0-d int tensor
 
     @staticmethod
     def zeros(batch, max_len, n_kv, head_dim, dtype=torch.bfloat16,
@@ -241,13 +245,23 @@ class KVCache(NamedTuple):
                        torch.zeros(shp, dtype=dtype, device=device), 0)
 
 
-def _write_at(buf, new, idx: int):
-    """buf[:, idx:idx+n] = new, in place, with the start clamped into range
-    as ``lax.dynamic_update_slice`` clamps it. A DTensor ``buf`` sharded
-    along dim 1 (a sequence-sharded cache) is written in the shard that
-    holds the rows; ``new`` comes to ``buf``'s other shards first."""
-    n = new.shape[1]
-    start = min(max(int(idx), 0), buf.shape[1] - n)
+def _write_at(buf, new, idx):
+    """buf[:, idx:idx+n] = new, in place, with the start placed as
+    ``lax.dynamic_update_slice`` places it (jax 0.9): a negative start
+    counts from the end (+ T), then the start is clamped into [0, T − n].
+    A tensor ``idx`` (0-d, on ``buf``'s device) is read on the device: the
+    rows start + arange(n) are written by ``index_copy_``, with no host
+    read. A DTensor ``buf`` sharded along dim 1 (a sequence-sharded cache)
+    is written in the shard that holds the rows (an int ``idx``); ``new``
+    comes to ``buf``'s other shards first."""
+    n, T = new.shape[1], buf.shape[1]
+    if isinstance(idx, torch.Tensor) and not _is_dtensor(buf):
+        start = torch.where(idx < 0, idx + T, idx).clamp(0, T - n)
+        buf.index_copy_(1, start + torch.arange(n, device=buf.device),
+                        new.to(buf.dtype))
+        return
+    start = int(idx)
+    start = min(max(start + T if start < 0 else start, 0), T - n)
     if not _is_dtensor(buf):
         buf[:, start:start + n] = new.to(buf.dtype)
         return
@@ -264,10 +278,19 @@ def _write_at(buf, new, idx: int):
 
 
 def cache_update(cache: KVCache, k_new, v_new) -> KVCache:
-    """Insert [B,n,Hkv,D] at cache.length (in place)."""
+    """Insert [B,n,Hkv,D] at cache.length (in place); the new length is
+    length + n, a tensor where ``length`` is one."""
     _write_at(cache.k, k_new, cache.length)
     _write_at(cache.v, v_new, cache.length)
-    return KVCache(cache.k, cache.v, int(cache.length) + k_new.shape[1])
+    return KVCache(cache.k, cache.v, _advance(cache.length, k_new.shape[1]))
+
+
+def _advance(length, n: int):
+    """length + n: an int for an int, a tensor (on the device) for a
+    tensor."""
+    if isinstance(length, torch.Tensor):
+        return length + n
+    return int(length) + n
 
 
 class KVCacheQ(NamedTuple):
@@ -277,7 +300,7 @@ class KVCacheQ(NamedTuple):
     v: torch.Tensor
     k_scale: torch.Tensor  # f32 [..., B, T, Hkv]
     v_scale: torch.Tensor
-    length: int
+    length: int            # an int or a 0-d int tensor, as ``KVCache``'s
 
     @staticmethod
     def zeros(batch, max_len, n_kv, head_dim, dtype=torch.bfloat16,
@@ -316,7 +339,7 @@ def cache_update_q(cache: KVCacheQ, k_new, v_new) -> KVCacheQ:
                      (cache.v_scale, vs)):
         _write_at(buf, new, idx)
     return KVCacheQ(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                    int(idx) + k_new.shape[1])
+                    _advance(idx, k_new.shape[1]))
 
 
 def decode_attention_q(q, cache: KVCacheQ, dtype=torch.bfloat16):

@@ -365,14 +365,20 @@ def decode_step(cfg, params, cache, batch, *, moe_impl="einsum",
     """One token for every sequence. cache leaves: [L,B,T,Hkv,hd] (a
     ``KVCache`` or ``KVCacheQ``), written in place at ``cache.length``;
     returns (logits [B,1,Vp] f32, the cache at length + 1). The VLM reads
-    the token's 3-D positions from ``batch["positions"]`` [B,1,3]."""
+    the token's 3-D positions from ``batch["positions"]`` [B,1,3]. A 0-d
+    tensor ``cache.length`` stays on the device: the positions are it,
+    broadcast to [B, 1], and no step reads it on the host."""
     token = batch["token"]                                  # [B,1]
     B = token.shape[0]
     x = constrain(embed_tokens(params, token), None, ACT, rules)
-    pos = int(cache.length)
+    pos = cache.length
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     quant = isinstance(cache, L.KVCacheQ)
     if cfg.mrope_sections is not None:
         positions = _caller_positions(batch, x)              # [B,1,3]
+    elif isinstance(pos, torch.Tensor):
+        positions = on_mesh_of(pos.reshape(1, 1).expand(B, 1), x)
     else:
         positions = on_mesh_of(torch.full((B, 1), pos, dtype=torch.int64,
                                           device=x.device), x)
@@ -386,4 +392,4 @@ def decode_step(cfg, params, cache, batch, *, moe_impl="einsum",
                             rules=rules)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = (x @ _head_weight(cfg, params)).float()
-    return logits, cache._replace(length=pos + 1)
+    return logits, cache._replace(length=L._advance(pos, 1))

@@ -185,21 +185,27 @@ def precompute_cross(cfg, params, frames, *, use_kernel: bool = False,
     return torch.stack(ks), torch.stack(vs)
 
 
-def decode_step(cfg, params, state, batch, *, length: int, rules=None,
-                **_):
+def decode_step(cfg, params, state, batch, *, length, rules=None, **_):
     """One token for every sequence at position ``length``: its self K/V row
     written there (in place), attended with the rows before it, then
     cross-attention over every row of the cross K/V. Returns (logits
     [B,1,Vp] f32, the state). The position's sinusoid is row ``length`` of
-    a [max_len, d] table, the index clamped into range as JAX clamps it."""
+    a [max_len, d] table, the index wrapped (a negative one from the end)
+    and clamped into range as JAX indexes with a traced scalar. A 0-d
+    tensor ``length`` is read on the device alone (``index_select``)."""
     token = batch["token"]
     B = token.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     T = int(state["self_k"].shape[2])
-    idx = int(length)
-    idx = min(max(idx + T if idx < 0 else idx, 0), T - 1)
     x = embed_tokens(params, token)
-    row = sinusoidal(T, cfg.d_model, x.device)[idx][None, None]
+    table = sinusoidal(T, cfg.d_model, x.device)
+    if isinstance(length, torch.Tensor):
+        idx = torch.where(length < 0, length + T, length).clamp(0, T - 1)
+        row = table.index_select(0, idx.reshape(1))[None]
+    else:
+        length = int(length)
+        idx = min(max(length + T if length < 0 else length, 0), T - 1)
+        row = table[idx][None, None]
     x = constrain(x + on_mesh_of(row.to(x.dtype), x), None, ACT, rules)
     F_ = state["cross_k"].shape[2]
     for i, p in enumerate(unstack(params["decoder"])):
@@ -208,8 +214,7 @@ def decode_step(cfg, params, state, batch, *, length: int, rules=None,
         k = _heads(project(h, p["wk"]), H, hd, "act_heads", rules)
         v = _heads(project(h, p["wv"]), H, hd, "act_heads", rules)
         cache = L.cache_update(L.KVCache(state["self_k"][i],
-                                         state["self_v"][i], int(length)),
-                               k, v)
+                                         state["self_v"][i], length), k, v)
         o = L.decode_attention(q, cache)
         x = constrain(x + project(o.reshape(B, 1, H * hd), p["wo"]),
                       None, ACT, rules)
